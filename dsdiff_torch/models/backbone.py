@@ -1,0 +1,199 @@
+"""U-Net encoder / middle / decoder components.
+
+Port of the JAX package's ``models/backbone.py:87-176`` with the
+``AttentionBlock`` path (``SpatialTransformer`` comes with ROADMAP A17).
+Submodules carry the Flax names (``down_{level}_{i}_res``, ``mid_attn``,
+``up_{level}_us``, ...). Maps are NCHW. Unlike Flax, a PyTorch layer needs
+its input width up front, so each component takes its ``in_channels`` and
+records the widths it produces.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import AttentionBlock
+from .layers import Conv, Downsample, GroupNorm32, ResBlock, Upsample, zero_init
+
+__all__ = ["UNetEncoder", "UNetMiddle", "UNetDecoder", "OutHead"]
+
+
+class _Common(nn.Module):
+    def __init__(
+        self,
+        model_channels: int = 96,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4, 8),
+        dropout: float = 0.0,
+        channel_mult: Sequence[int] = (1, 2, 4, 8),
+        conv_resample: bool = True,
+        num_heads: int = 8,
+        num_head_channels: int = -1,
+        use_scale_shift_norm: bool = False,
+        resblock_updown: bool = False,
+        use_spatial_transformer: bool = False,
+        transformer_depth: int = 1,
+        use_fft_attention: bool = False,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if use_spatial_transformer or use_fft_attention:
+            raise NotImplementedError(
+                "SpatialTransformer / FFT attention are not ported yet "
+                "(ROADMAP A17)"
+            )
+        self.model_channels = model_channels
+        self.num_res_blocks = num_res_blocks
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.dropout = dropout
+        self.channel_mult = tuple(channel_mult)
+        self.conv_resample = conv_resample
+        self.num_heads = num_heads
+        self.num_head_channels = num_head_channels
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.resblock_updown = resblock_updown
+        # the timestep embedding's width, as every U-Net family builds it
+        self.emb_dim = 4 * model_channels
+        self.dtype = dtype
+        # forward order: (name, kind) with kind in res | attn | resample
+        self.plan: list[tuple[str, str]] = []
+
+    def _add(self, name: str, kind: str, module: nn.Module) -> None:
+        self.add_module(name, module)
+        self.plan.append((name, kind))
+
+    def _res(self, name: str, ch: int, out_ch: int, **kw) -> None:
+        self._add(name, "res", ResBlock(
+            ch, self.emb_dim, out_ch, dropout=self.dropout,
+            use_scale_shift_norm=self.use_scale_shift_norm, dtype=self.dtype,
+            **kw,
+        ))
+
+    def _attn(self, name: str, ch: int) -> None:
+        self._add(name, "attn", AttentionBlock(
+            ch, self.num_heads, self.num_head_channels, dtype=self.dtype
+        ))
+
+    def _run(self, name: str, kind: str, h: torch.Tensor, emb: torch.Tensor):
+        block = getattr(self, name)
+        return block(h, emb) if kind == "res" else block(h)
+
+
+class UNetEncoder(_Common):
+    """in-conv + down stages; ``forward`` returns (h, skips) with one skip
+    per block. ``skip_channels`` and ``out_channels`` record the widths."""
+
+    def __init__(self, in_channels: int, **kw):
+        super().__init__(**kw)
+        ch0 = self.model_channels
+        self.in_conv = Conv(in_channels, ch0, 3, padding=1, dtype=self.dtype)
+        self.skip_channels = [ch0]
+        self.skip_after: set[str] = set()
+        ch, ds = ch0, 1
+        last = len(self.channel_mult) - 1
+        for level, mult in enumerate(self.channel_mult):
+            for i in range(self.num_res_blocks):
+                self._res(f"down_{level}_{i}_res", ch, mult * ch0)
+                ch = mult * ch0
+                if ds in self.attention_resolutions:
+                    self._attn(f"down_{level}_{i}_attn", ch)
+                self.skip_after.add(self.plan[-1][0])
+                self.skip_channels.append(ch)
+            if level != last:
+                name = f"down_{level}_ds"
+                if self.resblock_updown:
+                    self._res(name, ch, ch, down=True)
+                else:
+                    self._add(name, "resample", Downsample(
+                        ch, self.conv_resample, dtype=self.dtype
+                    ))
+                self.skip_after.add(name)
+                self.skip_channels.append(ch)
+                ds *= 2
+        self.out_channels = ch
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor):
+        h = self.in_conv(x)
+        skips = [h]
+        for name, kind in self.plan:
+            h = self._run(name, kind, h, emb)
+            if name in self.skip_after:
+                skips.append(h)
+        return h, skips
+
+
+class UNetMiddle(_Common):
+    """res - attn - res bottleneck."""
+
+    def __init__(self, channels: int, **kw):
+        super().__init__(**kw)
+        self._res("mid_res1", channels, channels)
+        self._attn("mid_attn", channels)
+        self._res("mid_res2", channels, channels)
+
+    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        for name, kind in self.plan:
+            h = self._run(name, kind, h, emb)
+        return h
+
+
+class UNetDecoder(_Common):
+    """Up stages consuming the skip stack from its end; each res block takes
+    ``cat([h, skip])``. ``skip_channels`` are the encoder's."""
+
+    def __init__(self, in_channels: int, skip_channels: Sequence[int], **kw):
+        super().__init__(**kw)
+        skip_ch = list(skip_channels)
+        ch0 = self.model_channels
+        ch = in_channels
+        ds = 2 ** (len(self.channel_mult) - 1)
+        self.takes_skip: set[str] = set()
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
+            for i in range(self.num_res_blocks + 1):
+                name = f"up_{level}_{i}_res"
+                self._res(name, ch + skip_ch.pop(), mult * ch0)
+                self.takes_skip.add(name)
+                ch = mult * ch0
+                if ds in self.attention_resolutions:
+                    self._attn(f"up_{level}_{i}_attn", ch)
+                if level and i == self.num_res_blocks:
+                    name = f"up_{level}_us"
+                    if self.resblock_updown:
+                        self._res(name, ch, ch, up=True)
+                    else:
+                        self._add(name, "resample", Upsample(
+                            ch, self.conv_resample, dtype=self.dtype
+                        ))
+                    ds //= 2
+        if skip_ch:
+            raise ValueError("skip stack does not match the decoder")
+        self.out_channels = ch
+
+    def forward(self, h: torch.Tensor, skips: Sequence[torch.Tensor],
+                emb: torch.Tensor) -> torch.Tensor:
+        skips = list(skips)
+        for name, kind in self.plan:
+            if name in self.takes_skip:
+                h = torch.cat([h, skips.pop().to(h.dtype)], dim=1)
+            h = self._run(name, kind, h, emb)
+        if skips:
+            raise ValueError("skip stack should be empty")
+        return h
+
+
+class OutHead(nn.Module):
+    """GN + SiLU + zero-init 3x3 out conv; returns f32."""
+
+    def __init__(self, in_channels: int, out_channels: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = GroupNorm32(in_channels)
+        self.conv = zero_init(
+            Conv(in_channels, out_channels, 3, padding=1, dtype=dtype)
+        )
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.silu(self.norm(h))).float()

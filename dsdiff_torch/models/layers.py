@@ -1,0 +1,209 @@
+"""Shared building blocks of the denoisers.
+
+Port of the JAX package's ``models/layers.py``. Blocks run NCHW inside (PyTorch's
+convolution layout; a map permuted from NHWC keeps channels-last strides);
+the models take and return NHWC at their public ``forward``. Submodule names
+are the Flax module names, so ``utils.flax_bridge`` maps weights one to one.
+
+Compute dtype: ``Dense`` and ``Conv`` hold their weights in the block's
+``dtype`` and cast their input to it, as Flax's ``dtype`` attribute does.
+``GroupNorm32`` keeps f32 parameters and computes its statistics and affine
+in f32, then casts back.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "timestep_embedding",
+    "Dense",
+    "Conv",
+    "TimeEmbed",
+    "GroupNorm32",
+    "ResBlock",
+    "Upsample",
+    "Downsample",
+    "SEBlock",
+    "zero_init",
+]
+
+
+def zero_init(module: nn.Module) -> nn.Module:
+    """Zero a layer's weight and bias (output layers start at zero)."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.zero_()
+    return module
+
+
+def timestep_embedding(
+    t: torch.Tensor, dim: int, max_period: float = 10000.0
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [B] -> [B, dim], cos half first,
+    zero-padded when ``dim`` is odd."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that casts its input to its weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` that casts its input to its weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class TimeEmbed(nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal embedding."""
+
+    def __init__(self, model_channels: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.model_channels = model_channels
+        self.fc1 = Dense(model_channels, out_dim, dtype=dtype)
+        self.fc2 = Dense(out_dim, out_dim, dtype=dtype)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(t, self.model_channels)
+        return self.fc2(F.silu(self.fc1(emb)))
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with f32 statistics and affine whatever the compute dtype;
+    up to 32 groups (fewer where 32 does not divide the channels) and eps
+    1e-6, the Flax default (torch's is 1e-5)."""
+
+    EPS = 1e-6
+
+    def __init__(self, channels: int, num_groups: int = 32):
+        super().__init__()
+        groups = min(num_groups, channels)
+        while channels % groups:
+            groups -= 1
+        self.norm = nn.GroupNorm(groups, channels, eps=self.EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x.float()).to(x.dtype)
+
+
+def _upsample(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class Upsample(nn.Module):
+    """2x nearest upsample + optional 3x3 conv."""
+
+    def __init__(self, channels: int, use_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = (
+            Conv(channels, channels, 3, padding=1, dtype=dtype)
+            if use_conv else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _upsample(x)
+        return self.conv(x) if self.conv is not None else x
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv (padding 1), or 2x2 average pooling."""
+
+    def __init__(self, channels: int, use_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.op = (
+            Conv(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+            if use_conv else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.op is not None:
+            return self.op(x)
+        return F.avg_pool2d(x, 2)
+
+
+class ResBlock(nn.Module):
+    """GN+SiLU+conv residual block with FiLM timestep conditioning: the
+    scale-shift branch ``GN(h)*(1+scale)+shift`` or the additive branch
+    ``GN(h+emb)``; optional up/down resampling inside the block; a 1x1 (or
+    3x3) skip projection on a channel change; zero-init second conv."""
+
+    def __init__(self, channels: int, emb_dim: int,
+                 out_channels: int | None = None, dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False, up: bool = False,
+                 down: bool = False, use_conv_skip: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = out_channels or channels
+        self.up, self.down = up, down
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_norm = GroupNorm32(channels)
+        self.in_conv = Conv(channels, out_ch, 3, padding=1, dtype=dtype)
+        self.emb_proj = Dense(
+            emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch, dtype=dtype
+        )
+        self.out_norm = GroupNorm32(out_ch)
+        self.dropout = nn.Dropout(dropout)
+        self.out_conv = zero_init(
+            Conv(out_ch, out_ch, 3, padding=1, dtype=dtype)
+        )
+        if channels != out_ch:
+            kernel = 3 if use_conv_skip else 1
+            self.skip = Conv(channels, out_ch, kernel, padding=kernel // 2,
+                             dtype=dtype)
+        else:
+            self.skip = None
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.in_norm(x))
+        if self.up:
+            h, x = _upsample(h), _upsample(x)
+        elif self.down:
+            h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
+        h = self.in_conv(h)
+        emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = F.silu(self.out_norm(h) * (1.0 + scale) + shift)
+        else:
+            h = F.silu(self.out_norm(h + emb_out))
+        h = self.out_conv(self.dropout(h))
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation channel gate: global average pool (f32) ->
+    fc/r -> ReLU -> fc -> sigmoid -> scale."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.fc1 = Dense(channels, hidden, bias=False, dtype=dtype)
+        self.fc2 = Dense(hidden, channels, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.float().mean(dim=(2, 3))
+        s = torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
+        return x * s[:, :, None, None]

@@ -1,0 +1,104 @@
+"""Flax param tree -> PyTorch ``state_dict``.
+
+The inverse of the JAX package's ``utils/torch_io.py:233-250 to_flax``. The port's
+modules carry the Flax module names as attribute names, so a Flax path
+``encoder_0/down_0_0_res/in_norm/norm/scale`` becomes the torch key
+``encoder_0.down_0_0_res.in_norm.norm.weight`` (GroupNorm32's extra ``norm``
+level included). Leaves translate as:
+
+- conv ``kernel`` HWIO -> ``weight`` OIHW,
+- Dense ``kernel`` [in, out] -> ``weight`` [out, in],
+- norm ``scale`` -> ``weight``; ``bias`` unchanged.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["flatten_tree", "flax_to_state_dict", "random_params"]
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts of arrays -> ``{"a/b/leaf": np.ndarray}``. A top-level
+    ``{"params": ...}`` wrapper (Flax variables) is dropped."""
+    if not prefix and set(tree) == {"params"}:
+        tree = tree["params"]
+    flat: dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(flatten_tree(val, path))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def _leaf_to_torch(leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        if arr.ndim == 4:  # conv HWIO -> OIHW
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:  # Dense [in, out] -> [out, in]
+            return "weight", arr.T
+        raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
+    if leaf == "scale":
+        return "weight", arr
+    if leaf == "bias":
+        return "bias", arr
+    raise ValueError(f"unknown Flax leaf '{leaf}'")
+
+
+def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """Translate a Flax param tree onto ``model``'s ``state_dict`` keys.
+
+    Raises ``KeyError`` if any model key is missing from the tree or any tree
+    leaf is unused, and ``ValueError`` on a shape mismatch.
+    """
+    expected = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    unused = []
+    for path, arr in flatten_tree(tree).items():
+        *mods, leaf = path.split("/")
+        name, val = _leaf_to_torch(leaf, arr)
+        key = ".".join(mods + [name])
+        if key not in expected:
+            unused.append(path)
+            continue
+        if tuple(val.shape) != tuple(expected[key].shape):
+            raise ValueError(
+                f"{path}: shape {tuple(val.shape)} does not fit {key} "
+                f"{tuple(expected[key].shape)}"
+            )
+        out[key] = torch.from_numpy(np.ascontiguousarray(val, np.float32))
+    missing = sorted(set(expected) - set(out))
+    if missing or unused:
+        raise KeyError(
+            f"Flax tree does not match the model: missing {missing[:8]} "
+            f"({len(missing)}), unused {sorted(unused)[:8]} ({len(unused)})"
+        )
+    return out
+
+
+@torch.no_grad()
+def random_params(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter with seeded, scaled normals, in place.
+
+    Weights get ``N(0, 1/fan_in)``, norm scales ``1 + N(0, 0.1²)`` and biases
+    ``N(0, 0.1²)``, so the zero-initialised output layers are not zero and a
+    random model's output depends on every layer. Drawn on the CPU from a
+    ``torch.Generator`` in name order, so the fill is the same on any device.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in sorted(model.named_parameters()):
+        noise = torch.randn(p.shape, generator=gen, dtype=torch.float32)
+        if p.ndim >= 2:
+            val = noise / math.sqrt(p[0].numel())
+        elif name.endswith("norm.weight"):
+            val = 1.0 + 0.1 * noise
+        else:
+            val = 0.1 * noise
+        p.copy_(val)
+    return model

@@ -1,0 +1,105 @@
+"""The port's attention against the JAX package's.
+
+On the CPU the port's ``scaled_attention`` runs ``reference_attention``;
+it is held against the Pallas kernel run in interpret mode and against the
+JAX dispatch, in f32, atol 2e-5 (the tolerance of the JAX package's own
+interpret-mode test). The CUDA kernel itself is checked by the ``gpu``
+test, which skips where there is no card. JAX is imported inside the tests
+that use it, so the ``gpu`` test also runs where only PyTorch is installed:
+``python -m pytest --noconftest -m gpu tests/test_torch_flash_attention.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from dsdiff_torch import ops as P
+from dsdiff_torch.ops import flash_attention as PF
+
+ATOL = 2e-5
+
+
+def _qkv(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def test_reference_matches_pallas_kernel_in_interpret_mode():
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from dsdiff_tpu.ops import flash_attention as fa
+
+    q, k, v = _qkv((1, 512, 2, 48))
+    orig = pl.pallas_call
+
+    def interp(*args, **kw):
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    pl.pallas_call = interp
+    try:
+        want = fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    finally:
+        pl.pallas_call = orig
+    got = PF.reference_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 6, 48), (1, 100, 2, 16),
+                                   (2, 256, 4, 48)])
+def test_scaled_attention_on_cpu_matches_jax_dispatch(shape):
+    import jax.numpy as jnp
+
+    from dsdiff_tpu import ops as J
+
+    q, k, v = _qkv(shape, seed=1)
+    want = J.scaled_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = P.scaled_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_scaled_attention_on_cpu_does_not_launch():
+    q, k, v = map(torch.from_numpy, _qkv((1, 8, 1, 8)))
+    before = PF.LAUNCHES
+    P.scaled_attention(q, k, v)
+    assert PF.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "make, err",
+    [
+        (lambda: [torch.zeros(1, 8, 2, 8)] * 3, ValueError),  # CPU tensors
+        (lambda: [torch.zeros(1, 8, 2, 80)] * 3, ValueError),  # D > 64
+        (lambda: [torch.zeros(1, 8, 2, 8, dtype=torch.float16)] * 3, TypeError),
+        (lambda: [torch.zeros(8, 2, 8)] * 3, ValueError),  # rank
+        (lambda: [torch.zeros(1, 8, 8, 2).transpose(2, 3)] * 3, ValueError),
+        (lambda: [torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 3, 8),
+                  torch.zeros(1, 8, 3, 8)], ValueError),
+    ],
+)
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(make, err):
+    with pytest.raises(err):
+        PF.flash_attention(*make())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
+                                         (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_matches_plain_version(dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, N, H, D in [(2, 1024, 4, 48), (3, 256, 6, 48), (2, 64, 6, 48),
+                       (1, 100, 2, 64), (1, 77, 3, 16)]:
+        qkv = torch.randn(B, N, 3, H, D, generator=g, device="cuda",
+                          dtype=dtype)
+        q, k, v = qkv.unbind(2)  # strided views, as the model passes them
+        before = PF.LAUNCHES
+        got = PF.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert PF.LAUNCHES == before + 1
+        want = PF.reference_attention(q, k, v)
+        assert got.dtype == dtype and got.shape == (B, N, H, D)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= atol, (B, N, H, D, err)

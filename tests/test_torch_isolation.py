@@ -1,0 +1,55 @@
+"""The port stands alone: it imports no JAX, Flax, PyYAML (at import time)
+or dsdiff_tpu, and neither does chip_smoke.py."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import dsdiff_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "dsdiff_torch"
+
+_IMPORT_ALL = """
+import sys
+for name in ("jax", "flax", "dsdiff_tpu", "yaml"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import importlib, pkgutil
+import dsdiff_torch
+names = [m.name for m in pkgutil.walk_packages(dsdiff_torch.__path__,
+                                               "dsdiff_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and m.split(".")[0] in ("jax", "flax", "dsdiff_tpu", "yaml")]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules = len(list(pkgutil.walk_packages(dsdiff_torch.__path__,
+                                                "dsdiff_torch.")))
+    assert int(out.stdout.split()[-1]) == n_modules >= 15
+
+
+def test_no_port_file_mentions_the_reference_package_or_jax():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    assert len(files) >= 17
+    imports = re.compile(r"^\s*(import|from)\s+(jax|flax|dsdiff_tpu)\b", re.M)
+    for path in files:
+        text = path.read_text()
+        assert "dsdiff_tpu" not in text, path.relative_to(ROOT)
+        assert "import jax" not in text, path.relative_to(ROOT)
+        assert imports.search(text) is None, path.relative_to(ROOT)
+    # chip_smoke names the replaced TPU kernel's file, but imports none of it
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert imports.search(smoke) is None
+    assert "import jax" not in smoke and "import yaml" not in smoke
