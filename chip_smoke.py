@@ -4,18 +4,29 @@
 
 Builds the hand-written CUDA kernels from ``dsdiff_torch/ops/csrc/``,
 holds each against its plain PyTorch version at the main path's shapes and
-times both (with one PyTorch library call beside them as a yardstick),
-checks a full-width flagship DSUNet forward with the kernel against the same
-forward with the plain attention, then serves three DDIM-20 requests through
-``Trainer.sample_fn`` at 256² and checks that every attention call of them
-went through the kernel. Weights are random, from a seed.
+times both (with one PyTorch library call beside them as a yardstick), then
+drives the main path in both directions:
 
-Exits non-zero, before printing any result, when there is no CUDA device or
-when any phase fails. The last line is ``{"ok": true, "device": {...}}``.
+- serving: a full-width flagship DSUNet forward with the attention kernel
+  against the same forward with plain attention, then three DDIM-20
+  requests at 256² through ``Trainer.sample_fn``;
+- the fused GroupNorm + SiLU op through ``dsdiff_torch.ops`` at the
+  flagship ResBlock norm shapes;
+- training: one full-width f32 loss + gradient with the attention kernel
+  against plain attention, then at least five bf16 train steps at batch 8,
+  256², through ``Trainer.train_step`` (f32 master weights, remat), and one
+  DDIM-20 request from the EMA weights scored with ``val_metrics``.
+
+Each main-path run checks that every call of its kernels went through them.
+Weights are random, from a seed. Exits non-zero, before printing any
+result, when there is no CUDA device or when any phase fails. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -23,16 +34,20 @@ import time
 import torch
 import torch.nn.functional as F
 
+from dsdiff_torch import ops
+from dsdiff_torch.core import schedules
 from dsdiff_torch.models import attention as attention_module
 from dsdiff_torch.models import build_model
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
+from dsdiff_torch.ops import fused_norm as fn
+from dsdiff_torch.train.step import TaskConfig, train_loss
 from dsdiff_torch.train.trainer import Trainer
 from dsdiff_torch.utils.device import disable_tf32
 from dsdiff_torch.utils.flax_bridge import random_params
 
 # configs/train_config.yaml merged with configs/dsdiff_gaussian.yaml, on
-# every key the serving slice reads
+# every key the port reads
 FLAGSHIP_CONFIG = {
     "net_mode": "ds_diff_gaussian",
     "train_keys": ["F_Data1", "F_Data2", "S_Data1", "S_Data2"],
@@ -55,6 +70,16 @@ FLAGSHIP_CONFIG = {
     "learn_sigma": True,
     "rescale_timesteps": False,
     "clip_denoised": True,
+    "lr": 1.0e-4,
+    "lr_low": 1.0e-7,
+    "num_epochs": 250,
+    "lr_warm_epoch": 0,
+    "beta1": 0.9,
+    "beta2": 0.999,
+    "weight_decay": 0.0,
+    "ema_rate": 0.9999,
+    "schedule_sampler": "uniform",
+    "remat": True,
     "unet_config": {
         "params": {
             "model_channels": 96,
@@ -76,6 +101,16 @@ DDIM_STEPS = 20
 ATTENTION_CALLS = [(1024, 4, 48, 11), (256, 6, 48, 11), (64, 6, 48, 12)]
 CALLS_PER_FORWARD = sum(c for *_, c in ATTENTION_CALLS)  # 34
 
+TRAIN_BATCH = 8  # bench.py's train batch
+TRAIN_STEPS = 6
+PARITY_BATCH = 2
+# the flagship ResBlocks' input-norm shapes at 256² (H = W, C), 32 groups
+NORM_SHAPES = [(256, 96), (128, 96), (64, 192), (32, 192), (16, 288), (8, 288)]
+# scripts/kernel_bench.py's batch-16 shapes for the same kernel
+NORM_SHAPES_B16 = [(256, 96), (128, 96), (64, 192), (32, 192), (16, 288)]
+NORM_GROUPS = 32
+L2_BYTES = 50 * 2**20
+
 # H100 SXM published dense peaks at 700 W
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,6 +121,21 @@ KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # full-width f32 forward, TF32 off, kernel vs plain attention: relative to
 # the output's largest magnitude
 MODEL_RTOL = 1e-3
+# GroupNorm+SiLU apply, kernel vs plain, relative to max(1, max |plain|): f32
+# differs by expf vs PyTorch's sigmoid (a few ulps); bf16 is rounded from f32
+# in both, so one bf16 ulp (2^-7 relative at most) may separate them
+NORM_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# full-width f32 loss and gradients, TF32 off, kernel vs plain attention.
+# The forward differs by the kernel's summation order (~1e-6 of the output);
+# the backward is the same plain math in both. Loss: relative. Gradients:
+# relative to each leaf's largest magnitude (floored at 1e-3 of the model's
+# largest, for leaves near zero whose gradient is rounding noise).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+GRAD_NOISE_FLOOR = 1e-3
+# the EMA after the first update is 0.1 p0 + 0.9 p1 (decay min(0.9999, 1/10))
+# up to f32 rounding of the two products and the sum
+EMA_RTOL = 1e-6
 
 
 def fail(msg: str):
@@ -97,19 +147,29 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches, CUDA events."""
-    for _ in range(3):
-        fn()
+def time_ms_cycling(fn, inputs, iters: int) -> float:
+    """Mean device time of ``fn(*inputs[i % len(inputs)])``, CUDA events;
+    the inputs rotate so that, together larger than the L2 cache, each
+    call reads its operands from device memory as the model's would."""
+    for args in inputs[:3]:
+        fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rotated(tensors, nbytes: int) -> list:
+    """``tensors`` and enough clones of them that one pass over all copies
+    moves at least twice the L2 cache's ``nbytes`` (at most 1024 copies)."""
+    copies = min(1024, max(1, -(-2 * L2_BYTES // nbytes)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(copies - 1)]
 
 
 def attention_bound(B, N, H, D, dtype):
@@ -154,7 +214,7 @@ def phase_kernels(card: str):
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for batch in (SERVE_BATCH, 16):
+    for batch in (SERVE_BATCH, TRAIN_BATCH, 16):
         for dtype in (torch.bfloat16, torch.float32):
             for N, H, D, calls in ATTENTION_CALLS:
                 qkv = torch.randn(batch, N, 3, H, D, generator=gen,
@@ -165,13 +225,17 @@ def phase_kernels(card: str):
                 want = fa.reference_attention(q, k, v)
                 err = (got.float() - want.float()).abs().max().item()
                 tol = KERNEL_TOL[dtype]
-                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
+                sdpa_in = [tuple(t.transpose(1, 2).contiguous()
+                                 for t in x.unbind(2)) for (x,) in qkvs]
                 iters = 50 if N >= 1024 else 200
-                ms = time_ms(lambda: fa.flash_attention(q, k, v), iters)
-                plain_ms = time_ms(lambda: fa.reference_attention(q, k, v), iters)
-                lib_ms = time_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt), iters
-                )
+                ms = time_ms_cycling(lambda x: fa.flash_attention(*x.unbind(2)),
+                                     qkvs, iters)
+                plain_ms = time_ms_cycling(
+                    lambda x: fa.reference_attention(*x.unbind(2)), qkvs, iters)
+                lib_ms = time_ms_cycling(F.scaled_dot_product_attention,
+                                         sdpa_in, iters)
+                del qkvs, sdpa_in
                 bound_ms, bound_by = attention_bound(batch, N, H, D, dtype)
                 row = dict(shape=[batch, N, H, D], dtype=str(dtype).split(".")[1],
                            calls_per_forward=calls, max_abs_err=err, tol=tol,
@@ -187,6 +251,107 @@ def phase_kernels(card: str):
                 check(err <= tol, f"flash_attention {row['shape']} "
                       f"{row['dtype']}: error {err} over {tol}")
     return rows
+
+
+def norm_bound(B, H, W, C, dtype):
+    """(ms, 'bytes' | 'operations') of the apply pass: x read and y written
+    once, a and b ([B, C] f32) read once, at the memory rate; or about 6
+    FLOPs and one exp per element on the f32 CUDA cores."""
+    elem = torch.finfo(dtype).bits // 8
+    n = B * H * W * C
+    t_bytes = (2 * n * elem + 2 * B * C * 4) / PEAK_BYTES_PER_S
+    t_ops = 7 * n / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _norm_inputs(gen, B, H, C, dtype):
+    x = (torch.randn(B, H, H, C, generator=gen, device="cuda") * 2.0
+         + 0.5).to(dtype)
+    scale = torch.randn(C, generator=gen, device="cuda") * 0.1 + 1.0
+    bias = torch.randn(C, generator=gen, device="cuda") * 0.1
+    return x, scale, bias
+
+
+def phase_norm_kernels(card: str):
+    """GroupNorm+SiLU apply kernel vs plain at the flagship ResBlock norm
+    shapes (batch 4) and scripts/kernel_bench.py's (batch 16); returns the
+    rows."""
+    disable_tf32()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    cases = ([(SERVE_BATCH, H, C) for H, C in NORM_SHAPES]
+             + [(16, H, C) for H, C in NORM_SHAPES_B16])
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for B, H, C in cases:
+                x, scale, bias = _norm_inputs(gen, B, H, C, dtype)
+                a, b = fn.coefficients(x, scale, bias, NORM_GROUPS)
+                got = fn.apply_kernel(x, a, b)
+                torch.cuda.synchronize()
+                want = fn.apply_plain(x, a, b)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = NORM_TOL[dtype] * max(1.0, want.float().abs().max().item())
+                check(got.dtype == dtype and got.shape == x.shape,
+                      f"group_norm_silu output {got.dtype} {tuple(got.shape)}")
+                check(err <= tol, f"group_norm_silu {[B, H, H, C]} {dtype}: "
+                      f"error {err} over {tol}")
+                xs = rotated([x], x.numel() * x.element_size())
+                iters = 50 if x.numel() >= 2**24 else 200
+                ms = time_ms_cycling(lambda x: fn.apply_kernel(x, a, b), xs, iters)
+                plain_ms = time_ms_cycling(lambda x: fn.apply_plain(x, a, b),
+                                           xs, iters)
+                w, bb = scale.to(dtype), bias.to(dtype)
+                lib_ms = time_ms_cycling(
+                    lambda x: F.silu(F.group_norm(x.permute(0, 3, 1, 2),
+                                                  NORM_GROUPS, w, bb, 1e-5)),
+                    xs, iters)
+                op_ms = time_ms_cycling(
+                    lambda x: ops.fused_group_norm_silu(x, scale, bias,
+                                                        NORM_GROUPS),
+                    xs, iters)
+                bound_ms, bound_by = norm_bound(B, H, H, C, dtype)
+                row = dict(shape=[B, H, H, C], dtype=str(dtype).split(".")[1],
+                           max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, op_ms=op_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, share_of_bound=bound_ms / ms)
+                rows.append(row)
+                print(f"[kernel] group_norm_silu {row['shape']} {row['dtype']}: "
+                      f"max_abs_err {err:.3e} (tol {tol:.1e}), kernel "
+                      f"{ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                      f"F.silu(F.group_norm) {lib_ms:.5f} ms, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.2f}% of bound; whole op with its "
+                      f"statistics {op_ms:.5f} ms [{card}]")
+                del x, a, b, got, want, xs
+    return rows
+
+
+def phase_norm_op():
+    """The op entry a user calls, ``ops.fused_group_norm_silu``, once per
+    flagship ResBlock norm shape at batch 4 in bf16: every call launches
+    the kernel. Returns the launch count."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    inputs = [_norm_inputs(gen, SERVE_BATCH, H, C, torch.bfloat16)
+              for H, C in NORM_SHAPES]
+    torch.cuda.synchronize()
+    fn.LAUNCHES = 0  # count only the op's main path from here
+    with torch.inference_mode():
+        outs = [ops.fused_group_norm_silu(x, s, b, NORM_GROUPS)
+                for x, s, b in inputs]
+    torch.cuda.synchronize()
+    launched = fn.LAUNCHES
+    for (x, s, b), y in zip(inputs, outs):
+        want = fn.group_norm_silu_plain(x, s, b, NORM_GROUPS)
+        err = (y.float() - want.float()).abs().max().item()
+        tol = NORM_TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+        check(y.shape == x.shape and y.dtype == x.dtype, "op output shape/dtype")
+        check(torch.isfinite(y).all().item(), "non-finite op output")
+        check(err <= tol, f"op {tuple(x.shape)}: error {err} over {tol}")
+    print(f"[norm-op] ops.fused_group_norm_silu at {len(inputs)} flagship "
+          f"shapes, batch {SERVE_BATCH}, bf16: {launched} kernel launches")
+    check(launched == len(inputs),
+          f"{launched} group_norm_silu launches, not {len(inputs)}")
+    return launched
 
 
 def phase_model_parity():
@@ -225,6 +390,7 @@ def phase_model_parity():
 def phase_serve(smi: str):
     trainer = Trainer(dict(FLAGSHIP_CONFIG), device="cuda")
     random_params(trainer.model, SEED)
+    trainer.reset_state()  # the EMA, which sample_fn serves, starts there
     print(f"[serve] DSUNet {trainer.n_params / 1e6:.2f} M params, bf16, "
           f"DDIM-{trainer.rsched.num_timesteps}, batch {SERVE_BATCH}, {IMAGE}²")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -258,41 +424,222 @@ def phase_serve(smi: str):
     return total
 
 
-def kernels_line(rows, launches: int) -> dict:
-    """One entry per kernel: its work in one serving forward (batch
-    SERVE_BATCH, bf16), summed over the forward's attention calls."""
-    serve = [r for r in rows
+def _flagship_task() -> TaskConfig:
+    return TaskConfig(parameterization="v", loss_type="charbonnier",
+                      learn_sigma=True, feature_kind="ds",
+                      disentangle_mode="eu", disen_lambda=0.5)
+
+
+def phase_train_parity():
+    """Full-width flagship DSUNet in f32 with TF32 off and remat on, batch 2
+    at 256²: the train objective and every parameter gradient with the
+    attention kernel against the same with plain attention."""
+    disable_tf32()
+    params = FLAGSHIP_CONFIG["unet_config"]["params"]
+    model = build_model("dsunet", device="cuda", in_channels=4,
+                        out_channels=2, dtype=torch.float32, remat=True,
+                        **params).train()
+    random_params(model, SEED)
+    sched = schedules.DiffusionSchedule.create(
+        schedules.make_beta_schedule("scaled_linear", 1000), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B = PARITY_BATCH
+    x0 = torch.rand(B, IMAGE, IMAGE, 1, generator=gen, device="cuda") * 2 - 1
+    cond = torch.randn(B, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    noise = torch.randn(B, IMAGE, IMAGE, 1, generator=gen, device="cuda")
+    t = torch.tensor([17, 803], device="cuda")
+    weights = torch.ones(B, device="cuda")
+    task = _flagship_task()
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, _, _ = train_loss(task, sched, model, x0, cond, t, noise, weights)
+        loss.backward()
+        return loss.item(), [torch.zeros_like(p) if p.grad is None
+                             else p.grad.detach().clone()
+                             for p in model.parameters()]
+
+    before = fa.LAUNCHES
+    loss_k, grads_k = loss_and_grads()
+    launched = fa.LAUNCHES - before
+    kernel_attention = attention_module.scaled_attention
+    attention_module.scaled_attention = fa.reference_attention
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        attention_module.scaled_attention = kernel_attention
+    torch.cuda.synchronize()
+    names = [n for n, _ in model.named_parameters()]
+    top = max(g.abs().max().item() for g in grads_p)
+    worst, worst_name = 0.0, ""
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        scale = max(gp.abs().max().item(), GRAD_NOISE_FLOOR * top)
+        rel = (gk - gp).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[train-parity] DSUNet 256² batch {B} f32 remat: loss {loss_k:.6f} "
+          f"vs {loss_p:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:.0e}); "
+          f"worst gradient error {worst:.3e} of its leaf's scale at "
+          f"{worst_name} (tol {TRAIN_GRAD_RTOL:.0e}, {len(names)} leaves); "
+          f"{launched} kernel launches")
+    check(all(torch.isfinite(g).all().item() for g in grads_k),
+          "non-finite gradient")
+    check(launched == CALLS_PER_FORWARD,
+          f"{launched} attention launches in one train forward, not "
+          f"{CALLS_PER_FORWARD}")
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"loss parity {loss_rel}")
+    check(worst <= TRAIN_GRAD_RTOL, f"gradient parity {worst} at {worst_name}")
+    del model, grads_k, grads_p
+
+
+def phase_train(smi: str):
+    """``Trainer.train_step`` on the flagship config, bf16 compute over f32
+    master weights with remat, batch 8 at 256²; then one DDIM-20 request
+    from the EMA weights. Returns the attention launches of the train steps
+    and of the request."""
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    trainer = Trainer(dict(FLAGSHIP_CONFIG), device="cuda")
+    random_params(trainer.model, SEED)
+    trainer.reset_state()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    B = TRAIN_BATCH
+    batch = {
+        "target": torch.rand(B, IMAGE, IMAGE, 1, generator=gen,
+                             device="cuda") * 2 - 1,
+        "image": torch.randn(B, IMAGE, IMAGE, trainer.n_cond, generator=gen,
+                             device="cuda"),
+    }
+    leaf = "decoder.up_0_0_res.in_conv.weight"
+    index = trainer.state.names.index(leaf)
+    p0 = trainer.state.params[index].detach().clone()
+    start = [p.detach().clone() for p in trainer.state.params]
+    print(f"[train] DSUNet {trainer.n_params / 1e6:.2f} M params, f32 master "
+          f"weights, bf16 compute, remat {trainer.model.encoder_0.remat}, "
+          f"batch {B}, {IMAGE}²")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    times = []
+    for i in range(TRAIN_STEPS):
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = fa.LAUNCHES - before
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"[train] step {i + 1}: {times[-1] * 1e3:.2f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
+              + f", {launched} attention launches")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"non-finite metric at step {i + 1}: {vals}")
+        check(vals["grad_norm"] > 0, "zero gradient norm")
+        check(launched == CALLS_PER_FORWARD,
+              f"{launched} attention launches in a train step, not "
+              f"{CALLS_PER_FORWARD}")
+        if i == 0:
+            p1 = trainer.state.params[index].detach()
+            want = 0.1 * p0 + 0.9 * p1
+            got = trainer.state.ema[index]
+            ema_err = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"[train] EMA after step 1 on {leaf}: max error "
+                  f"{ema_err:.3e} of max |0.1 p0 + 0.9 p1| (tol {EMA_RTOL:.0e})")
+            check(ema_err <= EMA_RTOL, f"EMA after step 1: {ema_err}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_launches = fa.LAUNCHES
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, trainer.state.params))
+    check(moved > 0, "no parameter moved")
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"[train] step {step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
+          f"{B / step_ms * 1e3:.3f} slices/s, peak {peak:.3f} GiB, "
+          f"{moved}/{len(start)} parameter tensors moved [{smi}]")
+    del start
+
+    # serve one request from the EMA weights and score it
+    cond, target = batch["image"][:SERVE_BATCH], batch["target"][:SERVE_BATCH]
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    out = trainer.sample_fn(cond, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = fa.LAUNCHES - before
+    val = {k: v.item() for k, v in trainer.val_metrics(out, target).items()}
+    print(f"[train] DDIM-{DDIM_STEPS} request from the EMA weights: "
+          f"{wall:.4f} s, {launched} attention launches; val_metrics "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(val.items())))
+    per_request = CALLS_PER_FORWARD * DDIM_STEPS
+    check(out.shape == (SERVE_BATCH, IMAGE, IMAGE, 1) and
+          torch.isfinite(out).all().item(), "bad sample from the EMA weights")
+    check(launched == per_request,
+          f"{launched} attention launches in a request, not {per_request}")
+    check(all(math.isfinite(v) for v in val.values()), f"val metrics {val}")
+    check(val["ssim"] <= 1.0, f"SSIM {val['ssim']} above 1")
+    return train_launches, launched
+
+
+def _per_forward(rows, key):
+    """Sum of ``key`` over one serving forward's attention calls."""
+    return sum(r[key] * r["calls_per_forward"] for r in rows)
+
+
+def kernels_line(attn_rows, attn_launches: dict, norm_rows,
+                 norm_launches: int) -> dict:
+    """One entry per kernel. Attention: its work in one serving forward
+    (batch SERVE_BATCH, bf16, 34 calls). GroupNorm+SiLU: one call at each
+    flagship norm shape, batch SERVE_BATCH, bf16."""
+    serve = [r for r in attn_rows
              if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
-
-    def total(key):
-        return sum(r[key] * r["calls_per_forward"] for r in serve)
-
     ops_ms = sum(r["bound_ms"] * r["calls_per_forward"] for r in serve
                  if r["bound_by"] == "operations")
+    attn_bound = _per_forward(serve, "bound_ms")
+    norm = [r for r in norm_rows
+            if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
     return {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "dsdiff_torch/ops/csrc/flash_attention.cu",
-        "replaces": "dsdiff_tpu/ops/flash_attention.py:79",
-        "launches": launches,
+        "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
+        "launches": sum(attn_launches.values()),
+        "launches_by_path": attn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in serve),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "operations" if ops_ms > total("bound_ms") / 2 else "bytes",
-        "library_ms": total("library_ms"),
+        "ms": _per_forward(serve, "ms"),
+        "plain_ms": _per_forward(serve, "plain_ms"),
+        "bound_ms": attn_bound,
+        "bound_by": "operations" if ops_ms > attn_bound / 2 else "bytes",
+        "library_ms": _per_forward(serve, "library_ms"),
         "per": f"one DSUNet forward, batch {SERVE_BATCH}, bf16, "
                f"{CALLS_PER_FORWARD} calls",
+    }, {
+        "name": "group_norm_silu",
+        "route": "cuda",
+        "source": "dsdiff_torch/ops/csrc/fused_norm.cu",
+        "replaces": "dsdiff_tpu/ops/fused_norm.py:54",
+        "launches": norm_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in norm),
+        "ms": sum(r["ms"] for r in norm),
+        "plain_ms": sum(r["plain_ms"] for r in norm),
+        "bound_ms": sum(r["bound_ms"] for r in norm),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in norm),
+        "per": f"one call at each of the {len(norm)} flagship ResBlock norm "
+               f"shapes, batch {SERVE_BATCH}, bf16 (apply pass; the library "
+               f"call also computes the statistics)",
     }]}
 
 
 def main() -> None:
     name, count, smi = phase_device()
     phase_build()
-    rows = phase_kernels(smi)
+    attn_rows = phase_kernels(smi)
+    norm_rows = phase_norm_kernels(smi)
     phase_model_parity()
-    launches = phase_serve(smi)
-    print(json.dumps(kernels_line(rows, launches)))
+    attn_launches = {"serve": phase_serve(smi)}
+    norm_launches = phase_norm_op()
+    phase_train_parity()
+    attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
+    print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
+                                  norm_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,7 +1,10 @@
 """U-Net encoder / middle / decoder components.
 
-Port of the JAX package's ``models/backbone.py:87-176`` with the
+Port of the JAX package's ``models/backbone.py:31-176`` with the
 ``AttentionBlock`` path (``SpatialTransformer`` comes with ROADMAP A17).
+With ``remat``, each ``ResBlock`` (and only it, as in the JAX package) runs
+under activation checkpointing while the module trains with grad enabled;
+serving and ``torch.inference_mode`` never checkpoint.
 Submodules carry the Flax names (``down_{level}_{i}_res``, ``mid_attn``,
 ``up_{level}_us``, ...). Maps are NCHW. Unlike Flax, a PyTorch layer needs
 its input width up front, so each component takes its ``in_channels`` and
@@ -14,6 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import AttentionBlock
 from .layers import Conv, Downsample, GroupNorm32, ResBlock, Upsample, zero_init
@@ -37,6 +41,7 @@ class _Common(nn.Module):
         use_spatial_transformer: bool = False,
         transformer_depth: int = 1,
         use_fft_attention: bool = False,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -55,6 +60,7 @@ class _Common(nn.Module):
         self.num_head_channels = num_head_channels
         self.use_scale_shift_norm = use_scale_shift_norm
         self.resblock_updown = resblock_updown
+        self.remat = remat
         # the timestep embedding's width, as every U-Net family builds it
         self.emb_dim = 4 * model_channels
         self.dtype = dtype
@@ -79,7 +85,11 @@ class _Common(nn.Module):
 
     def _run(self, name: str, kind: str, h: torch.Tensor, emb: torch.Tensor):
         block = getattr(self, name)
-        return block(h, emb) if kind == "res" else block(h)
+        if kind != "res":
+            return block(h)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(block, h, emb, use_reentrant=False)
+        return block(h, emb)
 
 
 class UNetEncoder(_Common):

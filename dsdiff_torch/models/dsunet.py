@@ -12,7 +12,9 @@ Port of the JAX package's ``models/dsunet.py`` with ``stream_mode='sequential'``
 - stream means through ``_SEProj``, concat + SiLU + ``all_proj`` 1x1 back
   into the trunk; decoder skips are the mean over the four encoders' skips;
 - returns ``(prediction, features)``, both NHWC; each feature group is a
-  stacked [k, B, h, w, c] tensor.
+  stacked [k, B, h, w, c] tensor;
+- ``remat`` checkpoints every ``ResBlock`` of the encoders, middle and
+  decoder while training.
 
 ``stream_mode='vmap'`` (ROADMAP A11) and ``fusion='crossattn'`` (ROADMAP
 A17) are not ported yet.
@@ -88,6 +90,7 @@ class DSUNet(nn.Module):
         fusion: str = "concat",
         stream_mode: str = "sequential",
         use_edge: bool = False,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -122,6 +125,7 @@ class DSUNet(nn.Module):
             use_spatial_transformer=use_spatial_transformer,
             transformer_depth=transformer_depth,
             use_fft_attention=use_fft_attention,
+            remat=remat,
             dtype=dtype,
         )
         self.time_embed = TimeEmbed(ch0, 4 * ch0, dtype=dtype)

@@ -5,10 +5,14 @@ convolution layout; a map permuted from NHWC keeps channels-last strides);
 the models take and return NHWC at their public ``forward``. Submodule names
 are the Flax module names, so ``utils.flax_bridge`` maps weights one to one.
 
-Compute dtype: ``Dense`` and ``Conv`` hold their weights in the block's
-``dtype`` and cast their input to it, as Flax's ``dtype`` attribute does.
-``GroupNorm32`` keeps f32 parameters and computes its statistics and affine
-in f32, then casts back.
+Compute dtype: parameters are f32 (the master copy an optimizer updates);
+``Dense`` and ``Conv`` cast their weight, bias and input to the block's
+``dtype`` at call, as Flax's ``dtype`` attribute does with f32 params.
+``GroupNorm32`` computes its statistics and affine in f32, then casts back.
+``hold_in_compute_dtype`` turns a copy of a model into a serving copy whose
+``Dense``/``Conv`` weights are stored in the compute dtype, so that the
+casts at call are no-ops; the same f32 weights round to the same values
+either way.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ __all__ = [
     "Downsample",
     "SEBlock",
     "zero_init",
+    "hold_in_compute_dtype",
 ]
 
 
@@ -57,18 +62,43 @@ def timestep_embedding(
     return emb
 
 
+def _cast(p: torch.Tensor | None, dtype: torch.dtype):
+    return None if p is None else p.to(dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` that casts its input to its weight's dtype."""
+    """``nn.Linear`` with f32 parameters that computes in ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), self.weight.to(cd), _cast(self.bias, cd))
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to its weight's dtype."""
+    """``nn.Conv2d`` with f32 parameters that computes in ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        cd = self.compute_dtype
+        return self._conv_forward(x.to(cd), self.weight.to(cd),
+                                  _cast(self.bias, cd))
+
+
+def hold_in_compute_dtype(model: nn.Module) -> nn.Module:
+    """Store every ``Dense``/``Conv`` weight of ``model`` in its compute
+    dtype, in place (for a serving copy: its casts at call become no-ops).
+    Norm parameters stay f32."""
+    for m in model.modules():
+        if isinstance(m, (Dense, Conv)):
+            m.to(m.compute_dtype)
+    return model
 
 
 class TimeEmbed(nn.Module):

@@ -4,8 +4,14 @@ Port of the JAX package's ``ops/flash_attention.py``. ``flash_attention`` launch
 the hand-written kernel ``csrc/flash_attention.cu`` on CUDA tensors;
 ``reference_attention`` is the same math in plain PyTorch (an f32 softmax,
 cast back to q's dtype), used for CPU tensors and to check the kernel.
-Layout: ``[B, N, heads, D]`` in and out. Forward only: serving needs no
-backward, and the JAX package has no backward kernel either.
+Layout: ``[B, N, heads, D]`` in and out.
+
+The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
+an ``autograd.Function`` whose forward is the kernel and whose backward is
+the VJP of ``reference_attention``, recomputed from the saved q, k and v.
+There is no backward kernel (ROADMAP B1). When no input needs a gradient
+(serving, ``torch.inference_mode``) the kernel is launched directly and
+nothing is saved.
 """
 from __future__ import annotations
 
@@ -16,9 +22,10 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "reference_attention", "LAUNCHES", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "reference_attention", "FlashAttention",
+           "LAUNCHES", "MAX_HEAD_DIM"]
 
-# kernel launches since import (or since a caller reset it to 0)
+# forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 MAX_HEAD_DIM = 64  # the kernel pads the head dimension to 64 on chip
 
@@ -78,12 +85,8 @@ def _library():
     return _lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Launch the CUDA kernel: softmax(q k^T / sqrt(D)) v, [B, N, heads, D].
-
-    q, k and v may be strided views (only the last dimension must be
-    contiguous). Raises on CPU tensors and on shapes the kernel does not take.
-    """
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Launch the CUDA kernel once; raises on what it does not take."""
     global LAUNCHES
     _check(q, k, v)
     B, N, H, D = q.shape
@@ -105,3 +108,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: the VJP of
+    ``reference_attention`` at the saved inputs, as the JAX package's
+    ``_fa_bwd`` differentiates its plain math."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = reference_attention(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if x.requires_grad else None for x in inputs)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """softmax(q k^T / sqrt(D)) v through the CUDA kernel, [B, N, heads, D].
+
+    q, k and v may be strided views (only the last dimension must be
+    contiguous). Differentiable when an input requires grad. Raises on CPU
+    tensors and on shapes the kernel does not take.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
+    return _launch(q, k, v)

@@ -1,9 +1,17 @@
-"""Task knobs, the concat-conditioned denoiser and the sample function.
+"""Task knobs, the train step, the sample function and validation metrics.
 
-Port of the JAX package's ``train/step.py``: ``TaskConfig``, ``_denoiser`` and the
-ddim branch of ``make_sample_fn``. The train step and validation metrics
-come with the training slice (ROADMAP A7, A8); the other samplers with A12;
-split-input (patched) sampling with A17.
+Port of the JAX package's ``train/step.py``: ``TaskConfig``, ``_denoiser``,
+``make_train_step``, the ddim branch of ``make_sample_fn`` and
+``make_val_metrics``. The other samplers come with ROADMAP A12, split-input
+(patched) sampling and the ``disc`` disentangle loss with A17.
+
+The train step is eager: one forward through ``training_losses`` and the
+disentangle losses, one backward, then the optimizer and EMA update in
+place (``state.TrainState``). bf16 compute happens inside the model; the
+master parameters, loss and optimizer state stay f32, as in the JAX
+package. Random draws come from an explicit ``torch.Generator``; ``t`` and
+``noise`` may be given instead, so that a test can replay another
+framework's draws.
 """
 from __future__ import annotations
 
@@ -13,10 +21,15 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..core import sampling
+from ..core import losses as L
+from ..core import process, sampling
 from ..core.schedules import DiffusionSchedule
+from ..eval.metrics import ssim
+from . import schedule_sampler as ss
+from .state import TrainState, global_norm
 
-__all__ = ["TaskConfig", "make_sample_fn"]
+__all__ = ["TaskConfig", "train_loss", "make_train_step", "make_sample_fn",
+           "make_val_metrics"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +63,86 @@ def _denoiser(model: nn.Module, cond: torch.Tensor | None):
         return model(xin, t_model)
 
     return fn
+
+
+def train_loss(task: TaskConfig, sched: DiffusionSchedule, model: nn.Module,
+               x0: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
+               noise: torch.Tensor, weights: torch.Tensor):
+    """The train step's objective: ``mean(weights * training_losses)`` plus
+    ``disen_lambda * (C-S + S-A-L)`` for 'ds' features. Returns (loss,
+    per-element loss [B], metrics dict of 0-d tensors)."""
+    terms, feats = process.training_losses(
+        sched, _denoiser(model, cond), x0, t, noise,
+        parameterization=task.parameterization,
+        loss_type=task.loss_type,
+        learn_sigma=task.learn_sigma,
+        vlb_weight=task.vlb_weight,
+        elbo_weight=task.elbo_lambda,
+    )
+    loss = (weights * terms["loss"]).mean()
+    metrics = {"loss_simple": terms["mse"].mean()}
+    if "vb" in terms:
+        metrics["loss_vlb"] = terms["vb"].mean()
+    if task.feature_kind == "ds" and feats is not None:
+        cs, sal, _ = L.ds_disentangle_losses(
+            feats, task.disentangle_mode, task.disen_temperature
+        )
+        loss = loss + task.disen_lambda * (cs + sal)
+        metrics["loss_disen_cs"] = cs
+        metrics["loss_disen_sal"] = sal
+    metrics["loss"] = loss
+    return loss, terms["loss"], metrics
+
+
+def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
+    """Returns ``step(state, sampler_state, batch, generator=None, t=None,
+    noise=None) -> (state, sampler_state, metrics)``.
+
+    ``batch`` holds NHWC ``target`` [B, H, W, C] and ``image`` (the
+    condition). ``state`` is updated in place and returned; ``metrics`` are
+    0-d f32 tensors: loss, loss_simple, loss_vlb (learned sigma),
+    loss_disen_cs and loss_disen_sal ('ds' features), and grad_norm, the
+    global norm of the gradients before any clipping.
+    """
+    if task.feature_kind not in (None, "ds"):
+        raise NotImplementedError(
+            f"feature kind '{task.feature_kind}' is not ported yet (ROADMAP A17)"
+        )
+
+    def step(state: TrainState, sampler_state: ss.SamplerState, batch: dict,
+             generator: torch.Generator | None = None,
+             t: torch.Tensor | None = None,
+             noise: torch.Tensor | None = None):
+        model = state.model
+        x0 = batch["target"]
+        cond = batch["image"]
+        B = x0.shape[0]
+        t, weights = ss.sample_t(sampler_state, B, generator, t)
+        t, weights = t.to(x0.device), weights.to(x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                                device=x0.device)
+        if task.cond_dropout > 0:
+            keep = torch.rand((B, 1, 1, 1), generator=generator,
+                              device=cond.device) >= task.cond_dropout
+            cond = cond * keep.to(cond.dtype)
+
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, per_elem, metrics = train_loss(task, sched, model, x0, cond, t,
+                                             noise, weights)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in state.params]
+        metrics["grad_norm"] = global_norm(grads)
+        state.apply_gradients(grads)
+        del grads
+        model.zero_grad(set_to_none=True)  # free them before the next step
+        sampler_state = ss.update_state(sampler_state, t, per_elem.detach())
+        return state, sampler_state, {k: v.detach().float()
+                                      for k, v in metrics.items()}
+
+    return step
 
 
 def make_sample_fn(
@@ -106,5 +199,31 @@ def make_sample_fn(
             learn_sigma=task.learn_sigma,
             clip_denoised=clip_denoised,
         )
+
+    return fn
+
+
+def make_val_metrics() -> Callable:
+    """Returns ``fn(pred, target, valid=None) -> {ssim, mae, psnr}``: per
+    slice SSIM, MAE and PSNR over data range 2.0 (images in [-1, 1]),
+    averaged with the ``valid`` [B] weights (all ones when None)."""
+
+    @torch.no_grad()
+    def fn(pred: torch.Tensor, target: torch.Tensor,
+           valid: torch.Tensor | None = None) -> dict:
+        p = pred[..., 0]
+        t = target[..., 0]
+        ssim_v = ssim(t, p, data_range=2.0)
+        mae = (p - t).abs().mean(dim=(1, 2))
+        mse = ((p - t) ** 2).mean(dim=(1, 2))
+        psnr = 10.0 * torch.log10(4.0 / torch.clamp(mse, min=1e-12))
+        w = (torch.ones(p.shape[0], device=p.device) if valid is None
+             else valid.to(p.device).float())
+        denom = torch.clamp(w.sum(), min=1.0)
+        return {
+            "ssim": (ssim_v * w).sum() / denom,
+            "mae": (mae * w).sum() / denom,
+            "psnr": (psnr * w).sum() / denom,
+        }
 
     return fn

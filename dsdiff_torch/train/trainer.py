@@ -1,24 +1,32 @@
-"""The trainer: config -> schedule -> model -> sample function.
+"""The trainer: config -> schedule -> model -> train step and sampler.
 
-Port of the sampling half of the JAX package's ``train/trainer.py`` ``Trainer``
-(``:74-130, 181-231, 284-324``): the net_mode / schedule / variance
-defaults, ``TaskConfig``, the model build and the re-spaced sampler.
-``fit``, ``validate``, ``predict``, checkpoints and the data pipeline come
-with later slices (ROADMAP A7, A13, A14).
+Port of the JAX package's ``train/trainer.py`` ``Trainer.__init__``
+(``:74-324``) without its data, mesh and logging parts: the net_mode /
+schedule / variance defaults, ``TaskConfig``, the model build (bf16 compute
+over f32 master parameters, ``remat``), the cosine learning rate, AdamW,
+the EMA, the schedule sampler, the train step, the re-spaced sampler over
+the EMA weights and the validation metrics. ``fit``, ``validate``, ``predict``, checkpoints and the
+data pipeline come with later slices (ROADMAP A13, A14): batches are fed to
+``train_step`` from memory.
 """
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from ..core import schedules
 from ..models import build_model
+from ..models.layers import hold_in_compute_dtype
 from ..utils.device import resolve_device
-from ..utils.flax_bridge import flax_to_state_dict
+from ..utils.flax_bridge import flax_to_state_dict, train_state_from_flax
+from . import schedule_sampler as ss
 from .config import Config
-from .step import TaskConfig, make_sample_fn
+from .state import TrainState, cosine_lr, make_optimizer
+from .step import TaskConfig, make_sample_fn, make_train_step, make_val_metrics
 
 __all__ = ["Trainer", "FEATURE_KINDS", "OPENAI_SCHEDULE_MODES"]
 
@@ -52,10 +60,17 @@ _DROPPED_MODEL_KEYS = (
 
 
 class Trainer:
-    """Builds the schedule, model and ``sample_fn`` from a run config.
+    """Builds the schedule, model, train state and samplers from a run
+    config. ``device`` defaults to ``"cuda"``.
 
-    ``sample_fn(cond [B,H,W,n_cond], generator=None, x_T=None)`` returns
-    samples [B, H, W, output_ch]. ``device`` defaults to ``"cuda"``.
+    - ``train_step(batch, generator=None, t=None, noise=None)`` takes one
+      optimizer step on an NHWC batch ``{"target": [B,H,W,1], "image":
+      [B,H,W,n_cond]}`` and returns the metrics (0-d tensors).
+    - ``sample_fn(cond [B,H,W,n_cond], generator=None, x_T=None)`` returns
+      samples [B, H, W, output_ch] from the EMA weights, through a serving
+      copy of the model whose weights are held in the compute dtype and
+      refreshed from the EMA when it has changed.
+    - ``val_metrics(pred, target, valid=None)``: SSIM, MAE, PSNR.
     """
 
     def __init__(self, cfg: Mapping, workdir=None, device=None):
@@ -124,7 +139,7 @@ class Trainer:
         self.base_out = int(cfg.get("output_ch", 1))
         in_ch = 1 + n_cond
         out_ch = self.base_out * (2 if learn_sigma else 1)
-        # bf16 compute: weights held in bf16, GroupNorm in f32
+        # bf16 compute over f32 master parameters; GroupNorm in f32
         dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
         if model_name == "dsunet":
             model_params.setdefault("model_channels", 96)
@@ -136,13 +151,39 @@ class Trainer:
             torch.default_generator.manual_seed(seed)
             self.model = build_model(
                 model_name, device=self.device, in_channels=in_ch,
-                out_channels=out_ch, dtype=dtype, **model_params,
+                out_channels=out_ch, dtype=dtype,
+                remat=bool(cfg.get("remat", False)), **model_params,
             )
-        self.model.eval()
         self.in_ch = in_ch
         self.n_cond = n_cond
         self.model_name = model_name
         self.n_params = sum(p.numel() for p in self.model.parameters())
+
+        # ---- optimizer, EMA, schedule sampler (no loader yet: 1000 steps
+        # per epoch, as the JAX trainer assumes without one)
+        steps_per_epoch = 1000
+        lr = cosine_lr(
+            float(cfg.get("lr", 1e-4)),
+            int(cfg.get("num_epochs", 250)) * steps_per_epoch,
+            warmup_steps=int(cfg.get("lr_warm_epoch", 0)) * steps_per_epoch,
+            min_lr=float(cfg.get("lr_low", 1e-7)),
+        )
+        grad_clip = cfg.get("grad_clip", None)
+        opt = dict(
+            weight_decay=float(cfg.get("weight_decay", 0.0)),
+            betas=(float(cfg.get("beta1", 0.9)), float(cfg.get("beta2", 0.999))),
+            grad_clip=float(grad_clip) if grad_clip else None,
+            accum_steps=int(cfg.get("accum_steps", 1)),
+        )
+        self.state = TrainState(
+            self.model, lambda params: make_optimizer(params, lr, **opt),
+            ema_decay=float(cfg.get("ema_rate", 0.9999)),
+        )
+        self.sampler_state = ss.make_schedule_sampler(
+            cfg.get("schedule_sampler", "uniform"), T, device=self.device
+        )
+        self._train_step = make_train_step(self.task, self.sched)
+        self.val_metrics = make_val_metrics()
 
         # ---- sampler over the re-spaced schedule
         samp = cfg.get("sampler_setting", {}) or {}
@@ -158,14 +199,65 @@ class Trainer:
                 rescale_timesteps=bool(cfg.get("rescale_timesteps", False)),
                 device=self.device,
             )
-        self.sample_fn = make_sample_fn(
-            self.model, self.rsched, self.task, self.sampler_name, self.eta,
-            clip_denoised=bool(cfg.get("clip_denoised", True)),
+        # the serving copy: compute-dtype weights, filled from the EMA
+        self.sample_model = hold_in_compute_dtype(
+            copy.deepcopy(self.model).requires_grad_(False)
+        ).eval()
+        self._sample_version = None
+        self._sample = make_sample_fn(
+            self.sample_model, self.rsched, self.task, self.sampler_name,
+            self.eta, clip_denoised=bool(cfg.get("clip_denoised", True)),
             out_channels=self.base_out,
             patch_params=cfg.get("split_input_params"),
         )
 
+    def sample_fn(self, cond: torch.Tensor,
+                  generator: torch.Generator | None = None,
+                  x_T: torch.Tensor | None = None) -> torch.Tensor:
+        """Samples [B, H, W, output_ch] from the EMA weights."""
+        if self._sample_version != self.state.version:
+            with torch.no_grad():
+                ema = self.state.ema_state_dict()
+                for name, p in self.sample_model.named_parameters():
+                    p.copy_(ema[name])
+            self._sample_version = self.state.version
+        return self._sample(cond, generator, x_T)
+
+    def train_step(self, batch: Mapping[str, torch.Tensor],
+                   generator: torch.Generator | None = None,
+                   t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None) -> dict:
+        """One optimizer step; returns the metrics as 0-d f32 tensors."""
+        _, self.sampler_state, metrics = self._train_step(
+            self.state, self.sampler_state, batch, generator, t, noise
+        )
+        return metrics
+
+    def reset_state(self) -> None:
+        """Restart training from the model's current weights: step 0, fresh
+        optimizer moments, EMA = weights. Call it after writing the model's
+        parameters directly."""
+        self.state.reset()
+
     def load_flax_params(self, tree: Mapping) -> None:
         """Load a Flax param tree (nested dicts of numpy arrays) through the
-        layout bridge; raises on any missing or unused key."""
+        layout bridge and restart the train state from it; raises on any
+        missing or unused key."""
         self.model.load_state_dict(flax_to_state_dict(tree, self.model))
+        self.reset_state()
+
+    def load_flax_state(self, tree: Mapping, sampler: Mapping | None = None):
+        """Continue a run of the JAX package. ``tree`` is the training state
+        as ``utils.flax_bridge.train_state_from_flax`` takes it; ``sampler``,
+        when given, holds the schedule sampler's ``kind``, ``loss_history``
+        and ``loss_counts`` as numpy."""
+        self.state.load(**train_state_from_flax(tree, self.model))
+        if sampler is not None:
+            dev = self.state.ema[0].device
+            self.sampler_state = ss.SamplerState(
+                str(sampler["kind"]),
+                torch.as_tensor(np.asarray(sampler["loss_history"], np.float32),
+                                device=dev),
+                torch.as_tensor(np.asarray(sampler["loss_counts"], np.int32),
+                                device=dev),
+            )

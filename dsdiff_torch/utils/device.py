@@ -5,9 +5,11 @@ port never falls back to the CPU on its own. Tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device", "disable_tf32"]
+__all__ = ["resolve_device", "disable_tf32", "full_f32"]
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -26,3 +28,17 @@ def disable_tf32() -> None:
     (cuDNN convolutions default to TF32, which keeps ~3 decimal digits)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for matmuls and convolutions inside the block, restored
+    after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    disable_tf32()
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

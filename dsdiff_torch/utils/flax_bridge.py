@@ -9,6 +9,10 @@ level included). Leaves translate as:
 - conv ``kernel`` HWIO -> ``weight`` OIHW,
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in],
 - norm ``scale`` -> ``weight``; ``bias`` unchanged.
+
+``train_state_from_flax`` maps a whole JAX training state (params, EMA,
+AdamW moments and counts) onto the model's keys, for ``TrainState.load``,
+so that a run trained with the JAX package continues in the port.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flatten_tree", "flax_to_state_dict", "random_params"]
+__all__ = ["flatten_tree", "flax_to_state_dict", "train_state_from_flax",
+           "random_params"]
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -72,13 +77,30 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tenso
                 f"{path}: shape {tuple(val.shape)} does not fit {key} "
                 f"{tuple(expected[key].shape)}"
             )
-        out[key] = torch.from_numpy(np.ascontiguousarray(val, np.float32))
+        out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     missing = sorted(set(expected) - set(out))
     if missing or unused:
         raise KeyError(
             f"Flax tree does not match the model: missing {missing[:8]} "
             f"({len(missing)}), unused {sorted(unused)[:8]} ({len(unused)})"
         )
+    return out
+
+
+def train_state_from_flax(tree: Mapping, model: nn.Module) -> dict:
+    """Translate a JAX training state, as numpy, onto ``model``'s keys.
+
+    ``tree`` holds ``params`` and ``ema_params`` (Flax param trees), ``mu``
+    and ``nu`` (the AdamW moments, trees of the same structure), ``count``
+    (optax's update count) and ``step``. Returns the keyword arguments of
+    ``TrainState.load``: ``params``, ``ema``, ``mu`` and ``nu`` as state
+    dicts, ``count`` and ``step`` as ints.
+    """
+    out = {name: flax_to_state_dict(tree[key], model)
+           for name, key in (("params", "params"), ("ema", "ema_params"),
+                             ("mu", "mu"), ("nu", "nu"))}
+    out["count"] = int(tree["count"])
+    out["step"] = int(tree["step"])
     return out
 
 

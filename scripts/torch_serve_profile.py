@@ -33,6 +33,7 @@ FAMILIES = [
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "sm90_",
                      "nchwToNhwc", "nhwcToNchw", "cudnn")),
     ("matmul", ("gemm", "Gemm", "sgemm", "cublas")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach", "Foreach")),
     ("copy / layout", ("copy", "Copy", "cat", "Cat", "memcpy", "Memcpy",
                        "memset", "Memset", "upsample", "Upsample")),
     ("elementwise / reduce", ("elementwise", "reduce", "Reduce", "silu",
@@ -63,6 +64,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     trainer = Trainer(dict(FLAGSHIP_CONFIG), device="cuda")
     random_params(trainer.model, SEED)
+    trainer.reset_state()  # sample_fn serves the EMA, which starts here
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
                        generator=gen, device="cuda")

@@ -103,3 +103,29 @@ def test_cuda_kernel_matches_plain_version(dtype, atol):
         assert got.dtype == dtype and got.shape == (B, N, H, D)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= atol, (B, N, H, D, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
+                                         (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_gradient_matches_plain_version(dtype, atol):
+    """The autograd.Function over the kernel against autograd through the
+    plain version: one forward launch, and the same gradients (the backward
+    is the plain math in both; the upstream gradient differs only by the
+    forward's rounding, which it does not read)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn(2, 256, 3, 4, 48, generator=g, device="cuda",
+                      dtype=dtype, requires_grad=True)
+    w = torch.randn(2, 256, 4, 48, generator=g, device="cuda", dtype=dtype)
+    before = PF.LAUNCHES
+    out = PF.flash_attention(*qkv.unbind(2))
+    assert out.grad_fn is not None and PF.LAUNCHES == before + 1
+    (got,) = torch.autograd.grad((out * w).float().sum(), qkv)
+    (want,) = torch.autograd.grad(
+        (PF.reference_attention(*qkv.unbind(2)) * w).float().sum(), qkv)
+    assert PF.LAUNCHES == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol * max(1.0, want.float().abs().max().item()), err

@@ -100,3 +100,108 @@ def test_cfg_wrap_matches():
                       lambda x, t: torch.from_numpy(u) + t[:, None, None, None],
                       3.0)(torch.from_numpy(x), torch.tensor([1.0, 2.0]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _train_inputs(seed, B=3):
+    rng = np.random.default_rng(seed)
+    x0 = np.clip(rng.standard_normal((B, 8, 8, 1)), -1, 1).astype(np.float32)
+    noise = rng.standard_normal((B, 8, 8, 1)).astype(np.float32)
+    out = rng.standard_normal((B, 8, 8, 2)).astype(np.float32)
+    t = np.array([0, 1, 999][:B], np.int64)
+    return x0, noise, out, t
+
+
+def _full_scheds():
+    betas = JSch.make_beta_schedule("scaled_linear", 1000)
+    return (JSch.DiffusionSchedule.create(betas),
+            PSch.DiffusionSchedule.create(betas, device="cpu"))
+
+
+def test_get_v_and_q_mean_variance():
+    js, ps = _full_scheds()
+    x0, noise, _, t = _train_inputs(5)
+    jt = jnp.asarray(t, jnp.int32)
+    np.testing.assert_allclose(
+        PP.get_v(ps, torch.from_numpy(x0), torch.from_numpy(noise),
+                 torch.from_numpy(t)).numpy(),
+        np.asarray(JP.get_v(js, jnp.asarray(x0), jnp.asarray(noise), jt)),
+        atol=ATOL,
+    )
+    for got, want in zip(PP.q_mean_variance(ps, torch.from_numpy(x0),
+                                            torch.from_numpy(t)),
+                         JP.q_mean_variance(js, jnp.asarray(x0), jt)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=ATOL)
+
+
+def test_vb_terms_bpd_covers_the_decoder_nll_and_the_kl():
+    js, ps = _full_scheds()
+    x0, noise, out, t = _train_inputs(6)
+    jt = jnp.asarray(t, jnp.int32)
+    xt = np.asarray(JP.q_sample(js, jnp.asarray(x0), jt, jnp.asarray(noise)))
+    jvb, jx0 = JP.vb_terms_bpd(js, jnp.asarray(out), jnp.asarray(x0),
+                               jnp.asarray(xt), jt, "v", learn_sigma=True)
+    pvb, px0 = PP.vb_terms_bpd(ps, torch.from_numpy(out), torch.from_numpy(x0),
+                               torch.from_numpy(xt), torch.from_numpy(t), "v",
+                               learn_sigma=True)
+    np.testing.assert_allclose(pvb.numpy(), np.asarray(jvb), rtol=1e-5,
+                               atol=ATOL)
+    np.testing.assert_allclose(px0.numpy(), np.asarray(jx0), atol=ATOL)
+
+
+@pytest.mark.parametrize("loss_type, learn_sigma, param, elbo", [
+    ("charbonnier", True, "v", 0.0),
+    ("l2", False, "eps", 0.5),
+    ("l1", True, "x0", 0.0),
+])
+def test_training_losses_match(loss_type, learn_sigma, param, elbo):
+    js, ps = _full_scheds()
+    x0, noise, out, t = _train_inputs(7)
+    jt = jnp.asarray(t, jnp.int32)
+    # a prediction near its target keeps the t=0 decoder likelihood away
+    # from its 1e-12 clip, where f32 tanh rounding alone decides the value
+    target = {"eps": noise, "x0": x0,
+              "v": np.asarray(JP.get_v(js, jnp.asarray(x0),
+                                       jnp.asarray(noise), jt))}[param]
+    pred = target + 1e-3 * out[..., :1]
+    if learn_sigma:
+        pred = np.concatenate([pred, out[..., 1:]], axis=-1)
+
+    def jmodel(x, tm):
+        return jnp.asarray(pred) + 0.0 * x
+
+    def pmodel(x, tm):
+        return torch.from_numpy(pred) + 0.0 * x
+
+    jterms, _ = JP.training_losses(
+        js, jmodel, jnp.asarray(x0), jt, jnp.asarray(noise),
+        parameterization=param, loss_type=loss_type, learn_sigma=learn_sigma,
+        elbo_weight=elbo,
+    )
+    pterms, _ = PP.training_losses(
+        ps, pmodel, torch.from_numpy(x0), torch.from_numpy(t),
+        torch.from_numpy(noise), parameterization=param, loss_type=loss_type,
+        learn_sigma=learn_sigma, elbo_weight=elbo,
+    )
+    assert set(pterms) == set(jterms)
+    for k in jterms:
+        np.testing.assert_allclose(pterms[k].numpy(), np.asarray(jterms[k]),
+                                   rtol=1e-5, atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(PP.lvlb_weights(ps, param).numpy(),
+                               np.asarray(JP.lvlb_weights(js, param)),
+                               rtol=1e-5)
+
+
+def test_vb_term_gives_no_gradient_to_the_mean_half():
+    js, ps = _full_scheds()
+    x0, noise, out, t = _train_inputs(8)
+    raw = torch.from_numpy(out).requires_grad_()
+    terms, _ = PP.training_losses(
+        ps, lambda x, tm: raw, torch.from_numpy(x0), torch.from_numpy(t),
+        torch.from_numpy(noise), learn_sigma=True,
+    )
+    (g_vb,) = torch.autograd.grad(terms["vb"].sum(), raw, retain_graph=True)
+    assert torch.all(g_vb[..., :1] == 0)
+    assert torch.any(g_vb[..., 1:] != 0)
+    (g_mse,) = torch.autograd.grad(terms["mse"].sum(), raw)
+    assert torch.all(g_mse[..., 1:] == 0) and torch.any(g_mse[..., :1] != 0)

@@ -16,31 +16,21 @@ from dsdiff_tpu.models.dsunet import DSUNet as JDSUNet
 from dsdiff_torch.core import sampling as PS
 from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.trainer import Trainer
-from torch_parity_utils import random_flax_params
+from torch_parity_utils import TINY, random_flax_params, tiny_cfg
 
 ATOL = 1e-4
 
-TINY = dict(
-    model_channels=32, num_res_blocks=1, attention_resolutions=[2],
-    channel_mult=[1, 2], num_head_channels=16, use_scale_shift_norm=True,
-)
-
-# every config key the slice reads (Trainer.__init__ and what it calls)
+# every config key the port reads (Trainer.__init__ and what it calls)
 SLICE_KEYS = (
     "net_mode", "train_keys", "use_edge", "h5_2d_img_dir", "diffusion",
     "diffusion_steps", "noise_schedule", "linear_start", "linear_end",
     "learn_sigma", "disentangle_distance", "loss_type", "parameterization",
     "variance_type", "contrast_lambda", "cond_dropout", "sampler_setting",
     "unet_config", "output_ch", "bf16", "seed", "rescale_timesteps",
-    "clip_denoised", "split_input_params",
+    "clip_denoised", "split_input_params", "remat", "lr", "lr_low",
+    "num_epochs", "lr_warm_epoch", "beta1", "beta2", "weight_decay",
+    "grad_clip", "accum_steps", "ema_rate", "schedule_sampler",
 )
-
-
-def _tiny_cfg(steps=3):
-    cfg = dict(chip_smoke.FLAGSHIP_CONFIG)
-    cfg.update(bf16=False, unet_config={"params": TINY},
-               sampler_setting={"sampler": "ddim", "sample_steps": steps})
-    return cfg
 
 
 def _flax_model(seed=5):
@@ -77,7 +67,7 @@ def test_trainer_sample_fn_matches_jax_ddim_chain():
         clip_denoised=True,
     )
 
-    trainer = Trainer(_tiny_cfg(3), device="cpu")
+    trainer = Trainer(tiny_cfg(3), device="cpu")
     trainer.load_flax_params(params)
     got = trainer.sample_fn(torch.from_numpy(cond),
                             x_T=torch.from_numpy(x_T))
@@ -104,7 +94,7 @@ def test_stochastic_ddim_with_collected_x0_matches_jax():
         noise.append(torch.from_numpy(np.array(
             jax.random.normal(key, x_T.shape, jnp.float32))))
 
-    trainer = Trainer(_tiny_cfg(3), device="cpu")
+    trainer = Trainer(tiny_cfg(3), device="cpu")
     trainer.load_flax_params(params)
     c = torch.from_numpy(cond)
 
@@ -139,8 +129,12 @@ def test_trainer_builds_the_flagship_schedule():
     assert trainer.rsched.num_timesteps == 20
     assert trainer.task.learn_sigma and trainer.task.parameterization == "v"
     assert trainer.task.variance_type == "fixed_large"
-    assert next(trainer.model.parameters()).dtype == torch.bfloat16
-    assert trainer.model.encoder_0.down_0_0_res.in_norm.norm.weight.dtype == (
+    # f32 master parameters computing in bf16; the serving copy holds its
+    # Dense/Conv weights in bf16 and its norms in f32
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    assert trainer.model.time_embed.fc1.compute_dtype == torch.bfloat16
+    assert next(trainer.sample_model.parameters()).dtype == torch.bfloat16
+    assert trainer.sample_model.encoder_0.down_0_0_res.in_norm.norm.weight.dtype == (
         torch.float32
     )
 
@@ -148,14 +142,14 @@ def test_trainer_builds_the_flagship_schedule():
 def test_trainer_without_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer(_tiny_cfg())
+        Trainer(tiny_cfg())
 
 
 def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(dict(_tiny_cfg(), sampler_setting={"sampler": "plms"}),
+        Trainer(dict(tiny_cfg(), sampler_setting={"sampler": "plms"}),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(dict(_tiny_cfg(), h5_2d_img_dir="/data"), device="cpu")
+        Trainer(dict(tiny_cfg(), h5_2d_img_dir="/data"), device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
-        Trainer(dict(_tiny_cfg(), net_mode="disc_diff"), device="cpu")
+        Trainer(dict(tiny_cfg(), net_mode="disc_diff"), device="cpu")

@@ -8,6 +8,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import chip_smoke
+
+# a narrow DSUNet: two levels, attention at rate 2 (8² on a 16² input)
+TINY = dict(
+    model_channels=32, num_res_blocks=1, attention_resolutions=[2],
+    channel_mult=[1, 2], num_head_channels=16, use_scale_shift_norm=True,
+)
+
+
+def tiny_cfg(steps=3):
+    """The flagship run config with the TINY model, f32 and DDIM-``steps``."""
+    cfg = dict(chip_smoke.FLAGSHIP_CONFIG)
+    cfg.update(bf16=False, unet_config={"params": TINY},
+               sampler_setting={"sampler": "ddim", "sample_steps": steps})
+    return cfg
+
 
 def random_flax_params(tree, seed: int) -> dict:
     """A Flax param tree of the same structure filled with seeded, scaled
