@@ -4,12 +4,14 @@
 
 Builds the hand-written CUDA kernels from ``dsdiff_torch/ops/csrc/``,
 holds each against its plain PyTorch version at the main path's shapes and
-times both (with one PyTorch library call beside them as a yardstick), then
-drives the main path in both directions:
+times both (with one PyTorch library call beside them as a yardstick; the
+attention kernel and its library call also as CUDA graphs, which leave the
+host out), then drives the main path in both directions:
 
-- serving: a full-width flagship DSUNet forward with the attention kernel
-  against the same forward with plain attention, then three DDIM-20
-  requests at 256² through ``Trainer.sample_fn``;
+- serving: full-width flagship DSUNet forwards with the attention kernel
+  against the same forwards with plain attention, in f32 (the kernel's
+  scalar route) and in bf16 (its wgmma route), then three DDIM-20 requests
+  at 256² through ``Trainer.sample_fn``;
 - the fused GroupNorm + SiLU op through ``dsdiff_torch.ops`` at the
   flagship ResBlock norm shapes;
 - training: one full-width f32 loss + gradient with the attention kernel
@@ -121,6 +123,16 @@ KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # full-width f32 forward, TF32 off, kernel vs plain attention: relative to
 # the output's largest magnitude
 MODEL_RTOL = 1e-3
+# full-width bf16 forward, kernel (wgmma route) vs plain attention, relative
+# to the output's largest magnitude. The two round each attention output to
+# bf16 from f32 values that differ by summation order and by P entering the
+# second product in bf16 (relative 2^-9), so an output may land one bf16 ulp
+# (2^-8 relative) apart; the ~60 bf16 layers after the first attention block
+# re-round such differences and GroupNorm rescales them, so they spread but
+# stay at a few ulps of the output's scale. 5 ulps (2e-2) bounds that drift;
+# a kernel fault (a mis-mapped fragment, a lost tile) moves the output by
+# the order of max |out| itself.
+MODEL_BF16_RTOL = 2e-2
 # GroupNorm+SiLU apply, kernel vs plain, relative to max(1, max |plain|): f32
 # differs by expf vs PyTorch's sigmoid (a few ulps); bf16 is rounded from f32
 # in both, so one bf16 ulp (2^-7 relative at most) may separate them
@@ -164,6 +176,33 @@ def time_ms_cycling(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_graph(fn, inputs, replays: int = 5) -> float:
+    """Mean device time of ``fn(*inputs[i % len(inputs)])``, one call per
+    copy of the rotated inputs (at least 100 calls), captured in one CUDA
+    graph and replayed: the host's cost per call is left out."""
+    calls = max(100, len(inputs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for args in inputs[:3]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def rotated(tensors, nbytes: int) -> list:
     """``tensors`` and enough clones of them that one pass over all copies
     moves at least twice the L2 cache's ``nbytes`` (at most 1024 copies)."""
@@ -205,12 +244,13 @@ def phase_build():
     for lib in libs.values():
         log = lib.with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Loss" in line:
                 print(f"[build] {line.strip()}")
 
 
 def phase_kernels(card: str):
-    """Kernel vs plain at the flagship attention shapes; returns the rows."""
+    """Kernel vs plain at the flagship attention shapes; returns the rows.
+    bf16 runs the kernel's wgmma route, f32 its scalar route."""
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -229,25 +269,31 @@ def phase_kernels(card: str):
                 sdpa_in = [tuple(t.transpose(1, 2).contiguous()
                                  for t in x.unbind(2)) for (x,) in qkvs]
                 iters = 50 if N >= 1024 else 200
-                ms = time_ms_cycling(lambda x: fa.flash_attention(*x.unbind(2)),
-                                     qkvs, iters)
+                kernel = lambda x: fa.flash_attention(*x.unbind(2))  # noqa: E731
+                ms = time_ms_cycling(kernel, qkvs, iters)
+                graph_ms = time_ms_graph(kernel, qkvs)
                 plain_ms = time_ms_cycling(
                     lambda x: fa.reference_attention(*x.unbind(2)), qkvs, iters)
                 lib_ms = time_ms_cycling(F.scaled_dot_product_attention,
                                          sdpa_in, iters)
+                lib_graph_ms = time_ms_graph(F.scaled_dot_product_attention,
+                                             sdpa_in)
                 del qkvs, sdpa_in
                 bound_ms, bound_by = attention_bound(batch, N, H, D, dtype)
                 row = dict(shape=[batch, N, H, D], dtype=str(dtype).split(".")[1],
-                           calls_per_forward=calls, max_abs_err=err, tol=tol,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           share_of_bound=bound_ms / ms)
+                           route=fa.ROUTES[dtype], calls_per_forward=calls,
+                           max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, share_of_bound=bound_ms / graph_ms)
                 rows.append(row)
-                print(f"[kernel] flash_attention {row['shape']} {row['dtype']}: "
-                      f"max_abs_err {err:.3e} (tol {tol:.0e}), kernel {ms:.5f} ms, "
-                      f"plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms, "
-                      f"bound {bound_ms:.5f} ms ({bound_by}), "
-                      f"{100 * bound_ms / ms:.2f}% of bound [{card}]")
+                print(f"[kernel] flash_attention {row['shape']} {row['dtype']} "
+                      f"({row['route']}): max_abs_err {err:.3e} (tol {tol:.0e}), "
+                      f"kernel {ms:.5f} ms (graph {graph_ms:.5f}), plain "
+                      f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (graph "
+                      f"{lib_graph_ms:.5f}), bound {bound_ms:.5f} ms "
+                      f"({bound_by}), {100 * bound_ms / graph_ms:.2f}% of bound "
+                      f"in the graph [{card}]")
                 check(err <= tol, f"flash_attention {row['shape']} "
                       f"{row['dtype']}: error {err} over {tol}")
     return rows
@@ -354,15 +400,16 @@ def phase_norm_op():
     return launched
 
 
-def phase_model_parity():
-    """Full-width flagship DSUNet, f32, TF32 off: kernel vs plain attention."""
-    disable_tf32()
+def _forward_kernel_and_plain(dtype):
+    """The full-width flagship DSUNet (weights from SEED) in compute dtype
+    ``dtype``, batch PARITY_BATCH at 256²: (output with the attention
+    kernel, output with plain attention, kernel launches of the first)."""
     params = FLAGSHIP_CONFIG["unet_config"]["params"]
     model = build_model("dsunet", device="cuda", in_channels=4,
-                        out_channels=2, dtype=torch.float32, **params).eval()
+                        out_channels=2, dtype=dtype, **params).eval()
     random_params(model, SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(2, IMAGE, IMAGE, 4, generator=gen, device="cuda")
+    x = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 4, generator=gen, device="cuda")
     t = torch.tensor([17.0, 803.0], device="cuda")
     with torch.inference_mode():
         before = fa.LAUNCHES
@@ -375,16 +422,33 @@ def phase_model_parity():
         finally:
             attention_module.scaled_attention = kernel_attention
     torch.cuda.synchronize()
-    err = (out_kernel - out_plain).abs().max().item()
-    scale = out_plain.abs().max().item()
-    tol = MODEL_RTOL * max(1.0, scale)
-    print(f"[parity] DSUNet 256² batch 2 f32: max_abs_err {err:.3e} "
-          f"(tol {tol:.3e}, max |out| {scale:.3f}), {launched} kernel launches")
-    check(torch.isfinite(out_kernel).all().item(), "non-finite model output")
-    check(launched == CALLS_PER_FORWARD,
-          f"{launched} attention launches in one forward, not {CALLS_PER_FORWARD}")
-    check(err <= tol, f"model parity error {err} over {tol}")
-    del model
+    return out_kernel.float(), out_plain.float(), launched
+
+
+def phase_model_parity():
+    """Full-width flagship DSUNet, kernel vs plain attention: f32 with TF32
+    off (the scalar route), then bf16 (the wgmma route, the serving dtype),
+    whose gap to the f32 output is printed as bf16's own noise."""
+    disable_tf32()
+    out_f32 = None
+    for dtype, rtol in ((torch.float32, MODEL_RTOL),
+                        (torch.bfloat16, MODEL_BF16_RTOL)):
+        out_kernel, out_plain, launched = _forward_kernel_and_plain(dtype)
+        name = str(dtype).split(".")[1]
+        err = (out_kernel - out_plain).abs().max().item()
+        scale = out_plain.abs().max().item()
+        tol = rtol * max(1.0, scale)
+        gap = ("" if out_f32 is None else
+               f", bf16 plain vs f32 plain {(out_plain - out_f32).abs().max().item():.3e}")
+        print(f"[parity] DSUNet 256² batch {PARITY_BATCH} {name} "
+              f"({fa.ROUTES[dtype]} route): max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}, max |out| {scale:.3f}{gap}), {launched} kernel "
+              f"launches")
+        check(torch.isfinite(out_kernel).all().item(), "non-finite model output")
+        check(launched == CALLS_PER_FORWARD, f"{launched} attention launches "
+              f"in one {name} forward, not {CALLS_PER_FORWARD}")
+        check(err <= tol, f"{name} model parity error {err} over {tol}")
+        out_f32 = out_plain
 
 
 def phase_serve(smi: str):
@@ -432,8 +496,9 @@ def _flagship_task() -> TaskConfig:
 
 def phase_train_parity():
     """Full-width flagship DSUNet in f32 with TF32 off and remat on, batch 2
-    at 256²: the train objective and every parameter gradient with the
-    attention kernel against the same with plain attention."""
+    at 256², on the flagship's ``linear`` noise schedule: the train
+    objective and every parameter gradient with the attention kernel (its
+    scalar route) against the same with plain attention."""
     disable_tf32()
     params = FLAGSHIP_CONFIG["unet_config"]["params"]
     model = build_model("dsunet", device="cuda", in_channels=4,
@@ -441,7 +506,11 @@ def phase_train_parity():
                         **params).train()
     random_params(model, SEED)
     sched = schedules.DiffusionSchedule.create(
-        schedules.make_beta_schedule("scaled_linear", 1000), device="cuda")
+        schedules.make_beta_schedule(
+            FLAGSHIP_CONFIG["noise_schedule"],
+            FLAGSHIP_CONFIG["diffusion_steps"],
+            FLAGSHIP_CONFIG["linear_start"], FLAGSHIP_CONFIG["linear_end"]),
+        device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     B = PARITY_BATCH
     x0 = torch.rand(B, IMAGE, IMAGE, 1, generator=gen, device="cuda") * 2 - 1
@@ -586,8 +655,9 @@ def _per_forward(rows, key):
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
                  norm_launches: int) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
-    (batch SERVE_BATCH, bf16, 34 calls). GroupNorm+SiLU: one call at each
-    flagship norm shape, batch SERVE_BATCH, bf16."""
+    (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
+    each dtype. GroupNorm+SiLU: one call at each flagship norm shape, batch
+    SERVE_BATCH, bf16."""
     serve = [r for r in attn_rows
              if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
     ops_ms = sum(r["bound_ms"] * r["calls_per_forward"] for r in serve
@@ -598,16 +668,19 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
     return {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
+        "routes_by_dtype": {str(d).split(".")[1]: r for d, r in fa.ROUTES.items()},
         "source": "dsdiff_torch/ops/csrc/flash_attention.cu",
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in serve),
         "ms": _per_forward(serve, "ms"),
+        "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
         "bound_ms": attn_bound,
         "bound_by": "operations" if ops_ms > attn_bound / 2 else "bytes",
         "library_ms": _per_forward(serve, "library_ms"),
+        "library_graph_ms": _per_forward(serve, "library_graph_ms"),
         "per": f"one DSUNet forward, batch {SERVE_BATCH}, bf16, "
                f"{CALLS_PER_FORWARD} calls",
     }, {

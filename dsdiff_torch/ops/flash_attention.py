@@ -6,6 +6,11 @@ the hand-written kernel ``csrc/flash_attention.cu`` on CUDA tensors;
 cast back to q's dtype), used for CPU tensors and to check the kernel.
 Layout: ``[B, N, heads, D]`` in and out.
 
+The kernel has two routes (``ROUTES``): bf16 runs on the tensor cores
+(``wgmma``, K/V through TMA), f32 on the CUDA cores (``scalar``). The bf16
+route reads q, k and v through TMA tensor maps, which need 16-byte aligned
+bases and batch, row and head strides that are multiples of 8 elements.
+
 The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
 an ``autograd.Function`` whose forward is the kernel and whose backward is
 the VJP of ``reference_attention``, recomputed from the saved q, k and v.
@@ -23,13 +28,16 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "reference_attention", "FlashAttention",
-           "LAUNCHES", "MAX_HEAD_DIM"]
+           "LAUNCHES", "MAX_HEAD_DIM", "ROUTES"]
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 MAX_HEAD_DIM = 64  # the kernel pads the head dimension to 64 on chip
+# the kernel's route for each dtype it takes
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "scalar"}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LOG2E = math.log2(math.e)
 _lib = None
 
 
@@ -41,32 +49,46 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Raise on anything the kernel does not take; returns the strides of
+    q, k and v. Kept lean: it runs before every launch."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes [B, N, heads, D] tensors")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    dtype = q.dtype
+    if not (dtype == k.dtype == v.dtype) or dtype not in _DTYPES:
         raise TypeError(
             f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     B, N, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
+    kshape = k.shape
+    if kshape != v.shape or kshape[0] != B or kshape[2] != H or kshape[3] != D:
         raise ValueError(
             f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} is outside 1..{MAX_HEAD_DIM}")
-    if N < 1 or k.shape[1] < 1 or B * H > 65535:
-        raise ValueError(f"unsupported sizes B={B} N={N} M={k.shape[1]} H={H}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+    if N < 1 or kshape[1] < 1 or B * H > 65535:
+        raise ValueError(f"unsupported sizes B={B} N={N} M={kshape[1]} H={H}")
+    strides = (q.stride(), k.stride(), v.stride())
+    if strides[0][3] != 1 or strides[1][3] != 1 or strides[2][3] != 1:
         raise ValueError("the last dimension of q, k and v must be contiguous")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if dtype == torch.bfloat16:  # what a TMA tensor map can describe
+        for name, x, st in zip("qkv", (q, k, v), strides):
+            if x.data_ptr() % 16:
+                raise ValueError(f"bf16 {name} must start 16-byte aligned")
+            if st[0] % 8 or st[1] % 8 or st[2] % 8:
+                raise ValueError(
+                    f"bf16 {name}'s batch, row and head strides must be "
+                    f"multiples of 8 elements, got {st}")
+    device = q.device
+    if device.type != "cuda" or k.device != device or v.device != device:
         raise ValueError(
             f"flash_attention needs q, k, v on one CUDA device, got "
             f"{q.device}, {k.device}, {v.device}"
         )
+    return strides
 
 
 def _library():
@@ -76,7 +98,7 @@ def _library():
         fn = lib.dsdiff_flash_attention
         fn.argtypes = (
             [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -86,24 +108,29 @@ def _library():
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Launch the CUDA kernel once; raises on what it does not take."""
+    """Launch the CUDA kernel once; raises on what it does not take. The
+    C entry launches on q's device and that device's current stream."""
     global LAUNCHES
-    _check(q, k, v)
+    qs, ks, vs = _check(q, k, v)
     B, N, H, D = q.shape
-    M = k.shape[1]
     fn = _library().dsdiff_flash_attention
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], B, H, N, M, D,
-            *(q.stride(i) for i in (0, 1, 2)),
-            *(k.stride(i) for i in (0, 1, 2)),
-            *(v.stride(i) for i in (0, 1, 2)),
-            *(o.stride(i) for i in (0, 1, 2)),
-            math.log2(math.e) / math.sqrt(D), stream,
-        )
+    index = q.device.index
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], index, B, H, N, k.shape[1], D,
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        N * H * D, H * D, D,  # o is contiguous
+        # the current stream's raw handle: torch.cuda.current_stream()
+        # builds a Stream object, microseconds of host time per launch
+        _LOG2E / math.sqrt(D), torch._C._cuda_getCurrentRawStream(index),
+    )
+    if rc == -1:
+        raise RuntimeError("flash_attention: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
+    if rc <= -1000:
+        raise RuntimeError(f"flash_attention: TMA tensor map refused, "
+                           f"CUresult {-rc - 1000}")
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     LAUNCHES += 1

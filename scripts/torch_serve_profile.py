@@ -27,7 +27,7 @@ from dsdiff_torch.utils.flax_bridge import random_params  # noqa: E402
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = [
-    ("flash_attention", ("attn_fwd_kernel",)),
+    ("flash_attention", ("attn_fwd",)),
     ("group_norm", ("group_norm", "GroupNorm", "RowwiseMoments",
                     "ComputeFusedParams", "groupnorm")),
     ("convolution", ("conv", "xmma", "cutlass", "implicit", "sm90_",

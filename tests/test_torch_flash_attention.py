@@ -65,44 +65,98 @@ def test_scaled_attention_on_cpu_does_not_launch():
     assert PF.LAUNCHES == before
 
 
+def _bf16_misaligned():
+    """[1, 8, 2, 8] bf16 views 2 bytes past an aligned start (strides fine)."""
+    flat = torch.zeros(1 + 8 * 2 * 8, dtype=torch.bfloat16)
+    return [flat[1:].view(1, 8, 2, 8)] * 3
+
+
 @pytest.mark.parametrize(
-    "make, err",
+    "make, err, match",
     [
-        (lambda: [torch.zeros(1, 8, 2, 8)] * 3, ValueError),  # CPU tensors
-        (lambda: [torch.zeros(1, 8, 2, 80)] * 3, ValueError),  # D > 64
-        (lambda: [torch.zeros(1, 8, 2, 8, dtype=torch.float16)] * 3, TypeError),
-        (lambda: [torch.zeros(8, 2, 8)] * 3, ValueError),  # rank
-        (lambda: [torch.zeros(1, 8, 8, 2).transpose(2, 3)] * 3, ValueError),
+        (lambda: [torch.zeros(1, 8, 2, 8)] * 3, ValueError, "CUDA"),
+        (lambda: [torch.zeros(1, 8, 2, 80)] * 3, ValueError, "head dim"),
+        (lambda: [torch.zeros(1, 8, 2, 8, dtype=torch.float16)] * 3, TypeError,
+         None),
+        (lambda: [torch.zeros(8, 2, 8)] * 3, ValueError, None),  # rank
+        (lambda: [torch.zeros(1, 8, 8, 2).transpose(2, 3)] * 3, ValueError,
+         "contiguous"),
         (lambda: [torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 3, 8),
-                  torch.zeros(1, 8, 3, 8)], ValueError),
+                  torch.zeros(1, 8, 3, 8)], ValueError, "shapes"),
+        # bf16 goes through TMA tensor maps: refused before the device check
+        (_bf16_misaligned, ValueError, "16-byte aligned"),
+        (lambda: [torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16)[..., :8]] * 3,
+         ValueError, "multiples of 8"),
     ],
 )
-def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(make, err):
-    with pytest.raises(err):
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(make, err, match):
+    with pytest.raises(err, match=match):
         PF.flash_attention(*make())
 
 
+def test_bf16_refusals_do_not_touch_the_qkv_thirds():
+    """The model's q, k, v (strided thirds of one qkv tensor) at every
+    shipped head width pass the bf16 layout checks and fail only on the
+    device."""
+    for heads, D in [(4, 48), (6, 48), (2, 32), (3, 64), (1, 16)]:
+        qkv = torch.zeros(2, 40, 3, heads, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA device"):
+            PF.flash_attention(*qkv.unbind(2))
+
+
+GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
-                                         (torch.bfloat16, 1e-2)])
-def test_cuda_kernel_matches_plain_version(dtype, atol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B, N, M, H, D",
+    [(2, 1024, 1024, 4, 48), (3, 256, 256, 6, 48), (2, 64, 64, 6, 48),
+     (1, 100, 100, 2, 64), (1, 77, 77, 3, 16),
+     # M != N and ragged tails on both sides, at every head width up to 64
+     (2, 1000, 77, 2, 16), (1, 77, 1000, 3, 32), (2, 1000, 77, 2, 48),
+     (1, 130, 200, 2, 64), (1, 64, 1, 1, 48)],
+)
+def test_cuda_kernel_matches_plain_version(B, N, M, H, D, dtype):
+    """q from one qkv tensor, k and v from another (so M may differ from
+    N), all strided thirds as the model passes them; f32 runs the scalar
+    route, bf16 the wgmma route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for B, N, H, D in [(2, 1024, 4, 48), (3, 256, 6, 48), (2, 64, 6, 48),
-                       (1, 100, 2, 64), (1, 77, 3, 16)]:
-        qkv = torch.randn(B, N, 3, H, D, generator=g, device="cuda",
-                          dtype=dtype)
-        q, k, v = qkv.unbind(2)  # strided views, as the model passes them
-        before = PF.LAUNCHES
-        got = PF.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        assert PF.LAUNCHES == before + 1
-        want = PF.reference_attention(q, k, v)
-        assert got.dtype == dtype and got.shape == (B, N, H, D)
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= atol, (B, N, H, D, err)
+    g = torch.Generator(device="cuda").manual_seed(N * 131 + M + D)
+    q = torch.randn(B, N, 3, H, D, generator=g, device="cuda",
+                    dtype=dtype).unbind(2)[0]
+    _, k, v = torch.randn(B, M, 3, H, D, generator=g, device="cuda",
+                          dtype=dtype).unbind(2)
+    before = PF.LAUNCHES
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    want = PF.reference_attention(q, k, v)
+    assert got.dtype == dtype and got.shape == (B, N, H, D)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype], (B, N, M, H, D, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 12, 20])
+def test_cuda_kernel_takes_head_dims_that_are_not_multiples_of_8(D, dtype):
+    """q, k, v cut from a buffer whose head width is padded to a multiple
+    of 8, so the bf16 stride rule holds while D itself does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(D)
+    padded = -(-D // 8) * 8
+    q, k, v = torch.randn(2, 70, 3, 3, padded, generator=g, device="cuda",
+                          dtype=dtype)[..., :D].unbind(2)
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (2, 70, 3, D) and err <= GPU_TOL[dtype], (D, err)
 
 
 @pytest.mark.gpu
