@@ -41,29 +41,50 @@
 // wrapper checks this. P enters the second product in bf16, as in
 // jax.nn.dot_product_attention (probabilities cast to the value dtype).
 //
-// f32: the scalar kernel (attn_fwd_scalar), CUDA-core FMAs:
-// - one thread block per (b*h, 64-row Q tile), 256 threads; four threads per
-//   query row, each on every fourth key of a tile, with its own running max,
-//   sum and accumulator, merged with warp shuffles at the end;
-// - K and V tiles of 64 rows staged in shared memory, the head dimension
-//   padded to 64 there and in registers; a row stride of 68 floats keeps the
-//   four key groups' float4 reads on distinct banks.
+// f32: three TF32 passes on the tensor cores (attn_fwd_tf32x3), mma.sync:
+// - 4 warps (128 threads) per 64-row Q tile, one 16-row slab per warp; grid
+//   (ceil(N/64), B*H). D is padded to a multiple of 8 (48 stays 48): DK =
+//   ceil(D/8) k-steps of QK^T and n-tiles of PV.
+// - A single TF32 pass keeps ~11 bits (an error of ~1e-3 at unit scale), so
+//   each operand is split, a = hi + lo with hi = a rounded to TF32 (as
+//   cvt.rna.tf32.f32 rounds) and lo = a - hi, and a b ~ lo_a hi_b + hi_a lo_b
+//   + hi_a hi_b (small terms first), in both products: S = Q K^T and
+//   O += P V, P in f32.
+//   Operands are split in registers after a load of raw f32 from shared
+//   memory, so shared memory holds one f32 copy of each tile.
+// - mma.sync m16n8k8 rather than wgmma: .tf32 wgmma reads only K-major
+//   operands from shared memory, and V is MN-major for PV; a B operand read
+//   from shared memory would also need its lo half stored beside it.
+// - Q is pre-scaled by log2(e)/sqrt(D) before its split; the online softmax
+//   runs in f32 with ex2.approx.ftz, as the bf16 route.
+// - S's accumulator is P's A fragment up to a permutation of the 8 keys of
+//   each step, which PV's sum over keys does not see (see the kernel).
+// - K/V tiles of 64 keys go through a 2-stage ring filled by cp.async: 16-byte
+//   copies where the bases are 16-byte aligned and D and the strides are
+//   multiples of 4 floats (the model's qkv thirds), else 4-byte copies; rows
+//   padded to 8*DK + 4 floats keep fragment loads free of bank conflicts.
+//   Shared memory: 5 tiles of 64 x (8*DK + 4) floats, 66,560 B at D=48.
 //
-// Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 3.35 TB/s), batch 16, per
-// call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D; bytes = q, k, v
-// and o read or written once):
-//   [16, 1024, 4, 48]  12.9 GFLOP  25.2 MB  ~13 us   bound by operations
-//   [16,  256, 6, 48]  1.21 GFLOP   9.4 MB  ~2.8 us  bound by bytes
-//   [16,   64, 6, 48]  0.08 GFLOP   2.4 MB  ~0.7 us  bound by bytes
+// Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 495 TF32, 3.35 TB/s),
+// batch 16, per call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D;
+// bytes = q, k, v and o read or written once):
+//   bf16: [16, 1024, 4, 48]  12.9 GFLOP  25.2 MB  ~13 us   bound by operations
+//         [16,  256, 6, 48]  1.21 GFLOP   9.4 MB  ~2.8 us  bound by bytes
+//         [16,   64, 6, 48]  0.08 GFLOP   2.4 MB  ~0.7 us  bound by bytes
 // The bf16 route runs both products on the tensor cores and reads each K/V
 // tile once per Q tile through TMA; D=48 costs the tensor cores 3 k-steps of
 // 16 in QK^T but a full n64 in PV. At D=48 a score costs the tensor cores
 // ~190 FLOPs but the softmax ~5 CUDA-core instructions (max, fma, ex2, sum,
 // half a pack), so the softmax's instruction issue, not the tensor cores,
 // bounds this route: each of those is kept to one instruction, and enough
-// blocks share an SM to hide the products' latency. The f32 route (67
-// TFLOP/s CUDA cores) cannot come near its bound at N=1024; no f32 tensor
-// reaches it on the bf16 main path.
+// blocks share an SM to hide the products' latency.
+// f32: an f32-accurate product costs this card at least three TF32 passes,
+// so the bound is max(3 * FLOPs / 495e12, bytes / 3.35e12), not FLOPs at the
+// 67 TFLOP/s of the CUDA cores: [16, 1024, 4, 48] ~78 us (operations),
+// [16, 256, 6, 48] ~7.3 us (operations), [16, 64, 6, 48] ~1.4 us (bytes).
+// mma.sync reaches well under the wgmma rate, and each operand element costs
+// three CUDA-core instructions to split (once per warp that reads it), so
+// the split and the softmax, not the tensor cores, are expected to bound it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -424,142 +445,332 @@ int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 // ---------------------------------------------------------------------------
-// f32: scalar CUDA-core kernel
+// f32: three TF32 passes on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // key rows per shared-memory tile
-constexpr int DP = 64;               // head dimension padded to this
-constexpr int SPLIT = 4;             // threads per query row
-constexpr int THREADS = BQ * SPLIT;  // 256
-constexpr int KPT = BK / SPLIT;      // keys of a tile per thread
-constexpr int LD = DP + 4;           // shared-memory row stride in floats
+constexpr int F_WARPS = 4;  // one 16-row slab of the 64-row Q tile per warp
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_STAGES = 2;  // K/V ring depth
+// Row stride of a tile in shared memory, in floats, for a head dimension
+// padded to 8 * DK: 8 * DK + 4 is 4 modulo 8, so the 8 rows x 4 columns of a
+// K or Q fragment load, and the 4 row pairs x 8 columns of a V fragment
+// load, fall on 32 distinct banks.
+__host__ __device__ constexpr int f_ld(int dk) { return 8 * dk + 4; }
+__host__ __device__ constexpr int f_tile_floats(int dk) {
+  return TILE * f_ld(dk);
+}
+// Q tile + F_STAGES K and V tiles
+__host__ __device__ constexpr int f_smem_bytes(int dk) {
+  return (1 + 2 * F_STAGES) * f_tile_floats(dk) * 4;
+}
 
-// rows [r0, r0 + BK) of a [rows, D] slab with row stride sn -> dst[BK][LD],
-// zero past the ragged row tail and past D.
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const float* __restrict__ base,
-                                          long long sn, int r0, int rows,
-                                          int D) {
-  for (int idx = threadIdx.x; idx < BK * DP; idx += THREADS) {
-    const int r = idx / DP, d = idx % DP;
-    float val = 0.f;
-    if (r0 + r < rows && d < D) val = base[(long long)(r0 + r) * sn + d];
-    dst[r * LD + d] = val;
+// x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds, here in two integer
+// instructions); lo = x - hi is exact in f32 and enters the tensor cores as
+// raw f32 bits, whose low 13 bits they ignore, so what they multiply is
+// within 2^-21 of x
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b to f32 accuracy (3xTF32): the two small cross terms first, then
+// hi * hi; lo * lo (below 2^-22 relative) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint32_t b0_hi, uint32_t b1_hi,
+                                           uint32_t b0_lo, uint32_t b1_lo) {
+  mma_tf32(d, a_lo, b0_hi, b1_hi);
+  mma_tf32(d, a_hi, b0_lo, b1_lo);
+  mma_tf32(d, a_hi, b0_hi, b1_hi);
+}
+
+// global -> shared copies that skip the registers; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// returns once at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + TILE) of a [rows, D] slab (row stride sn floats) into a
+// [TILE][f_ld(DK)] tile at dst, zeros past the ragged row tail and in the
+// padding columns D..8*DK-1. VEC: 16-byte copies (the base is 16-byte
+// aligned and sn and D are multiples of 4); otherwise 4-byte copies.
+template <int DK, bool VEC>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst,
+                                              const float* __restrict__ base,
+                                              long long sn, int r0, int rows,
+                                              int D) {
+  constexpr int LD = f_ld(DK);
+  constexpr int W = VEC ? 4 : 1;       // floats per copy
+  constexpr int PER_ROW = 8 * DK / W;  // copies per tile row
+  for (int idx = threadIdx.x; idx < TILE * PER_ROW; idx += F_THREADS) {
+    const int r = idx / PER_ROW, c = W * (idx % PER_ROW);
+    const bool ok = r0 + r < rows && c < D;
+    const float* src = ok ? base + (r0 + r) * sn + c : base;
+    if constexpr (VEC)
+      cp_async16(dst + 4 * (r * LD + c), src, ok ? 16 : 0);
+    else
+      cp_async4(dst + 4 * (r * LD + c), src, ok ? 4 : 0);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
+// Fragments of mma m16n8k8 (TF32), lane = 4g + t:
+//   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8, k by n):     b0 (t, g), b1 (t+4, g)
+//   C (16 x 8):            c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// S's accumulator holds keys 2t and 2t+1 where P's A fragment wants keys t
+// and t+4. PV sums over keys, so each 8-key step takes its keys in the
+// order (2t <-> t, 2t+1 <-> t+4) in both operands: c0, c2, c1, c3 are P's
+// a0..a3 as they stand, and the B fragment reads V's rows 2t and 2t+1.
+template <int DK, bool VEC>
+__global__ void __launch_bounds__(F_THREADS)
+attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int H,
                 int N, int M, int D, Strides qs, Strides kst, Strides vst,
                 Strides ost, float scale_log2) {
-  __shared__ __align__(16) float k_tile[BK * LD];
-  __shared__ __align__(16) float v_tile[BK * LD];
+  constexpr int LD = f_ld(DK);
+  constexpr int TF = f_tile_floats(DK);
+  extern __shared__ __align__(16) float fsm[];
+  const float* q_t = fsm;
+  const auto k_t = [&](int s) { return fsm + (1 + s) * TF; };
+  const auto v_t = [&](int s) { return fsm + (1 + F_STAGES + s) * TF; };
 
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int n0 = blockIdx.x * BQ;
-  const int row = threadIdx.x / SPLIT;
-  const int g = threadIdx.x % SPLIT;
-  const float* qb = q + b * qs.b + h * qs.h;
+  const int n0 = blockIdx.x * TILE;
+  const int ntiles = (M + TILE - 1) / TILE;
   const float* kb = k + b * kst.b + h * kst.h;
   const float* vb = v + b * vst.b + h * vst.h;
 
-  // the Q tile goes through shared memory so its loads are coalesced
-  load_tile(k_tile, qb, qs.n, n0, N, D);
-  __syncthreads();
-  float qr[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) qr[d] = k_tile[row * LD + d] * scale_log2;
-  __syncthreads();
-
-  float acc[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += BK) {
-    load_tile(k_tile, kb, kst.n, m0, M, D);
-    load_tile(v_tile, vb, vst.n, m0, M, D);
-    __syncthreads();
-
-    float s[KPT];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int j = i * SPLIT + g;
-      const float4* kr = reinterpret_cast<const float4*>(k_tile + j * LD);
-      float dot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DP / 4; ++d4) {
-        const float4 kv = kr[d4];
-        dot = fmaf(qr[4 * d4 + 0], kv.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kv.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
-      }
-      s[i] = (m0 + j < M) ? dot : -INFINITY;
-      m_tile = fmaxf(m_tile, s[i]);
+  load_tile_f32<DK, VEC>(smem_u32(q_t), q + b * qs.b + h * qs.h, qs.n, n0, N,
+                         D);
+  for (int s = 0; s < F_STAGES; ++s) {
+    if (s < ntiles) {
+      load_tile_f32<DK, VEC>(smem_u32(k_t(s)), kb, kst.n, s * TILE, M, D);
+      load_tile_f32<DK, VEC>(smem_u32(v_t(s)), vb, vst.n, s * TILE, M, D);
     }
+    cp_async_commit();  // group s: K/V tile s (group 0 also Q)
+  }
 
-    // online softmax; m_base keeps exp2f's argument finite while a thread
-    // has seen no valid key yet
-    const float m_new = fmaxf(m_run, m_tile);
-    const float m_base = (m_new == -INFINITY) ? 0.f : m_new;
-    const float alpha = exp2f(m_run - m_base);
-    l_run *= alpha;
+  float acc[DK][4];
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+  for (int dn = 0; dn < DK; ++dn)
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int j = i * SPLIT + g;
-      const float p = exp2f(s[i] - m_base);
-      l_run += p;
-      const float4* vr = reinterpret_cast<const float4*>(v_tile + j * LD);
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  cp_async_wait<F_STAGES - 1>();  // group 0 (Q, K/V tile 0) has landed
+  __syncthreads();
+  uint32_t qh[DK][4], ql[DK][4];  // Q's A fragments, pre-scaled, split
+  {
+    const float* qr = q_t + (16 * warp + g) * LD + t;
 #pragma unroll
-      for (int d4 = 0; d4 < DP / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+    for (int kk = 0; kk < DK; ++kk) {
+      split_tf32(qr[8 * kk] * scale_log2, qh[kk][0], ql[kk][0]);
+      split_tf32(qr[8 * LD + 8 * kk] * scale_log2, qh[kk][1], ql[kk][1]);
+      split_tf32(qr[8 * kk + 4] * scale_log2, qh[kk][2], ql[kk][2]);
+      split_tf32(qr[8 * LD + 8 * kk + 4] * scale_log2, qh[kk][3], ql[kk][3]);
+    }
+  }
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % F_STAGES;
+    if (j > 0) {
+      cp_async_wait<F_STAGES - 1>();  // groups 0..j have landed
+      __syncthreads();
+    }
+    const float* kt = k_t(s);
+    const float* vt = v_t(s);
+
+    // S = (Q scale_log2) K^T for 64 keys: 8 n-tiles of 8 keys, DK k-steps
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      const float* kr = kt + (8 * n + g) * LD + t;  // K[key 8n+g][d t]
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t b0h, b0l, b1h, b1l;
+        split_tf32(kr[8 * kk], b0h, b0l);
+        split_tf32(kr[8 * kk + 4], b1h, b1l);
+        mma_3xtf32(sc[n], qh[kk], ql[kk], b0h, b1h, b0l, b1l);
       }
     }
-    m_run = m_new;
-    __syncthreads();
-  }
 
-  // merge the SPLIT partials of a row: its threads are adjacent lanes of
-  // one warp
+    if ((j + 1) * TILE > M) {  // ragged last tile: keys past M get -inf
 #pragma unroll
-  for (int off = 1; off < SPLIT; off <<= 1) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m_run, off);
-    const float l_o = __shfl_xor_sync(0xffffffffu, l_run, off);
-    const float m_new = fmaxf(m_run, m_o);
-    const float m_base = (m_new == -INFINITY) ? 0.f : m_new;
-    const float a = exp2f(m_run - m_base);
-    const float a_o = exp2f(m_o - m_base);
-    l_run = l_run * a + l_o * a_o;
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      const float acc_o = __shfl_xor_sync(0xffffffffu, acc[d], off);
-      acc[d] = acc[d] * a + acc_o * a_o;
+        for (int e = 0; e < 2; ++e)
+          if (j * TILE + 8 * n + 2 * t + e >= M)
+            sc[n][e] = sc[n][2 + e] = -INFINITY;
     }
-    m_run = m_new;
+
+    // online softmax in log2 units; rows g (r = 0) and g + 8 (r = 1) live
+    // in the 4 lanes of a quad. Every row's first tile holds key 0, so
+    // m_run is finite from the first tile on and alpha = exp2(-inf) = 0
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mt = fmaxf(mt, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m_run[r], mt);
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = exp2_ftz(sc[n][e] - m_run[e / 2]);
+        l_run[e / 2] += sc[n][e];
+      }
+#pragma unroll
+    for (int dn = 0; dn < DK; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
+
+    // O += P V, P in f32 split like the other operands
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t ph[4], pl[4];
+      split_tf32(sc[n][0], ph[0], pl[0]);  // (g, key 2t)    as a0 (g, t)
+      split_tf32(sc[n][2], ph[1], pl[1]);  // (g+8, key 2t)  as a1 (g+8, t)
+      split_tf32(sc[n][1], ph[2], pl[2]);  // (g, key 2t+1)  as a2 (g, t+4)
+      split_tf32(sc[n][3], ph[3], pl[3]);  // (g+8, key 2t+1) as a3
+      const float* vr = vt + (8 * n + 2 * t) * LD + g;  // V[key 8n+2t][d g]
+#pragma unroll
+      for (int dn = 0; dn < DK; ++dn) {
+        uint32_t b0h, b0l, b1h, b1l;
+        split_tf32(vr[8 * dn], b0h, b0l);       // key 2t   as b0 (t, g)
+        split_tf32(vr[LD + 8 * dn], b1h, b1l);  // key 2t+1 as b1 (t+4, g)
+        mma_3xtf32(acc[dn], ph, pl, b0h, b1h, b0l, b1l);
+      }
+    }
+
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (j + F_STAGES < ntiles) {
+      load_tile_f32<DK, VEC>(smem_u32(kt), kb, kst.n, (j + F_STAGES) * TILE,
+                             M, D);
+      load_tile_f32<DK, VEC>(smem_u32(vt), vb, vst.n, (j + F_STAGES) * TILE,
+                             M, D);
+    }
+    cp_async_commit();  // group j + F_STAGES (empty past the last tile)
   }
 
-  // stage the normalised tile in shared memory, then store it coalesced
-  if (g == 0) {
-    const float inv_l = 1.f / l_run;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) k_tile[row * LD + d] = acc[d] * inv_l;
-  }
-  __syncthreads();
   float* ob = o + b * ost.b + h * ost.h;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    if (n0 + r < N) ob[(long long)(n0 + r) * ost.n + d] = k_tile[r * LD + d];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv_l = 1.f / l;
+    const int row = n0 + 16 * warp + g + 8 * r;
+    if (row >= N) continue;
+    float* orow = ob + row * ost.n;
+#pragma unroll
+    for (int dn = 0; dn < DK; ++dn) {
+      const int col = 8 * dn + 2 * t;
+      const float v0 = acc[dn][2 * r] * inv_l;
+      const float v1 = acc[dn][2 * r + 1] * inv_l;
+      if (D % 2 == 0) {  // col even and < D: col + 1 < D, 8-byte aligned
+        if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < D) orow[col] = v0;
+        if (col + 1 < D) orow[col + 1] = v1;
+      }
+    }
   }
+}
+
+template <int DK, bool VEC>
+int launch_tf32x3(const float* q, const float* k, const float* v, float* o,
+                  int B, int H, int N, int M, int D, Strides qs, Strides ks,
+                  Strides vs, Strides os, float scale_log2, cudaStream_t st) {
+  constexpr int smem = f_smem_bytes(DK);
+  const auto kernel = attn_fwd_tf32x3<DK, VEC>;
+  // the opt-in above 48 KB, once per device (it costs microseconds of host
+  // time a call); setting it twice from two threads is harmless
+  static uint64_t opted_in = 0;  // bit d: done on device d
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (smem > 48 * 1024 && !(opted_in & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in |= bit;
+  }
+  const dim3 grid((N + TILE - 1) / TILE, B * H);
+  kernel<<<grid, F_THREADS, smem, st>>>(q, k, v, o, H, N, M, D, qs, ks, vs,
+                                        os, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int H, int N, int M, int D, Strides qs, Strides ks,
+               Strides vs, Strides os, float scale_log2, cudaStream_t st) {
+#define F32_CASE(DK)                                                        \
+  case DK:                                                                  \
+    return launch_tf32x3<DK, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, \
+                                  scale_log2, st);
+  switch ((D + 7) / 8) {  // k-steps of QK^T, n-tiles of PV
+    F32_CASE(1)
+    F32_CASE(2)
+    F32_CASE(3)
+    F32_CASE(4)
+    F32_CASE(5)
+    F32_CASE(6)
+    F32_CASE(7)
+    default:
+      return launch_tf32x3<8, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
+                                   scale_log2, st);
+  }
+#undef F32_CASE
+}
+
+// 16-byte copies need a 16-byte aligned base and batch, row and head
+// strides that are multiples of 4 floats
+bool rows_aligned16(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 &&
+         s.n % 4 == 0 && s.h % 4 == 0;
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
@@ -581,12 +792,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
       default: return launch_wgmma<4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
     }
   }
-  const dim3 grid((N + BQ - 1) / BQ, B * H);
-  attn_fwd_scalar<<<grid, THREADS, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, N, M, D, qs, ks,
-      vs, os, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (D % 4 == 0 && rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
+      rows_aligned16(v, vs))
+    return launch_f32<true>(qf, kf, vf, of, B, H, N, M, D, qs, ks, vs, os,
+                            scale_log2, st);
+  return launch_f32<false>(qf, kf, vf, of, B, H, N, M, D, qs, ks, vs, os,
+                           scale_log2, st);
 }
 
 }  // namespace

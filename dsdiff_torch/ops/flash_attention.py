@@ -6,10 +6,14 @@ the hand-written kernel ``csrc/flash_attention.cu`` on CUDA tensors;
 cast back to q's dtype), used for CPU tensors and to check the kernel.
 Layout: ``[B, N, heads, D]`` in and out.
 
-The kernel has two routes (``ROUTES``): bf16 runs on the tensor cores
-(``wgmma``, K/V through TMA), f32 on the CUDA cores (``scalar``). The bf16
-route reads q, k and v through TMA tensor maps, which need 16-byte aligned
-bases and batch, row and head strides that are multiples of 8 elements.
+The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
+bf16 through ``wgmma`` with K/V fed by TMA, f32 through ``mma.sync`` in three
+TF32 passes (``tf32x3``: each operand split into a TF32 high and low part,
+which keeps the products f32-accurate) with K/V fed by ``cp.async``. The
+bf16 route reads q, k and v through TMA tensor maps, which need 16-byte
+aligned bases and batch, row and head strides that are multiples of 8
+elements; the f32 route takes any strides (16-byte copies where the layout
+allows them, 4-byte copies otherwise).
 
 The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
 an ``autograd.Function`` whose forward is the kernel and whose backward is
@@ -32,9 +36,9 @@ __all__ = ["flash_attention", "reference_attention", "FlashAttention",
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
-MAX_HEAD_DIM = 64  # the kernel pads the head dimension to 64 on chip
+MAX_HEAD_DIM = 64  # bf16 pads the head dimension to 64 on chip, f32 to 8k
 # the kernel's route for each dtype it takes
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "scalar"}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)

@@ -1,16 +1,18 @@
-"""What bounds the bf16 attention kernel: ablations and alternatives, timed
-on a CUDA card.
+"""What bounds the attention kernel's two routes: ablations and alternatives,
+timed on a CUDA card.
 
     python scripts/torch_attention_variants.py
 
 Builds ``dsdiff_torch/ops/csrc/flash_attention.cu`` as the package does and,
 beside it, variants made by editing a copy of that source (``VARIANTS``):
 ablations that drop one part of the work (their outputs are wrong; only
-their times count) and design alternatives (whose outputs are checked).
-Each is graph-timed (``chip_smoke.time_ms_graph``, inputs rotated through
-device memory) against ``scaled_dot_product_attention`` at the flagship's
-bf16 attention shapes, in turns: package, variants, variants reversed,
-package. Then times the host side of one call at ``[4, 64, 6, 48]``: the
+their times count) and design alternatives. Each variant edits one route
+(bf16 ``wgmma`` or f32 ``tf32x3``) and is graph-timed
+(``chip_smoke.time_ms_graph``, inputs rotated through device memory) beside
+the package's kernel and ``scaled_dot_product_attention`` at the flagship's
+attention shapes in that dtype, in turns: package, variants, variants
+reversed, package. Every variant's largest error against the plain version
+is printed. Then times the host side of one call at ``[4, 64, 6, 48]``: the
 wrapper, its checks, the C entry with (bf16) and without (f32) the three
 tensor-map encodes, and SDPA's call; each the least of five runs of 2000
 calls. Exits non-zero without a CUDA device, or when an edit no longer
@@ -34,26 +36,29 @@ from dsdiff_torch.ops import flash_attention as fa  # noqa: E402
 
 SHAPES = [(4, 1024, 4, 48), (8, 1024, 4, 48), (16, 1024, 4, 48),
           (4, 256, 6, 48), (4, 64, 6, 48)]
-# name -> (edits of the source, whether the output is still right)
+BF16, F32 = torch.bfloat16, torch.float32
+# name -> (edits of the source, whether the output is still right, dtype
+# of the route it edits)
 VARIANTS = {
     # the exponentials of P replaced by their arguments
     "no_exp": ([("exp2_ftz(fmaf(sc[4 * i + 2 * r], scale_log2",
                  "(fmaf(sc[4 * i + 2 * r], scale_log2"),
                 ("exp2_ftz(fmaf(sc[4 * i + 2 * r + 1], scale_log2",
-                 "(fmaf(sc[4 * i + 2 * r + 1], scale_log2")], False),
+                 "(fmaf(sc[4 * i + 2 * r + 1], scale_log2")], False, BF16),
     "no_qk": ([("      wgmma_ss(sc, q_desc", "      if (D < 0) wgmma_ss(sc, q_desc")],
-              False),
+              False, BF16),
     "no_pv": ([("      wgmma_rs(acc, p[4 * kk]", "      if (D < 0) wgmma_rs(acc, p[4 * kk]")],
-              False),
+              False, BF16),
     # K/V tiles loaded once into the ring and reused: no refills, no waits
     "no_refill": ([("if (tid == 0 && j + STAGES < ntiles) {",
                     "if (tid == 0 && j + STAGES < ntiles && D < 0) {"),
                    ("mbar_wait(bar(s), (j / STAGES) & 1);", "mbar_wait(bar(s), 0);")],
-                  False),
+                  False, BF16),
     # CUDA's exp2f (range handling around the same special-function op)
-    "exp2f": ([("alpha[r] = exp2_ftz(", "alpha[r] = exp2f("),
+    "exp2f": ([("mt * scale_log2);\n      alpha[r] = exp2_ftz(",
+                "mt * scale_log2);\n      alpha[r] = exp2f("),
                ("const float p0 = exp2_ftz(", "const float p0 = exp2f("),
-               ("            exp2_ftz(fmaf(", "            exp2f(fmaf(")], True),
+               ("            exp2_ftz(fmaf(", "            exp2f(fmaf(")], True, BF16),
     # a four-stage ring: 74,752 B of shared memory, opted in above 48 KB
     "stages_4": ([("constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),
                   ('static_assert(SMEM_BYTES <= 48 * 1024, "above 48 KB needs an opt-in");\n', ""),
@@ -61,7 +66,21 @@ VARIANTS = {
                    "  cudaFuncSetAttribute(attn_fwd_wgmma<KSTEPS>,\n"
                    "                       cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
                    "                       SMEM_BYTES);\n"
-                   "  attn_fwd_wgmma<KSTEPS><<<grid, WG, SMEM_BYTES, st>>>(")], True),
+                   "  attn_fwd_wgmma<KSTEPS><<<grid, WG, SMEM_BYTES, st>>>(")], True,
+                 BF16),
+    # f32: one TF32 pass (hi * hi only), which prices the two extra passes;
+    # its error shows why the route needs them
+    "f32_one_pass": ([("  mma_tf32(d, a_lo, b0_hi, b1_hi);\n"
+                       "  mma_tf32(d, a_hi, b0_lo, b1_lo);\n", "")], False, F32),
+    # f32: the split through cvt.rna.tf32.f32 for hi and for lo
+    "f32_cvt_rna": ([("  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n"
+                      "  lo = __float_as_uint(x - __uint_as_float(hi));",
+                      '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
+                      '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) '
+                      ': "f"(x - __uint_as_float(hi)));')], True, F32),
+    # f32: K/V tiles loaded once into the ring and reused
+    "f32_no_refill": ([("if (j + F_STAGES < ntiles) {",
+                        "if (j + F_STAGES < ntiles && D < 0) {")], False, F32),
 }
 
 
@@ -71,7 +90,7 @@ def build_variants() -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
+    for name, (edits, _, _) in VARIANTS.items():
         text = source
         for old, new in edits:
             if text.count(old) != 1:
@@ -140,25 +159,30 @@ def main() -> None:
     entries = build_variants()
     runs = {name: launcher(fn) for name, fn in entries.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, N, H, D in SHAPES:
-        qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
-                          dtype=torch.bfloat16)
-        want = fa.reference_attention(*qkv.unbind(2)).float()
-        errs = {n: (run(*qkv.unbind(2)).float() - want).abs().max().item()
-                for n, run in runs.items()
-                if n == "package" or VARIANTS[n][1]}
-        qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
-        times = {n: [] for n in runs}
-        for n in list(runs) + list(runs)[::-1]:
-            times[n].append(time_ms_graph(lambda x: runs[n](*x.unbind(2)), qkvs))
-        sdpa_in = [tuple(t.transpose(1, 2).contiguous() for t in x.unbind(2))
-                   for (x,) in qkvs]
-        sdpa = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
-        print(f"[{B},{N},{H},{D}] bf16 graph ms (the two turns): "
-              + ", ".join(f"{n} {t[0]:.5f}/{t[1]:.5f}" for n, t in times.items())
-              + f"; sdpa {sdpa:.5f}; max_abs_err "
-              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
-        del qkvs, sdpa_in
+    for dtype in (BF16, F32):
+        names = ["package"] + [n for n, v in VARIANTS.items() if v[2] == dtype]
+        for B, N, H, D in SHAPES:
+            qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
+                              dtype=dtype)
+            want = fa.reference_attention(*qkv.unbind(2)).float()
+            errs = {n: (runs[n](*qkv.unbind(2)).float() - want).abs().max().item()
+                    for n in names}
+            qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
+            times = {n: [] for n in names}
+            for n in names + names[::-1]:
+                times[n].append(time_ms_graph(lambda x: runs[n](*x.unbind(2)),
+                                              qkvs))
+            sdpa_in = [tuple(t.transpose(1, 2).contiguous() for t in x.unbind(2))
+                       for (x,) in qkvs]
+            sdpa = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
+            print(f"[{B},{N},{H},{D}] {str(dtype).split('.')[1]} graph ms (the "
+                  f"two turns): "
+                  + ", ".join(f"{n} {t[0]:.5f}/{t[1]:.5f}" for n, t in times.items())
+                  + f"; sdpa {sdpa:.5f}; max_abs_err "
+                  + ", ".join(f"{n} {e:.3e}" + ("" if n == "package" or VARIANTS[n][1]
+                                                else " (ablation)")
+                              for n, e in errs.items()))
+            del qkvs, sdpa_in
 
     fn = entries["package"]
     stream = torch.cuda.current_stream().cuda_stream

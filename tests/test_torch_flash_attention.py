@@ -65,6 +65,47 @@ def test_scaled_attention_on_cpu_does_not_launch():
     assert PF.LAUNCHES == before
 
 
+def _tf32(x, nearest=True):
+    """x cut to TF32's 10 mantissa bits: rounded to nearest, ties away from
+    zero (as cvt.rna.tf32.f32 and the kernel's split round hi), or
+    truncated (as the tensor cores read an f32 operand, the split's lo)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + (0x1000 if nearest else 0)) & 0xFFFFE000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """einsum of f32 a and b as the f32 route's tensor cores compute it:
+    one pass hi*hi, or three (lo*hi + hi*lo + hi*hi), with a = hi + lo.
+    A product of two TF32 values is exact in f32; the sums run in f64."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
+    out = np.einsum(eq, a_hi.astype(np.float64), b_hi.astype(np.float64))
+    if passes == 3:
+        out = (np.einsum(eq, a_lo.astype(np.float64), b_hi.astype(np.float64))
+               + np.einsum(eq, a_hi.astype(np.float64), b_lo.astype(np.float64))
+               + out)
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("passes, within_tol", [(3, True), (1, False)])
+def test_three_tf32_passes_hold_the_f32_tolerance_and_one_does_not(
+        passes, within_tol):
+    """The f32 route's arithmetic, emulated: q pre-scaled by log2(e)/sqrt(D),
+    S = q k^T and O = P v through TF32 products, softmax in f32. Three passes
+    match reference_attention within ATOL; one pass misses it by over 1e-4,
+    which is why the route splits every operand."""
+    q, k, v = _qkv((1, 64, 2, 48), seed=3)
+    scale = np.float32(np.log2(np.e) / np.sqrt(48))
+    s = _tf32_product("bnhd,bmhd->bhnm", q * scale, k, passes)
+    p = np.exp2(s - s.max(-1, keepdims=True))
+    o = _tf32_product("bhnm,bmhd->bnhd", p, v, passes)
+    got = o / np.moveaxis(p.sum(-1, keepdims=True), 1, 2)
+    want = PF.reference_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    err = np.abs(got - want).max()
+    assert (err <= ATOL) if within_tol else (err > 1e-4), (passes, err)
+
+
 def _bf16_misaligned():
     """[1, 8, 2, 8] bf16 views 2 bytes past an aligned start (strides fine)."""
     flat = torch.zeros(1 + 8 * 2 * 8, dtype=torch.bfloat16)
@@ -119,7 +160,7 @@ GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 )
 def test_cuda_kernel_matches_plain_version(B, N, M, H, D, dtype):
     """q from one qkv tensor, k and v from another (so M may differ from
-    N), all strided thirds as the model passes them; f32 runs the scalar
+    N), all strided thirds as the model passes them; f32 runs the tf32x3
     route, bf16 the wgmma route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -183,3 +224,27 @@ def test_cuda_kernel_gradient_matches_plain_version(dtype, atol):
     assert PF.LAUNCHES == before + 1
     err = (got.float() - want.float()).abs().max().item()
     assert err <= atol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_with_one_hot_v_returns_p(dtype):
+    """v[m] = e_(m mod D), so out[n, d] sums P[n, m] over keys m = d mod D:
+    a key that the second product took in another order than the first
+    (the routes permute the keys of each 8- or 16-key step between S's
+    accumulator and P's operand) moves its mass to another column."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, N, M, H, D = 2, 70, 200, 2, 48
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(B, N, H, D, generator=g, device="cuda", dtype=dtype)
+    k = torch.randn(B, M, H, D, generator=g, device="cuda", dtype=dtype)
+    onehot = torch.eye(D, device="cuda")[torch.arange(M, device="cuda") % D]
+    v = onehot[None, :, None, :].expand(B, M, H, D).to(dtype).contiguous()
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / D**0.5
+    want = torch.einsum("bhnm,md->bnhd", torch.softmax(s, -1), onehot)
+    err = (got.float() - want).abs().max().item()
+    assert err <= GPU_TOL[dtype], err
