@@ -17,7 +17,14 @@ then drives the main path in both directions:
 - training: one full-width f32 loss + gradient with the attention kernel
   against plain attention, then at least five bf16 train steps at batch 8,
   256², through ``Trainer.train_step`` (f32 master weights, remat), and one
-  DDIM-20 request from the EMA weights scored with ``val_metrics``.
+  DDIM-20 request from the EMA weights scored with ``val_metrics``;
+- every other way the flagship serves: the cached-condition split model
+  (``net_mode: ds_diff_split``) and the stacked stream layout in f32 against
+  the plain and the sequential forwards, three DDIM-20 requests through the
+  cached sampler, and on the flagship trainer one request through each
+  other sampler (DPM-Solver++(2M), PLMS, ancestral, the DPM-Solver family
+  multistep, singlestep and adaptive) set by ``Trainer.set_sampler``, then
+  DDIM again, which must reproduce the first request.
 
 Each main-path run checks that every call of its kernels went through them.
 Weights are random, from a seed. Exits non-zero, before printing any
@@ -40,13 +47,15 @@ from dsdiff_torch import ops
 from dsdiff_torch.core import schedules
 from dsdiff_torch.models import attention as attention_module
 from dsdiff_torch.models import build_model
+from dsdiff_torch.models.attention import AttentionBlock
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
 from dsdiff_torch.ops import fused_norm as fn
 from dsdiff_torch.train.step import TaskConfig, train_loss
+from dsdiff_torch.train.surgery import convert_stream_layout
 from dsdiff_torch.train.trainer import Trainer
 from dsdiff_torch.utils.device import disable_tf32
-from dsdiff_torch.utils.flax_bridge import random_params
+from dsdiff_torch.utils.flax_bridge import flax_to_state_dict, random_params
 
 # configs/train_config.yaml merged with configs/dsdiff_gaussian.yaml, on
 # every key the port reads
@@ -94,6 +103,16 @@ FLAGSHIP_CONFIG = {
     },
 }
 
+# configs/train_config.yaml merged with configs/dsdiff_split.yaml, on every
+# key the port reads: the split model's file leaves these of the flagship's
+# to the trainer's defaults
+_GAUSSIAN_ONLY = ("noise_schedule", "linear_start", "linear_end",
+                  "rescale_timesteps", "clip_denoised", "weight_decay",
+                  "ema_rate", "schedule_sampler")
+SPLIT_CONFIG = {k: v for k, v in FLAGSHIP_CONFIG.items()
+                if k not in _GAUSSIAN_ONLY}
+SPLIT_CONFIG.update(net_mode="ds_diff_split", cached_cond_sampling=True)
+
 SEED = 0
 IMAGE = 256
 SERVE_BATCH = 4
@@ -102,6 +121,28 @@ DDIM_STEPS = 20
 # attention calls of one flagship forward at 256²: (N, heads, D, calls)
 ATTENTION_CALLS = [(1024, 4, 48, 11), (256, 6, 48, 11), (64, 6, 48, 12)]
 CALLS_PER_FORWARD = sum(c for *_, c in ATTENTION_CALLS)  # 34
+# the same 34 by part of the backbone (models/backbone.py): attention follows
+# every res block at rates 8, 16 and 32, the last three of channel_mult's six
+# levels. An encoder has 2 res blocks a level (3 x 2 = 6), the middle block
+# one attention, the decoder 3 res blocks a level (3 x 3 = 9). DSUNet runs
+# four encoders: 4 x 6 + 1 + 9 = 34.
+ENCODER_ATTN, MIDDLE_ATTN, DECODER_ATTN = 6, 1, 9
+# the split model: encode_conditions runs the three condition encoders once
+# a request; a cached step is the noise encoder, the middle and the decoder
+ENCODE_CALLS = 3 * ENCODER_ATTN                             # 18
+CACHED_STEP_CALLS = ENCODER_ATTN + MIDDLE_ATTN + DECODER_ATTN  # 16
+CACHED_REQUEST_CALLS = ENCODE_CALLS + CACHED_STEP_CALLS * DDIM_STEPS  # 338
+# model calls of one 20-step request by sampler: PLMS calls the model twice
+# at its first step; singlestep order 3 splits 20 into 6 groups of 3 and one
+# of 2; multistep never calls the model after its last update
+SAMPLER_MODEL_CALLS = [("dpm++", 20), ("plms", 21), ("ancestral", 20),
+                       ("dpm", 20), ("dpm_singlestep", 20)]
+# the adaptive solver's request: the full-width model at a small size
+ADAPTIVE_BATCH, ADAPTIVE_IMAGE = 1, 64
+# its attention shapes: the flagship's rows shrink with the image's area, to
+# N = 64, 16 and 4, all under the kernel's 64-row tile
+ADAPTIVE_ATTENTION = [(N * ADAPTIVE_IMAGE**2 // IMAGE**2, H, D)
+                      for N, H, D, _ in ATTENTION_CALLS]
 
 TRAIN_BATCH = 8  # bench.py's train batch
 TRAIN_STEPS = 6
@@ -303,6 +344,25 @@ def phase_kernels(card: str):
                       f"in the graph [{card}]")
                 check(err <= tol, f"flash_attention {row['shape']} "
                       f"{row['dtype']}: error {err} over {tol}")
+    # the adaptive request's shapes, error only: partial tiles in every one
+    for dtype in (torch.bfloat16, torch.float32):
+        for N, H, D in ADAPTIVE_ATTENTION:
+            qkv = torch.randn(ADAPTIVE_BATCH, N, 3, H, D, generator=gen,
+                              device="cuda", dtype=dtype)
+            q, k, v = qkv.unbind(2)
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = fa.reference_attention(q, k, v)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL[dtype]
+            shape, name = [ADAPTIVE_BATCH, N, H, D], str(dtype).split(".")[1]
+            print(f"[kernel] flash_attention {shape} {name} "
+                  f"({fa.ROUTES[dtype]}, the adaptive request's shape): "
+                  f"max_abs_err {err:.3e} (tol {tol:.0e})")
+            check(torch.isfinite(got).all().item(),
+                  f"flash_attention {shape} {name}: non-finite output")
+            check(err <= tol,
+                  f"flash_attention {shape} {name}: error {err} over {tol}")
     return rows
 
 
@@ -411,27 +471,32 @@ def phase_norm_op():
     return launched
 
 
-def _forward_kernel_and_plain(dtype):
+def _with_plain_attention(fn):
+    """``fn()`` with the models' attention swapped for the plain version."""
+    kernel_attention = attention_module.scaled_attention
+    attention_module.scaled_attention = fa.reference_attention
+    try:
+        return fn()
+    finally:
+        attention_module.scaled_attention = kernel_attention
+
+
+def _forward_kernel_and_plain(dtype, batch=PARITY_BATCH, image=IMAGE):
     """The full-width flagship DSUNet (weights from SEED) in compute dtype
-    ``dtype``, batch PARITY_BATCH at 256²: (output with the attention
+    ``dtype``, ``batch`` maps of ``image``²: (output with the attention
     kernel, output with plain attention, kernel launches of the first)."""
     params = FLAGSHIP_CONFIG["unet_config"]["params"]
     model = build_model("dsunet", device="cuda", in_channels=4,
                         out_channels=2, dtype=dtype, **params).eval()
     random_params(model, SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 4, generator=gen, device="cuda")
-    t = torch.tensor([17.0, 803.0], device="cuda")
+    x = torch.randn(batch, image, image, 4, generator=gen, device="cuda")
+    t = torch.tensor([17.0, 803.0], device="cuda")[:batch]
     with torch.inference_mode():
         before = fa.LAUNCHES
         out_kernel, _ = model(x, t)
         launched = fa.LAUNCHES - before
-        kernel_attention = attention_module.scaled_attention
-        attention_module.scaled_attention = fa.reference_attention
-        try:
-            out_plain, _ = model(x, t)
-        finally:
-            attention_module.scaled_attention = kernel_attention
+        out_plain, _ = _with_plain_attention(lambda: model(x, t))
     torch.cuda.synchronize()
     return out_kernel.float(), out_plain.float(), launched
 
@@ -439,19 +504,23 @@ def _forward_kernel_and_plain(dtype):
 def phase_model_parity():
     """Full-width flagship DSUNet, kernel vs plain attention: f32 with TF32
     off (the tf32x3 route), then bf16 (the wgmma route, the serving dtype),
-    whose gap to the f32 output is printed as bf16's own noise."""
+    whose gap to the f32 output is printed as bf16's own noise; last bf16 at
+    the adaptive request's size, where every attention tile is partial."""
     disable_tf32()
     out_f32 = None
-    for dtype, rtol in ((torch.float32, MODEL_RTOL),
-                        (torch.bfloat16, MODEL_BF16_RTOL)):
-        out_kernel, out_plain, launched = _forward_kernel_and_plain(dtype)
+    for dtype, rtol, batch, image in (
+            (torch.float32, MODEL_RTOL, PARITY_BATCH, IMAGE),
+            (torch.bfloat16, MODEL_BF16_RTOL, PARITY_BATCH, IMAGE),
+            (torch.bfloat16, MODEL_BF16_RTOL, ADAPTIVE_BATCH, ADAPTIVE_IMAGE)):
+        out_kernel, out_plain, launched = _forward_kernel_and_plain(
+            dtype, batch, image)
         name = str(dtype).split(".")[1]
         err = (out_kernel - out_plain).abs().max().item()
         scale = out_plain.abs().max().item()
         tol = rtol * max(1.0, scale)
-        gap = ("" if out_f32 is None else
+        gap = ("" if out_f32 is None or out_f32.shape != out_plain.shape else
                f", bf16 plain vs f32 plain {(out_plain - out_f32).abs().max().item():.3e}")
-        print(f"[parity] DSUNet 256² batch {PARITY_BATCH} {name} "
+        print(f"[parity] DSUNet {image}² batch {batch} {name} "
               f"({fa.ROUTES[dtype]} route): max_abs_err {err:.3e} (tol "
               f"{tol:.3e}, max |out| {scale:.3f}{gap}), {launched} kernel "
               f"launches")
@@ -462,41 +531,250 @@ def phase_model_parity():
         out_f32 = out_plain
 
 
-def phase_serve(smi: str):
-    trainer = Trainer(dict(FLAGSHIP_CONFIG), device="cuda")
-    random_params(trainer.model, SEED)
-    trainer.reset_state()  # the EMA, which sample_fn serves, starts there
-    print(f"[serve] DSUNet {trainer.n_params / 1e6:.2f} M params, bf16, "
-          f"DDIM-{trainer.rsched.num_timesteps}, batch {SERVE_BATCH}, {IMAGE}²")
+def _check_sample(out, batch, image, clipped: bool, what: str) -> None:
+    check(out.shape == (batch, image, image, 1),
+          f"{what}: output shape {tuple(out.shape)}")
+    check(torch.isfinite(out).all().item(), f"{what}: non-finite sample")
+    if clipped:
+        check(out.abs().max().item() <= 1.0, f"{what}: sample outside [-1, 1]")
+
+
+def _serve_requests(trainer, what: str, per_request: int, smi: str):
+    """SERVE_REQUESTS DDIM requests of batch SERVE_BATCH at 256² through
+    ``trainer.sample_fn``, each checked for shape, finiteness, range and
+    ``per_request`` attention launches. Returns (launches, walls, peaks,
+    (cond, x_T, out) of the first request)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     conds = [torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
                          generator=gen, device="cuda")
              for _ in range(SERVE_REQUESTS)]
     torch.cuda.synchronize()
     fa.LAUNCHES = 0  # count only the main path from here
-    per_request = CALLS_PER_FORWARD * DDIM_STEPS
+    walls, peaks, first = [], [], None
     for i, cond in enumerate(conds):
+        x_T = torch.randn(SERVE_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                          device="cuda")
         before = fa.LAUNCHES
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = trainer.sample_fn(cond, gen)
+        out = trainer.sample_fn(cond, gen, x_T)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         launched = fa.LAUNCHES - before
-        print(f"[serve] request {i}: {wall:.4f} s, "
-              f"{SERVE_BATCH / wall:.3f} slices/s, peak {peak:.3f} GiB, "
-              f"{launched} attention launches [{smi}]")
-        check(out.shape == (SERVE_BATCH, IMAGE, IMAGE, 1),
-              f"output shape {tuple(out.shape)}")
-        check(torch.isfinite(out).all().item(), "non-finite sample")
-        check(out.abs().max().item() <= 1.0, "sample outside [-1, 1]")
+        print(f"[{what}] request {i}: {walls[-1]:.4f} s, "
+              f"{SERVE_BATCH / walls[-1]:.3f} slices/s, peak {peaks[-1]:.3f} "
+              f"GiB, {launched} attention launches [{smi}]")
+        _check_sample(out, SERVE_BATCH, IMAGE, True, what)
         check(launched == per_request,
               f"{launched} attention launches in a request, not {per_request}")
+        if first is None:
+            first = (cond, x_T, out)
     total = fa.LAUNCHES
     check(total == per_request * SERVE_REQUESTS,
           f"{total} attention launches, not {per_request * SERVE_REQUESTS}")
+    return total, walls, peaks, first
+
+
+def _serving_trainer(config: dict) -> Trainer:
+    trainer = Trainer(dict(config), device="cuda")
+    random_params(trainer.model, SEED)
+    trainer.reset_state()  # the EMA, which sample_fn serves, starts there
+    return trainer
+
+
+def phase_serve(smi: str):
+    """Three DDIM-20 requests on the flagship. Returns the trainer, the
+    launches, the walls and peaks, and the first request."""
+    trainer = _serving_trainer(FLAGSHIP_CONFIG)
+    print(f"[serve] DSUNet {trainer.n_params / 1e6:.2f} M params, bf16, "
+          f"DDIM-{trainer.rsched.num_timesteps}, batch {SERVE_BATCH}, {IMAGE}²")
+    return (trainer,) + _serve_requests(
+        trainer, "serve", CALLS_PER_FORWARD * DDIM_STEPS, smi)
+
+
+def _attention_blocks(module) -> int:
+    return sum(isinstance(m, AttentionBlock) for m in module.modules())
+
+
+def _flax_tree(model) -> dict:
+    """``model``'s parameters as a Flax-layout tree of numpy arrays (the
+    inverse of ``utils.flax_bridge``, for an unstacked model): conv OIHW ->
+    HWIO ``kernel``, Dense [out, in] -> [in, out] ``kernel``, norm weight ->
+    ``scale``."""
+    tree: dict = {}
+    for key, val in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        arr = val.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel" if arr.ndim > 1 else "scale"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return tree
+
+
+def _hold(name: str, got, want, launched: int, expected: int) -> None:
+    """``got`` within MODEL_RTOL of ``want``'s largest magnitude, and the
+    launch count of the run that made it."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = MODEL_RTOL * max(1.0, scale)
+    print(f"[split-parity] {name}: max_abs_err {err:.3e} (tol {tol:.3e}, "
+          f"max |out| {scale:.3f}), {launched} kernel launches")
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    check(launched == expected,
+          f"{name}: {launched} attention launches, not {expected}")
+    check(err <= tol, f"{name}: error {err} over {tol}")
+
+
+def phase_split_parity():
+    """Full width, f32 with TF32 off, batch PARITY_BATCH at 256²:
+    (a) ``DSUNetSplit.forward`` with the attention kernel against the same
+    with plain attention; (b) ``denoise_cached`` against ``forward`` where
+    they must agree: at t == t_ref, and with ``cond_t_ref`` set at t != t_ref;
+    (c) a stacked-layout (``stream_mode='vmap'``) DSUNet, loaded from the
+    sequential model's weights through ``convert_stream_layout``, against
+    the sequential forward."""
+    disable_tf32()
+    params = FLAGSHIP_CONFIG["unet_config"]["params"]
+    kw = dict(device="cuda", in_channels=4, out_channels=2,
+              dtype=torch.float32, **params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 4, generator=gen, device="cuda")
+    t = torch.tensor([17.0, 803.0], device="cuda")
+
+    def counted(fn):
+        before = fa.LAUNCHES
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fa.LAUNCHES - before
+
+    with torch.inference_mode():
+        split = random_params(build_model("dsunet_split", **kw).eval(), SEED)
+        check(_attention_blocks(split.noise_encoder) == ENCODER_ATTN
+              and _attention_blocks(split.middle) == MIDDLE_ATTN
+              and _attention_blocks(split.decoder) == DECODER_ATTN
+              and _attention_blocks(split) == CALLS_PER_FORWARD,
+              "the split model's attention blocks are not 4 x 6 + 1 + 9")
+        (full, _), launched = counted(lambda: split(x, t))
+        plain, _ = _with_plain_attention(lambda: split(x, t))
+        _hold("(a) DSUNetSplit forward, kernel vs plain attention", full,
+              plain, launched, CALLS_PER_FORWARD)
+
+        cond, x_noise = x[..., 1:], x[..., :1]
+        cache, launched = counted(lambda: split.encode_conditions(cond, t))
+        check(launched == ENCODE_CALLS,
+              f"{launched} launches in encode_conditions, not {ENCODE_CALLS}")
+        (cached, _), launched = counted(
+            lambda: split.denoise_cached(x_noise, t, cache))
+        _hold("(b) denoise_cached vs forward at t == t_ref", cached, full,
+              launched, CACHED_STEP_CALLS)
+        split.cond_t_ref = 500.0
+        pinned, _ = split(x, t)
+        cache = split.encode_conditions(cond, torch.full_like(t, 77.0))
+        (cached, _), launched = counted(
+            lambda: split.denoise_cached(x_noise, t, cache))
+        _hold("(b) denoise_cached vs forward, cond_t_ref 500, t != t_ref",
+              cached, pinned, launched, CACHED_STEP_CALLS)
+        check((pinned - full).abs().max().item() > 0,
+              "cond_t_ref changed nothing")
+        del split, cache, cached, pinned, full, plain
+
+        seq = random_params(build_model("dsunet", **kw).eval(), SEED)
+        want, _ = seq(x, t)
+        tree = _flax_tree(seq)
+        del seq
+        stacked = build_model("dsunet", stream_mode="vmap", **kw).eval()
+        stacked.load_state_dict(
+            flax_to_state_dict(convert_stream_layout(tree), stacked))
+        check(stacked.encoders.in_conv.weight.shape[0] == 4,
+              "the stacked layout has no stream axis of 4")
+        (got, _), launched = counted(lambda: stacked(x, t))
+        _hold("(c) stacked-layout DSUNet vs sequential", got, want, launched,
+              CALLS_PER_FORWARD)
+
+
+def phase_serve_cached(smi: str, flagship_walls, flagship_peaks):
+    """Three DDIM-20 requests on ``net_mode: ds_diff_split`` through the
+    cached-condition sampler. Returns the attention launches."""
+    trainer = _serving_trainer(SPLIT_CONFIG)
+    check(trainer.model_name == "dsunet_split", "not the split model")
+    print(f"[serve-cached] DSUNetSplit {trainer.n_params / 1e6:.2f} M params, "
+          f"bf16, cached-condition DDIM-{trainer.rsched.num_timesteps}, batch "
+          f"{SERVE_BATCH}, {IMAGE}²: {ENCODE_CALLS} launches to encode the "
+          f"conditions + {CACHED_STEP_CALLS} a step")
+    total, walls, peaks, _ = _serve_requests(
+        trainer, "serve-cached", CACHED_REQUEST_CALLS, smi)
+    for i, (w, fw) in enumerate(zip(walls, flagship_walls)):
+        print(f"[serve-cached] request {i}: cached {w:.4f} s "
+              f"({SERVE_BATCH / w:.3f} slices/s, peak {peaks[i]:.3f} GiB) vs "
+              f"flagship {fw:.4f} s ({SERVE_BATCH / fw:.3f} slices/s, peak "
+              f"{flagship_peaks[i]:.3f} GiB): {fw / w:.3f}x [{smi}]")
     return total
+
+
+def phase_serve_samplers(trainer, first, smi: str):
+    """On the flagship trainer of ``phase_serve``: one 20-step request
+    through each other sampler, set by ``Trainer.set_sampler``; the adaptive
+    solver at a small size; then DDIM again on the first request's inputs.
+    Returns the attention launches."""
+    cond, x_T, first_out = first
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    calls = []
+    hook = trainer.sample_model.register_forward_hook(
+        lambda *_: calls.append(1))
+    torch.cuda.synchronize()
+    fa.LAUNCHES = 0  # count only the main path from here
+
+    def request(cond, x_T, what, clipped):
+        calls.clear()
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        out = trainer.sample_fn(cond, gen, x_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fa.LAUNCHES - before
+        print(f"[serve-samplers] {what}: {wall:.4f} s, {len(calls)} model "
+              f"calls, {launched} attention launches, max |x| "
+              f"{out.abs().max().item():.4f} [{smi}]")
+        _check_sample(out, cond.shape[0], cond.shape[1], clipped, what)
+        check(launched == CALLS_PER_FORWARD * len(calls),
+              f"{what}: {launched} launches for {len(calls)} model calls")
+        return out
+
+    try:
+        for name, model_calls in SAMPLER_MODEL_CALLS:
+            trainer.set_sampler(name, sample_steps=DDIM_STEPS)
+            # the DPM-Solver family never clips
+            request(cond, x_T, f"{name}-{DDIM_STEPS}",
+                    name in ("dpm++", "plms", "ancestral"))
+            check(len(calls) == model_calls,
+                  f"{name}: {len(calls)} model calls, not {model_calls}")
+        trainer.set_sampler("dpm_adaptive")
+        small = torch.randn(ADAPTIVE_BATCH, ADAPTIVE_IMAGE, ADAPTIVE_IMAGE,
+                            trainer.n_cond, generator=gen, device="cuda")
+        request(small, None, f"dpm_adaptive, batch {ADAPTIVE_BATCH}, "
+                f"{ADAPTIVE_IMAGE}²", False)
+        check(len(calls) >= 3 and len(calls) % 3 == 0,
+              f"dpm_adaptive made {len(calls)} model calls")
+        trainer.set_sampler("ddim", sample_steps=DDIM_STEPS)
+        again = request(cond, x_T, f"ddim-{DDIM_STEPS} again", True)
+    finally:
+        hook.remove()
+    err = (again - first_out).abs().max().item()
+    tol = MODEL_BF16_RTOL * max(1.0, first_out.abs().max().item())
+    print(f"[serve-samplers] ddim after the switches vs the first request: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}), bit for bit: "
+          f"{torch.equal(again, first_out)}")
+    check(err <= tol, f"ddim does not reproduce the first request: {err}")
+    return fa.LAUNCHES
 
 
 def _flagship_task() -> TaskConfig:
@@ -542,12 +820,7 @@ def phase_train_parity():
     before = fa.LAUNCHES
     loss_k, grads_k = loss_and_grads()
     launched = fa.LAUNCHES - before
-    kernel_attention = attention_module.scaled_attention
-    attention_module.scaled_attention = fa.reference_attention
-    try:
-        loss_p, grads_p = loss_and_grads()
-    finally:
-        attention_module.scaled_attention = kernel_attention
+    loss_p, grads_p = _with_plain_attention(loss_and_grads)
     torch.cuda.synchronize()
     names = [n for n, _ in model.named_parameters()]
     top = max(g.abs().max().item() for g in grads_p)
@@ -715,15 +988,23 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
     attn_rows = phase_kernels(smi)
     norm_rows = phase_norm_kernels(smi)
     phase_model_parity()
-    attn_launches = {"serve": phase_serve(smi)}
+    trainer, serve_launches, walls, peaks, first = phase_serve(smi)
+    attn_launches = {"serve": serve_launches}
+    attn_launches["serve_samplers"] = phase_serve_samplers(trainer, first, smi)
+    del trainer, first
+    phase_split_parity()
+    attn_launches["serve_cached"] = phase_serve_cached(smi, walls, peaks)
     norm_launches = phase_norm_op()
     phase_train_parity()
     attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
+          f"after the imports [{smi}]")
     print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
                                   norm_launches)))
     print(smi)

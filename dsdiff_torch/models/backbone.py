@@ -6,9 +6,10 @@ With ``remat``, each ``ResBlock`` (and only it, as in the JAX package) runs
 under activation checkpointing while the module trains with grad enabled;
 serving and ``torch.inference_mode`` never checkpoint.
 Submodules carry the Flax names (``down_{level}_{i}_res``, ``mid_attn``,
-``up_{level}_us``, ...). Maps are NCHW. Unlike Flax, a PyTorch layer needs
-its input width up front, so each component takes its ``in_channels`` and
-records the widths it produces.
+``up_{level}_us``, ...). ``StackedUNetEncoder`` holds the encoders of
+several streams in the ``stream_mode='vmap'`` layout. Maps are NCHW. Unlike
+Flax, a PyTorch layer needs its input width up front, so each component
+takes its ``in_channels`` and records the widths it produces.
 """
 from __future__ import annotations
 
@@ -17,12 +18,14 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from .attention import AttentionBlock
 from .layers import Conv, Downsample, GroupNorm32, ResBlock, Upsample, zero_init
 
-__all__ = ["UNetEncoder", "UNetMiddle", "UNetDecoder", "OutHead"]
+__all__ = ["UNetEncoder", "StackedUNetEncoder", "UNetMiddle", "UNetDecoder",
+           "OutHead"]
 
 
 class _Common(nn.Module):
@@ -66,6 +69,9 @@ class _Common(nn.Module):
         self.dtype = dtype
         # forward order: (name, kind) with kind in res | attn | resample
         self.plan: list[tuple[str, str]] = []
+        # True where the parameters carry a leading stream axis and a forward
+        # runs on one stream's slices (``StackedUNetEncoder``)
+        self.stacked = False
 
     def _add(self, name: str, kind: str, module: nn.Module) -> None:
         self.add_module(name, module)
@@ -88,6 +94,11 @@ class _Common(nn.Module):
         if kind != "res":
             return block(h)
         if self.remat and self.training and torch.is_grad_enabled():
+            if self.stacked:
+                # the stream's slices, bound again when backward recomputes
+                params = dict(block.named_parameters())
+                return checkpoint(functional_call, block, params, (h, emb),
+                                  use_reentrant=False)
             return checkpoint(block, h, emb, use_reentrant=False)
         return block(h, emb)
 
@@ -133,6 +144,42 @@ class UNetEncoder(_Common):
             if name in self.skip_after:
                 skips.append(h)
         return h, skips
+
+
+class StackedUNetEncoder(UNetEncoder):
+    """``n_streams`` encoders held as one: every parameter carries a leading
+    stream axis (the layout of the JAX package's ``stream_mode='vmap'``),
+    each stream initialised on its own. ``encode_streams`` runs stream ``s``
+    as a plain ``UNetEncoder`` forward on slice ``s`` of every parameter."""
+
+    def __init__(self, n_streams: int, in_channels: int, **kw):
+        super().__init__(in_channels, **kw)
+        others = [dict(UNetEncoder(in_channels, **kw).named_parameters())
+                  for _ in range(n_streams - 1)]
+        for mod_name, mod in self.named_modules():
+            for leaf, p in mod._parameters.items():
+                if p is None:
+                    continue
+                name = f"{mod_name}.{leaf}" if mod_name else leaf
+                mod._parameters[leaf] = nn.Parameter(torch.stack(
+                    [p.detach()] + [o[name].detach() for o in others]
+                ))
+        self.n_streams = n_streams
+        self.stacked = True
+
+    def encode_streams(self, streams: Sequence[torch.Tensor],
+                       emb: torch.Tensor):
+        """One (h, skips) per stream, in order."""
+        if len(streams) != self.n_streams:
+            raise ValueError(
+                f"{len(streams)} streams for {self.n_streams} stacked encoders"
+            )
+        params = dict(self.named_parameters())
+        return [
+            functional_call(self, {n: p[s] for n, p in params.items()},
+                            (x, emb))
+            for s, x in enumerate(streams)
+        ]
 
 
 class UNetMiddle(_Common):

@@ -1,7 +1,11 @@
 """DS-Diff: the 4-stream disentangled conditional diffusion U-Net.
 
-Port of the JAX package's ``models/dsunet.py`` with ``stream_mode='sequential'``
-(four dense per-stream encoders ``encoder_{s}``) and ``fusion='concat'``:
+Port of the JAX package's ``models/dsunet.py`` with ``fusion='concat'``, in
+both stream layouts: ``stream_mode='sequential'`` (four dense per-stream
+encoders ``encoder_{s}``) and ``'vmap'`` (one ``encoders`` subtree whose
+parameters carry a leading [4] stream axis; it runs stream by stream on the
+slices, and under ``use_edge`` every stream is padded to the noise stem's
+two channels):
 
 - the input is channel-stacked ``[noise, anatomy, anatomy+lesion, lesion]``;
   2 or 3 channels zero-pad the missing streams;
@@ -16,8 +20,8 @@ Port of the JAX package's ``models/dsunet.py`` with ``stream_mode='sequential'``
 - ``remat`` checkpoints every ``ResBlock`` of the encoders, middle and
   decoder while training.
 
-``stream_mode='vmap'`` (ROADMAP A11) and ``fusion='crossattn'`` (ROADMAP
-A17) are not ported yet.
+``fusion='crossattn'`` (ROADMAP A17) is not ported yet. ``DSTrunk`` holds
+what ``DSUNetSplit`` (``dsunet_cached.py``) shares with this model.
 """
 from __future__ import annotations
 
@@ -27,10 +31,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .backbone import OutHead, UNetDecoder, UNetEncoder, UNetMiddle
+from .backbone import (
+    OutHead,
+    StackedUNetEncoder,
+    UNetDecoder,
+    UNetEncoder,
+    UNetMiddle,
+)
 from .layers import Conv, GroupNorm32, SEBlock, TimeEmbed
 
-__all__ = ["DSUNet"]
+__all__ = ["DSUNet", "DSTrunk"]
 
 N_STREAMS = 4  # noise, anatomy, anatomy+lesion, lesion
 
@@ -69,72 +79,23 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-3, -1)
 
 
-class DSUNet(nn.Module):
-    def __init__(
-        self,
-        in_channels: int = 4,
-        model_channels: int = 96,
-        out_channels: int = 1,
-        num_res_blocks: int = 2,
-        attention_resolutions: Sequence[int] = (4, 8),
-        dropout: float = 0.0,
-        channel_mult: Sequence[int] = (1, 2, 4, 8),
-        conv_resample: bool = True,
-        num_heads: int = 8,
-        num_head_channels: int = -1,
-        use_scale_shift_norm: bool = False,
-        resblock_updown: bool = False,
-        use_spatial_transformer: bool = False,
-        transformer_depth: int = 1,
-        use_fft_attention: bool = False,
-        fusion: str = "concat",
-        stream_mode: str = "sequential",
-        use_edge: bool = False,
-        remat: bool = False,
-        dtype: torch.dtype = torch.float32,
-    ):
-        super().__init__()
-        if stream_mode != "sequential":
-            raise NotImplementedError(
-                f"stream_mode='{stream_mode}' is not ported yet (ROADMAP A11)"
-            )
-        if fusion != "concat":
-            raise NotImplementedError(
-                f"fusion='{fusion}' is not ported yet (ROADMAP A17)"
-            )
-        self.use_edge = use_edge
-        self.n_channels = in_channels - (1 if use_edge else 0)
-        if self.n_channels not in (2, 3, N_STREAMS):
-            raise ValueError(
-                f"DSUNet expects 2-4 input channels"
-                f"{' plus an edge channel' if use_edge else ''}, "
-                f"got {in_channels}"
-            )
-        ch0 = model_channels
-        kw = dict(
-            model_channels=ch0,
-            num_res_blocks=num_res_blocks,
-            attention_resolutions=tuple(attention_resolutions),
-            dropout=dropout,
-            channel_mult=tuple(channel_mult),
-            conv_resample=conv_resample,
-            num_heads=num_heads,
-            num_head_channels=num_head_channels,
-            use_scale_shift_norm=use_scale_shift_norm,
-            resblock_updown=resblock_updown,
-            use_spatial_transformer=use_spatial_transformer,
-            transformer_depth=transformer_depth,
-            use_fft_attention=use_fft_attention,
-            remat=remat,
-            dtype=dtype,
-        )
-        self.time_embed = TimeEmbed(ch0, 4 * ch0, dtype=dtype)
-        for s in range(N_STREAMS):
-            stem = 2 if (s == 0 and use_edge) else 1
-            self.add_module(f"encoder_{s}", UNetEncoder(stem, **kw))
-        enc = self.encoder_0
-        conv_ch = enc.out_channels
+class DSTrunk(nn.Module):
+    """What the DS-Diff models share after their encoders: the time
+    embedding, the noise stream's middle block, the four disentangle heads,
+    the four SE projections, ``all_proj``, the decoder and the out head."""
+
+    @property
+    def stacked_prefixes(self) -> tuple[str, ...]:
+        """The parameters under these prefixes carry a leading stream axis."""
+        return tuple(f"{name}." for name, child in self.named_children()
+                     if isinstance(child, StackedUNetEncoder))
+
+    def _build_trunk(self, encoder: UNetEncoder, out_channels: int, kw: dict):
+        dtype = kw["dtype"]
+        ch0 = kw["model_channels"]
+        conv_ch = encoder.out_channels
         half = conv_ch // 2
+        self.time_embed = TimeEmbed(ch0, 4 * ch0, dtype=dtype)
         self.middle = UNetMiddle(conv_ch, **kw)
         self.conv_style = FeatureDisentangle(conv_ch, half, dtype)
         self.conv_content = FeatureDisentangle(conv_ch, half, dtype)
@@ -145,36 +106,15 @@ class DSUNet(nn.Module):
         self.anatomy_proj = _SEProj(half, dtype)
         self.lesion_proj = _SEProj(half, dtype)
         self.all_proj = Conv(conv_ch + 4 * half, conv_ch, 1, dtype=dtype)
-        self.decoder = UNetDecoder(conv_ch, enc.skip_channels, **kw)
+        self.decoder = UNetDecoder(conv_ch, encoder.skip_channels, **kw)
         self.out = OutHead(self.decoder.out_channels, out_channels, dtype)
 
-    def _streams(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """NCHW input -> the four per-stream NCHW maps."""
-        edge = None
-        if self.use_edge:
-            edge = x[:, -1:]
-            x = x[:, :-1]
-        zero = torch.zeros_like(x[:, 0:1])
-        C = x.shape[1]
-        if C != self.n_channels:
-            raise ValueError(f"expected {self.n_channels} stream channels, got {C}")
-        streams = [x[:, i : i + 1] for i in range(C)]
-        streams += [zero] * (N_STREAMS - C)
-        if edge is not None:
-            streams[0] = torch.cat([streams[0], edge], dim=1)
-        return streams
-
-    def forward(self, x: torch.Tensor, t: torch.Tensor):
-        """x [B, H, W, C] NHWC, t [B] -> (out [B, H, W, out] f32, features)."""
-        B = x.shape[0]
-        streams = self._streams(x.permute(0, 3, 1, 2))
-        emb = self.time_embed(t)
-        outs = [
-            getattr(self, f"encoder_{s}")(streams[s], emb)
-            for s in range(N_STREAMS)
-        ]
-        h_n = self.middle(outs[0][0], emb)
-        h_a, h_al, h_l = outs[1][0], outs[2][0], outs[3][0]
+    def _fuse_and_decode(self, h_n, h_cond, skips, emb):
+        """h_n: the noise stream after the middle block; h_cond: the three
+        condition streams' bottlenecks (a, al, l); skips: the decoder's skip
+        stack. Returns (out NHWC f32, features)."""
+        B = h_n.shape[0]
+        h_a, h_al, h_l = h_cond
 
         def apply_head(head, xs):
             # fold k stream applications into the batch: one call per head
@@ -199,10 +139,6 @@ class DSUNet(nn.Module):
             [h_n, h_share_content, h_style, h_anatomy, h_lesion], dim=1
         )
         h = self.all_proj(F.silu(fused))
-
-        # decoder with mean-of-streams skips
-        skips = [torch.stack(parts).mean(dim=0)
-                 for parts in zip(*[o[1] for o in outs])]
         h = self.decoder(h, skips, emb)
         out = self.out(h)
 
@@ -216,3 +152,114 @@ class DSUNet(nn.Module):
             )),                              # [4, B, ...]
         }
         return _nhwc(out), features
+
+
+class DSUNet(DSTrunk):
+    def __init__(
+        self,
+        in_channels: int = 4,
+        model_channels: int = 96,
+        out_channels: int = 1,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4, 8),
+        dropout: float = 0.0,
+        channel_mult: Sequence[int] = (1, 2, 4, 8),
+        conv_resample: bool = True,
+        num_heads: int = 8,
+        num_head_channels: int = -1,
+        use_scale_shift_norm: bool = False,
+        resblock_updown: bool = False,
+        use_spatial_transformer: bool = False,
+        transformer_depth: int = 1,
+        use_fft_attention: bool = False,
+        fusion: str = "concat",
+        stream_mode: str = "sequential",
+        use_edge: bool = False,
+        remat: bool = False,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if stream_mode not in ("sequential", "vmap"):
+            raise ValueError(f"unknown stream_mode '{stream_mode}'")
+        if fusion != "concat":
+            raise NotImplementedError(
+                f"fusion='{fusion}' is not ported yet (ROADMAP A17)"
+            )
+        self.use_edge = use_edge
+        self.stream_mode = stream_mode
+        self.n_channels = in_channels - (1 if use_edge else 0)
+        if self.n_channels not in (2, 3, N_STREAMS):
+            raise ValueError(
+                f"DSUNet expects 2-4 input channels"
+                f"{' plus an edge channel' if use_edge else ''}, "
+                f"got {in_channels}"
+            )
+        kw = dict(
+            model_channels=model_channels,
+            num_res_blocks=num_res_blocks,
+            attention_resolutions=tuple(attention_resolutions),
+            dropout=dropout,
+            channel_mult=tuple(channel_mult),
+            conv_resample=conv_resample,
+            num_heads=num_heads,
+            num_head_channels=num_head_channels,
+            use_scale_shift_norm=use_scale_shift_norm,
+            resblock_updown=resblock_updown,
+            use_spatial_transformer=use_spatial_transformer,
+            transformer_depth=transformer_depth,
+            use_fft_attention=use_fft_attention,
+            remat=remat,
+            dtype=dtype,
+        )
+        noise_stem = 2 if use_edge else 1
+        if stream_mode == "sequential":
+            for s in range(N_STREAMS):
+                self.add_module(
+                    f"encoder_{s}",
+                    UNetEncoder(noise_stem if s == 0 else 1, **kw),
+                )
+            encoder = self.encoder_0
+        else:
+            # the streams share one stem width: under use_edge the
+            # condition streams get a zero channel beside their own
+            self.encoders = StackedUNetEncoder(N_STREAMS, noise_stem, **kw)
+            encoder = self.encoders
+        self._build_trunk(encoder, out_channels, kw)
+
+    def _streams(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """NCHW input -> the four per-stream NCHW maps."""
+        edge = None
+        if self.use_edge:
+            edge = x[:, -1:]
+            x = x[:, :-1]
+        zero = torch.zeros_like(x[:, 0:1])
+        C = x.shape[1]
+        if C != self.n_channels:
+            raise ValueError(f"expected {self.n_channels} stream channels, got {C}")
+        streams = [x[:, i : i + 1] for i in range(C)]
+        streams += [zero] * (N_STREAMS - C)
+        if edge is not None:
+            streams[0] = torch.cat([streams[0], edge], dim=1)
+            if self.stream_mode == "vmap":
+                streams[1:] = [torch.cat([s, zero], dim=1)
+                               for s in streams[1:]]
+        return streams
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor):
+        """x [B, H, W, C] NHWC, t [B] -> (out [B, H, W, out] f32, features)."""
+        streams = self._streams(x.permute(0, 3, 1, 2))
+        emb = self.time_embed(t)
+        if self.stream_mode == "sequential":
+            outs = [
+                getattr(self, f"encoder_{s}")(streams[s], emb)
+                for s in range(N_STREAMS)
+            ]
+        else:
+            outs = self.encoders.encode_streams(streams, emb)
+        h_n = self.middle(outs[0][0], emb)
+        # decoder with mean-of-streams skips
+        skips = [torch.stack(parts).mean(dim=0)
+                 for parts in zip(*[o[1] for o in outs])]
+        return self._fuse_and_decode(
+            h_n, [o[0] for o in outs[1:]], skips, emb
+        )

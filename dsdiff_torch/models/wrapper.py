@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``models/wrapper.py`` ``MODEL_REGISTRY`` /
 ``build_model``. It holds the models ported so far; the others come with
-ROADMAP A10 and A17, and ``conditioned_call`` with A13.
+ROADMAP A17, and ``conditioned_call`` with A13.
 """
 from __future__ import annotations
 
@@ -13,11 +13,13 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .dsunet import DSUNet
+from .dsunet_cached import DSUNetSplit
 
 __all__ = ["MODEL_REGISTRY", "build_model"]
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "dsunet": DSUNet,
+    "dsunet_split": DSUNetSplit,
 }
 
 

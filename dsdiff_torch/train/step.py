@@ -1,9 +1,9 @@
 """Task knobs, the train step, the sample function and validation metrics.
 
 Port of the JAX package's ``train/step.py``: ``TaskConfig``, ``_denoiser``,
-``make_train_step``, the ddim branch of ``make_sample_fn`` and
-``make_val_metrics``. The other samplers come with ROADMAP A12, split-input
-(patched) sampling and the ``disc`` disentangle loss with A17.
+``make_train_step``, ``make_sample_fn`` with every sampler and
+``make_val_metrics``. Split-input (patched) sampling and the ``disc``
+disentangle loss come with ROADMAP A17.
 
 The train step is eager: one forward through ``training_losses`` and the
 disentangle losses, one backward, then the optimizer and EMA update in
@@ -16,20 +16,21 @@ framework's draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import inspect
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
 
 from ..core import losses as L
-from ..core import process, sampling
+from ..core import dpm_solver, process, sampling
 from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
 from . import schedule_sampler as ss
 from .state import TrainState, global_norm
 
-__all__ = ["TaskConfig", "train_loss", "make_train_step", "make_sample_fn",
-           "make_val_metrics"]
+__all__ = ["TaskConfig", "train_loss", "make_train_step", "draw_x_T",
+           "run_sampler_loop", "make_sample_fn", "make_val_metrics"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +146,33 @@ def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
     return step
 
 
+def draw_x_T(cond: torch.Tensor, out_channels: int,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """The chain's starting noise [B, H, W, out_channels] for ``cond``."""
+    B, H, W, _ = cond.shape
+    return torch.randn((B, H, W, out_channels), generator=generator,
+                       dtype=torch.float32, device=cond.device)
+
+
+def run_sampler_loop(loop: Callable, sched: DiffusionSchedule,
+                     denoise: Callable, x_T: torch.Tensor, task: TaskConfig,
+                     eta: float, clip_denoised: bool,
+                     generator: torch.Generator | None, noise):
+    """Call ``loop`` (one of ``core.sampling``'s over a re-spaced ``sched``)
+    with the task's knobs and, of the noise source, ``eta`` and the task's
+    ``variance_type``, those that its signature takes."""
+    kw = dict(
+        parameterization=task.parameterization,
+        learn_sigma=task.learn_sigma,
+        clip_denoised=clip_denoised,
+    )
+    optional = dict(generator=generator, noise=noise, eta=eta,
+                    variance_type=task.variance_type)
+    takes = inspect.signature(loop).parameters
+    kw.update({k: v for k, v in optional.items() if k in takes})
+    return loop(sched, denoise, x_T, **kw)
+
+
 def make_sample_fn(
     model: nn.Module,
     sched: DiffusionSchedule,
@@ -153,30 +181,41 @@ def make_sample_fn(
     eta: float = 0.0,
     clip_denoised: bool = True,
     out_channels: int = 1,
+    full_sched: DiffusionSchedule | None = None,
+    sample_steps: int | None = None,
+    solver_options: dict | None = None,
     patch_params: dict | None = None,
 ) -> Callable:
-    """Returns ``fn(cond, generator=None, x_T=None) -> samples [B, H, W, C]``.
+    """Returns ``fn(cond, generator=None, x_T=None, noise=None) -> samples
+    [B, H, W, C]``.
 
     ``sched`` is already re-spaced to the inference step count. ``x_T`` is
-    drawn from ``generator`` unless given; with ``eta > 0`` the per-step
-    noise is drawn from ``generator`` too.
+    drawn from ``generator`` unless given; the per-step noise of a
+    stochastic sampler (``ddim`` with ``eta > 0``, ``ancestral``) is drawn
+    from ``generator`` too, or taken from the list ``noise``.
+
+    ``sampler``: 'ddim' | 'dpm++' / 'dpm_solver++' (DPM-Solver++(2M) over
+    ``sched``) | 'plms' | 'ancestral' / 'ddpm' | 'dpm' / 'dpm_solver' /
+    'dpm_singlestep' / 'dpm_adaptive'. The last four are the DPM-Solver
+    family (``core.dpm_solver``): they need ``full_sched`` (the un-respaced
+    schedule; the solver makes its own grid) and ``sample_steps``, never
+    clip, and take ``solver_options`` (order, method, skip_type,
+    algorithm_type, ...).
     """
-    if sampler != "ddim":
-        raise NotImplementedError(
-            f"sampler '{sampler}' is not ported yet (ROADMAP A12)"
-        )
     if patch_params:
         raise NotImplementedError(
             "split-input (patched) sampling is not ported yet (ROADMAP A17)"
         )
+    dpm_family = ("dpm", "dpm_solver", "dpm_singlestep", "dpm_adaptive")
+    # raises ValueError for an unknown name
+    loop = None if sampler in dpm_family else sampling.make_sampler(sampler)
 
     @torch.inference_mode()
     def fn(cond: torch.Tensor, generator: torch.Generator | None = None,
-           x_T: torch.Tensor | None = None) -> torch.Tensor:
-        B, H, W, _ = cond.shape
+           x_T: torch.Tensor | None = None,
+           noise: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
         if x_T is None:
-            x_T = torch.randn((B, H, W, out_channels), generator=generator,
-                              dtype=torch.float32, device=cond.device)
+            x_T = draw_x_T(cond, out_channels, generator)
 
         def make_denoise(c):
             raw = _denoiser(model, c)
@@ -193,12 +232,26 @@ def make_sample_fn(
             denoise = sampling.cfg_wrap(
                 denoise, make_denoise(torch.zeros_like(cond)), task.cfg_scale
             )
-        return sampling.ddim_sample_loop(
-            sched, denoise, x_T, generator, eta=eta,
-            parameterization=task.parameterization,
-            learn_sigma=task.learn_sigma,
-            clip_denoised=clip_denoised,
-        )
+        if loop is None:
+            opts = dict(solver_options or {})
+            if sampler == "dpm_singlestep":
+                opts.setdefault("method", "singlestep")
+                opts.setdefault("order", 3)
+                opts.setdefault("skip_type", "time_uniform")
+                opts.setdefault("denoised_fn", None)
+            elif sampler == "dpm_adaptive":
+                opts.setdefault("method", "adaptive")
+                opts.setdefault("order", 3)
+                opts.setdefault("denoised_fn", None)
+            return dpm_solver.dpm_solver_sample_loop(
+                full_sched if full_sched is not None else sched,
+                denoise, x_T, steps=sample_steps,
+                parameterization=task.parameterization,
+                learn_sigma=task.learn_sigma,
+                clip_denoised=False, **opts,
+            )
+        return run_sampler_loop(loop, sched, denoise, x_T, task, eta,
+                                clip_denoised, generator, noise)
 
     return fn
 

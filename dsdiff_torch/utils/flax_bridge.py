@@ -8,7 +8,10 @@ level included). Leaves translate as:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW,
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in],
-- norm ``scale`` -> ``weight``; ``bias`` unchanged.
+- norm ``scale`` -> ``weight``; ``bias`` unchanged;
+- under a stacked subtree (``stream_mode='vmap'``: ``encoders``,
+  ``cond_encoders``) every leaf keeps its leading stream axis, and the
+  target parameter's rank says which layout a kernel has.
 
 ``train_state_from_flax`` maps a whole JAX training state (params, EMA,
 AdamW moments and counts) onto the model's keys, for ``TrainState.load``,
@@ -42,18 +45,29 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-def _leaf_to_torch(leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
-    if leaf == "kernel":
-        if arr.ndim == 4:  # conv HWIO -> OIHW
-            return "weight", arr.transpose(3, 2, 0, 1)
-        if arr.ndim == 2:  # Dense [in, out] -> [out, in]
-            return "weight", arr.T
-        raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
-    if leaf == "scale":
-        return "weight", arr
-    if leaf == "bias":
-        return "bias", arr
-    raise ValueError(f"unknown Flax leaf '{leaf}'")
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int) -> np.ndarray:
+    """A Flax leaf in the layout of a torch parameter of rank
+    ``target_ndim``. Kernels move their axes: the target's rank says whether
+    it is a Dense (2), a conv (4), or one of those with a leading stream
+    axis (3, 5); scales and biases keep theirs."""
+    if leaf != "kernel":
+        return arr
+    if arr.ndim != target_ndim:
+        raise ValueError(
+            f"kernel of rank {arr.ndim} for a weight of rank {target_ndim}"
+        )
+    if target_ndim == 2:  # Dense [in, out] -> [out, in]
+        return arr.T
+    if target_ndim == 4:  # conv HWIO -> OIHW
+        return arr.transpose(3, 2, 0, 1)
+    if target_ndim == 3:  # stacked Dense [S, in, out] -> [S, out, in]
+        return arr.transpose(0, 2, 1)
+    if target_ndim == 5:  # stacked conv [S, H, W, I, O] -> [S, O, I, H, W]
+        return arr.transpose(0, 4, 3, 1, 2)
+    raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
 
 
 def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
@@ -67,15 +81,17 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tenso
     unused = []
     for path, arr in flatten_tree(tree).items():
         *mods, leaf = path.split("/")
-        name, val = _leaf_to_torch(leaf, arr)
-        key = ".".join(mods + [name])
+        if leaf not in _LEAF_NAMES:
+            raise ValueError(f"unknown Flax leaf '{leaf}'")
+        key = ".".join(mods + [_LEAF_NAMES[leaf]])
         if key not in expected:
             unused.append(path)
             continue
-        if tuple(val.shape) != tuple(expected[key].shape):
+        want = tuple(expected[key].shape)
+        val = _leaf_to_torch(arr, leaf, len(want))
+        if tuple(val.shape) != want:
             raise ValueError(
-                f"{path}: shape {tuple(val.shape)} does not fit {key} "
-                f"{tuple(expected[key].shape)}"
+                f"{path}: shape {tuple(val.shape)} does not fit {key} {want}"
             )
         out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     missing = sorted(set(expected) - set(out))
@@ -112,12 +128,16 @@ def random_params(model: nn.Module, seed: int) -> nn.Module:
     ``N(0, 0.1²)``, so the zero-initialised output layers are not zero and a
     random model's output depends on every layer. Drawn on the CPU from a
     ``torch.Generator`` in name order, so the fill is the same on any device.
+    Parameters under the model's ``stacked_prefixes`` carry a leading stream
+    axis, and each stream's slice is filled by the same rules.
     """
     gen = torch.Generator().manual_seed(seed)
+    stacked = tuple(getattr(model, "stacked_prefixes", ()))
     for name, p in sorted(model.named_parameters()):
         noise = torch.randn(p.shape, generator=gen, dtype=torch.float32)
-        if p.ndim >= 2:
-            val = noise / math.sqrt(p[0].numel())
+        one = p[0] if name.startswith(stacked) else p
+        if one.ndim >= 2:
+            val = noise / math.sqrt(one[0].numel())
         elif name.endswith("norm.weight"):
             val = 1.0 + 0.1 * noise
         else:

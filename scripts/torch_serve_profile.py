@@ -1,15 +1,18 @@
 """Where the time of one flagship DDIM-20 request goes on a CUDA card.
 
-    python scripts/torch_serve_profile.py
+    python scripts/torch_serve_profile.py [--net-mode ds_diff_split]
 
 Builds the PyTorch port's flagship ``Trainer`` (bf16, random weights from a
-seed, the config of ``chip_smoke.py``), serves one warm-up request, times
+seed, the config of ``chip_smoke.py``; with ``--net-mode ds_diff_split`` the
+split model served through its cached-condition sampler), serves one
+warm-up request, times
 one request without the profiler, then traces one request with
 ``torch.profiler`` and prints: wall time, device busy time (the sum of the
 CUDA kernels' times; one stream, so they do not overlap), the idle share,
 kernel launches, and device time by kernel family and by kernel name.
 Exits non-zero when there is no CUDA device.
 """
+import argparse
 import subprocess
 import sys
 import time
@@ -21,7 +24,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import FLAGSHIP_CONFIG, IMAGE, SEED, SERVE_BATCH  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FLAGSHIP_CONFIG,
+    IMAGE,
+    SEED,
+    SERVE_BATCH,
+    SPLIT_CONFIG,
+)
 from dsdiff_torch.train.trainer import Trainer  # noqa: E402
 from dsdiff_torch.utils.flax_bridge import random_params  # noqa: E402
 
@@ -54,7 +63,14 @@ def device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
+CONFIGS = {"ds_diff_gaussian": FLAGSHIP_CONFIG, "ds_diff_split": SPLIT_CONFIG}
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--net-mode", choices=sorted(CONFIGS),
+                        default="ds_diff_gaussian")
+    net_mode = parser.parse_args().net_mode
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         sys.exit(1)
@@ -62,7 +78,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    trainer = Trainer(dict(FLAGSHIP_CONFIG), device="cuda")
+    trainer = Trainer(dict(CONFIGS[net_mode]), device="cuda")
     random_params(trainer.model, SEED)
     trainer.reset_state()  # sample_fn serves the EMA, which starts here
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -93,7 +109,8 @@ def main() -> None:
 
     steps = trainer.rsched.num_timesteps
     print(f"card: {smi}")
-    print(f"request: DDIM-{steps}, batch {SERVE_BATCH}, {IMAGE}², bf16")
+    print(f"request: {net_mode} ({trainer.model_name}), DDIM-{steps}, batch "
+          f"{SERVE_BATCH}, {IMAGE}², bf16")
     print(f"wall {wall:.4f} s unprofiled ({SERVE_BATCH / wall:.3f} slices/s), "
           f"{wall_prof:.4f} s profiled")
     print(f"device busy {busy:.4f} s; idle share {1 - busy / wall:.4f} of the "

@@ -1,6 +1,6 @@
 """The whole DSUNet of the port against the Flax DSUNet: a narrow model
 (C=32, channel_mult (1, 2), attention at rate 2 on 16², head channels 16,
-in 4 / out 2, sequential streams), the same seeded weights through the
+in 4 / out 2, both stream layouts), the same seeded weights through the
 bridge. The output and every ``features`` entry agree to 1e-4 absolute in
 f32 (summation order differs between XLA and PyTorch)."""
 import jax
@@ -56,9 +56,40 @@ def test_dsunet_output_and_features_match(in_ch, use_edge, atol):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("in_ch, use_edge", [(4, False), (5, True)])
+def test_stacked_stream_layout_matches_jax(in_ch, use_edge):
+    """``stream_mode='vmap'``: the parameters live under ``encoders`` with
+    a leading [4] stream axis; under ``use_edge`` every stream's stem is two
+    channels wide and the condition streams get a zero channel."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 16, 16, in_ch)).astype(np.float32)
+    t = np.array([3.0, 742.0], np.float32)
+    jm = JDSUNet(in_channels=in_ch, out_channels=2, use_edge=use_edge,
+                 stream_mode="vmap", **TINY)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t))
+    params = random_flax_params(params["params"], 8)
+    want_out, want_feats = jm.apply({"params": params}, jnp.asarray(x),
+                                    jnp.asarray(t))
+    pm = build_model("dsunet", device="cpu", in_channels=in_ch,
+                     out_channels=2, use_edge=use_edge, stream_mode="vmap",
+                     **TINY).eval()
+    assert pm.stacked_prefixes == ("encoders.",)
+    assert pm.encoders.in_conv.weight.shape == (4, 32, 2 if use_edge else 1,
+                                                3, 3)
+    pm.load_state_dict(flax_to_state_dict(params, pm))
+    with torch.no_grad():
+        got_out, got_feats = pm(torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=ATOL)
+    assert set(got_feats) == set(want_feats)
+    for name, want in want_feats.items():
+        np.testing.assert_allclose(got_feats[name].numpy(), np.asarray(want),
+                                   atol=ATOL, err_msg=name)
+
+
 def test_dsunet_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model("dsunet", device="cpu", stream_mode="vmap", **TINY)
+    with pytest.raises(ValueError, match="unknown stream_mode"):
+        build_model("dsunet", device="cpu", stream_mode="grouped", **TINY)
     with pytest.raises(NotImplementedError, match="A17"):
         build_model("dsunet", device="cpu", fusion="crossattn", **TINY)
     with pytest.raises(ValueError, match="2-4 input channels"):

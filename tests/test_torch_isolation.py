@@ -25,8 +25,15 @@ import chip_smoke
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and m.split(".")[0] in ("jax", "flax", "dsdiff_tpu", "yaml")]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names), len(names))
 """
+
+# the serving slice's modules: each must be among those imported above
+SERVING_MODULES = (
+    "dsdiff_torch.core.sampling", "dsdiff_torch.core.dpm_solver",
+    "dsdiff_torch.models.dsunet_cached", "dsdiff_torch.train.surgery",
+    "dsdiff_torch.train.step", "dsdiff_torch.train.trainer",
+)
 
 
 def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
@@ -37,12 +44,14 @@ def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     assert out.returncode == 0, out.stderr
     n_modules = len(list(pkgutil.walk_packages(dsdiff_torch.__path__,
                                                 "dsdiff_torch.")))
-    assert int(out.stdout.split()[-1]) == n_modules >= 15
+    *names, count = out.stdout.split()
+    assert int(count) == n_modules >= 18
+    assert set(SERVING_MODULES) <= set(names)
 
 
 def test_no_port_file_mentions_the_reference_package_or_jax():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
-    assert len(files) >= 17
+    assert len(files) >= 20
     imports = re.compile(r"^\s*(import|from)\s+(jax|flax|dsdiff_tpu)\b", re.M)
     for path in files:
         text = path.read_text()
