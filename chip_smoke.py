@@ -24,7 +24,14 @@ then drives the main path in both directions:
   cached sampler, and on the flagship trainer one request through each
   other sampler (DPM-Solver++(2M), PLMS, ancestral, the DPM-Solver family
   multistep, singlestep and adaptive) set by ``Trainer.set_sampler``, then
-  DDIM again, which must reproduce the first request.
+  DDIM again, which must reproduce the first request;
+- the flagship trained on data and predicting volumes through the entry
+  points a user calls: a synthetic slice store (the npy case store: the
+  card's machine has no ``h5py``), ``Trainer(cfg, workdir)`` with its K-fold
+  split and loaders, ``fit`` at the config's batch 32 (three steps, a
+  validation, a checkpoint), a second ``Trainer`` on the same workdir that
+  restores the checkpoint bit for bit and resumes ``fit`` at epoch 1, then
+  ``predict`` writing one NIfTI volume per test case and the metric report.
 
 Each main-path run checks that every call of its kernels went through them.
 Weights are random, from a seed. Exits non-zero, before printing any
@@ -35,16 +42,23 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 
 from dsdiff_torch import ops
 from dsdiff_torch.core import schedules
+from dsdiff_torch.data import synthetic
+from dsdiff_torch.data.nifti import Nifti, read_nifti, write_nifti
 from dsdiff_torch.models import attention as attention_module
 from dsdiff_torch.models import build_model
 from dsdiff_torch.models.attention import AttentionBlock
@@ -61,9 +75,16 @@ from dsdiff_torch.utils.flax_bridge import flax_to_state_dict, random_params
 # every key the port reads
 FLAGSHIP_CONFIG = {
     "net_mode": "ds_diff_gaussian",
+    "Task_name": "PET_synthesis",
+    "Task_id": "r1",
+    "fold_K": 5,
+    "fold_idx": 1,
     "train_keys": ["F_Data1", "F_Data2", "S_Data1", "S_Data2"],
+    "train_batch_size": 32,
+    "val_batch_size": 8,
     "use_edge": False,
     "h5_2d_img_dir": "",
+    "image_size": 256,
     "sampler_setting": {
         "sampler": "ddim", "ddim_use_original_steps": False, "sample_steps": 20,
     },
@@ -85,6 +106,8 @@ FLAGSHIP_CONFIG = {
     "lr_low": 1.0e-7,
     "num_epochs": 250,
     "lr_warm_epoch": 0,
+    "val_step": 5,
+    "augmentation_prob": 0.4,
     "beta1": 0.9,
     "beta2": 0.999,
     "weight_decay": 0.0,
@@ -144,7 +167,33 @@ ADAPTIVE_BATCH, ADAPTIVE_IMAGE = 1, 64
 ADAPTIVE_ATTENTION = [(N * ADAPTIVE_IMAGE**2 // IMAGE**2, H, D)
                       for N, H, D, _ in ATTENTION_CALLS]
 
+# the attention shapes of the other DS-Diff configs, error only, batch 4:
+# (config, model_channels, head channels, image): attention at rates 8, 16
+# and 32 with channel_mult 2, 3 and 3 there, so N = (image / rate)² and
+# heads = mult * C / head channels
+OTHER_CONFIGS = [("dsdiff_flagship128", 128, 32, 256),
+                 ("dsdiff_thesis160", 160, 32, 256),
+                 ("dsdiff_ldm320", 320, 32, 320),
+                 ("train_config_BraTs", 96, 48, 192)]
+OTHER_CONFIG_ATTENTION = [
+    (name, ((image // rate) ** 2, mult * C // hc, hc))
+    for name, C, hc, image in OTHER_CONFIGS
+    for rate, mult in ((8, 2), (16, 3), (32, 3))]
+
 TRAIN_BATCH = 8  # bench.py's train batch
+# the fit phase: the flagship config's own train batch, on a synthetic store
+# of 12 cases x 16 slices at 256²: 3 test cases, and with fold_K 5 and
+# fold_idx 1, 7 train cases (112 slices, 3 batches of 32) and 2 validation
+# cases (32 slices, 4 batches of val_batch_size 8)
+FIT_BATCH = FLAGSHIP_CONFIG["train_batch_size"]
+VAL_BATCH = FLAGSHIP_CONFIG["val_batch_size"]
+FIT_CASES, FIT_SLICES, FIT_TEST_CASES = 12, 16, 3
+FIT_STEPS_PER_EPOCH = 3
+# the synthetic store's sequence names: three conditions, the target last
+FIT_KEYS = ["A", "B", "C", "GT"]
+# what the fit phase cuts of the config's run, each printed
+FIT_CUTS = {"limit_val_batches": (8, 1), "num_epochs": (250, 1),
+            "log_images": (True, False)}
 TRAIN_STEPS = 6
 PARITY_BATCH = 2
 # the flagship ResBlocks' input-norm shapes at 256² (H = W, C), 32 groups
@@ -302,7 +351,7 @@ def phase_kernels(card: str):
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for batch in (SERVE_BATCH, TRAIN_BATCH, 16):
+    for batch in (SERVE_BATCH, TRAIN_BATCH, 16, FIT_BATCH):
         for dtype in (torch.bfloat16, torch.float32):
             for N, H, D, calls in ATTENTION_CALLS:
                 qkv = torch.randn(batch, N, 3, H, D, generator=gen,
@@ -344,10 +393,16 @@ def phase_kernels(card: str):
                       f"in the graph [{card}]")
                 check(err <= tol, f"flash_attention {row['shape']} "
                       f"{row['dtype']}: error {err} over {tol}")
-    # the adaptive request's shapes, error only: partial tiles in every one
+    # error only: the adaptive request's shapes (partial tiles in every
+    # one) and the other configs' (N mostly not a multiple of the 64-row
+    # tile, 32-channel heads)
+    held = ([("the adaptive request", ADAPTIVE_BATCH, shape)
+             for shape in ADAPTIVE_ATTENTION]
+            + [(name, SERVE_BATCH, shape)
+               for name, shape in OTHER_CONFIG_ATTENTION])
     for dtype in (torch.bfloat16, torch.float32):
-        for N, H, D in ADAPTIVE_ATTENTION:
-            qkv = torch.randn(ADAPTIVE_BATCH, N, 3, H, D, generator=gen,
+        for what, batch, (N, H, D) in held:
+            qkv = torch.randn(batch, N, 3, H, D, generator=gen,
                               device="cuda", dtype=dtype)
             q, k, v = qkv.unbind(2)
             got = fa.flash_attention(q, k, v)
@@ -355,10 +410,10 @@ def phase_kernels(card: str):
             want = fa.reference_attention(q, k, v)
             err = (got.float() - want.float()).abs().max().item()
             tol = KERNEL_TOL[dtype]
-            shape, name = [ADAPTIVE_BATCH, N, H, D], str(dtype).split(".")[1]
+            shape, name = [batch, N, H, D], str(dtype).split(".")[1]
             print(f"[kernel] flash_attention {shape} {name} "
-                  f"({fa.ROUTES[dtype]}, the adaptive request's shape): "
-                  f"max_abs_err {err:.3e} (tol {tol:.0e})")
+                  f"({fa.ROUTES[dtype]}, {what}): max_abs_err {err:.3e} "
+                  f"(tol {tol:.0e})")
             check(torch.isfinite(got).all().item(),
                   f"flash_attention {shape} {name}: non-finite output")
             check(err <= tol,
@@ -931,6 +986,204 @@ def phase_train(smi: str):
     return train_launches, launched
 
 
+def _fit_config(root: Path) -> dict:
+    cfg = dict(FLAGSHIP_CONFIG)
+    cfg.update(h5_2d_img_dir=str(root), data_store="npy", train_keys=FIT_KEYS,
+               **{k: cut for k, (_, cut) in FIT_CUTS.items()})
+    return cfg
+
+
+def _write_ground_truth(root: Path, gt_root: Path) -> list:
+    """The test cases' target volumes [H, W, S] as NIfTI, written with the
+    port's own codec; returns the case names."""
+    split = root / f"images_ts_{IMAGE}"
+    cases = sorted(p.name for p in split.iterdir())
+    for case in cases:
+        stack = np.load(split / case / f"{FIT_KEYS[-1]}.npy")  # [S, H, W]
+        (gt_root / case).mkdir(parents=True)
+        write_nifti(gt_root / case / f"{FIT_KEYS[-1]}.nii.gz",
+                    Nifti(np.ascontiguousarray(stack.transpose(1, 2, 0))))
+    return cases
+
+
+class _Meter:
+    """Wraps a trainer's ``train_step``, ``sample_fn`` and checkpoint
+    ``save``: each call is synchronised, timed and its attention launches
+    counted."""
+
+    def __init__(self, trainer):
+        self.steps, self.samples, self.saves = [], [], []
+        for owner, name, log in ((trainer, "train_step", self.steps),
+                                 (trainer, "sample_fn", self.samples),
+                                 (trainer.ckpt, "save", self.saves)):
+            setattr(owner, name, self._wrap(getattr(owner, name), log))
+
+    @staticmethod
+    def _wrap(fn, log):
+        def timed(*args, **kw):
+            before = fa.LAUNCHES
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, fa.LAUNCHES - before))
+            return out
+        return timed
+
+
+def _state_equal(a: Trainer, b: Trainer) -> list:
+    """Names of whatever differs between two trainers' train and sampler
+    states, bit for bit."""
+    sa, sb = a.state.state_dict(), b.state.state_dict()
+    diff = [k for k in sa if not isinstance(sa[k], dict) and sa[k] != sb[k]]
+    for group, tensors in sa.items():
+        if isinstance(tensors, dict):
+            diff += [f"{group}/{n}" for n, t in tensors.items()
+                     if not torch.equal(t, sb[group][n])]
+    for buf in ("loss_history", "loss_counts"):
+        if not torch.equal(getattr(a.sampler_state, buf),
+                           getattr(b.sampler_state, buf)):
+            diff.append(f"sampler/{buf}")
+    return diff
+
+
+def phase_fit(smi: str):
+    """The flagship on data through its entry points: ``fit`` (3 steps at
+    batch 32, one validation, one save), a bit-exact restore into a second
+    trainer that resumes ``fit`` at epoch 1, then ``predict`` with the
+    metric report. Returns the attention launches of train steps,
+    validation and predict."""
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        return _fit(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fit(tmp: Path, smi: str):
+    root, workdir, gt_root = tmp / "data", tmp / "run", tmp / "gt"
+    t0 = time.perf_counter()
+    synthetic.make_structured_dataset(root, n_cases=FIT_CASES,
+                                      n_slices=FIT_SLICES, hw=IMAGE, seed=SEED,
+                                      store="npy")
+    cases = _write_ground_truth(root, gt_root)
+    print(f"[fit] synthetic npy store, {FIT_CASES} cases x {FIT_SLICES} "
+          f"slices at {IMAGE}², and {len(cases)} NIfTI ground truths in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print("[fit] cuts: " + ", ".join(f"{k} {a} -> {b}"
+                                     for k, (a, b) in FIT_CUTS.items())
+          + " (matplotlib is not installed on the card's machine); "
+          "train_keys are the synthetic store's A, B, C -> GT")
+    cfg = _fit_config(root)
+    check(len(cases) == FIT_TEST_CASES, f"{len(cases)} test cases")
+
+    trainer = Trainer(cfg, workdir, device="cuda")
+    check(len(trainer.train_loader) == FIT_STEPS_PER_EPOCH,
+          f"{len(trainer.train_loader)} train batches an epoch")
+    meter = _Meter(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    t0 = time.perf_counter()
+    step = trainer.fit(num_epochs=1, log_every=1, val_every_epochs=1)
+    fit_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    build = trainer.train_loader.build_seconds
+    check(step == FIT_STEPS_PER_EPOCH, f"fit ended at step {step}")
+    check(trainer.ckpt.all_steps() == [step],
+          f"checkpoints {trainer.ckpt.all_steps()}")
+    saved = json.loads((workdir / "checkpoint" / str(step)
+                        / "metrics.json").read_text())
+    check(set(saved) == {"val_ssim", "val_mae"} and all(
+        math.isfinite(v) for v in saved.values()), f"saved metrics {saved}")
+    walls = [w for w, _ in meter.steps]
+    step_s = statistics.median(walls[1:])
+    print(f"[fit] {step} steps at batch {FIT_BATCH}: " + ", ".join(
+        f"{w * 1e3:.2f} ms ({n} attention launches)" for w, n in meter.steps)
+          + f"; median of steps 2-{step} {step_s * 1e3:.2f} ms, "
+          f"{FIT_BATCH / step_s:.3f} slices/s; loader {statistics.median(build) * 1e3:.2f} "
+          f"ms a batch ({statistics.median(build) / FIT_BATCH * 1e3:.3f} ms a "
+          f"slice, {len(build)} batches, its own thread); peak {peak:.3f} GiB "
+          f"[{smi}]")
+    val_wall, val_launches = meter.samples[0]
+    print(f"[fit] validate: {len(meter.samples)} DDIM-{DDIM_STEPS} batch of "
+          f"{VAL_BATCH} in {val_wall:.4f} s, {val_launches} attention "
+          f"launches; saved step {step} with {saved} in "
+          f"{meter.saves[0][0]:.2f} s; fit {fit_wall:.2f} s [{smi}]")
+    for w, n in meter.steps:
+        check(n == CALLS_PER_FORWARD,
+              f"{n} attention launches in a train step, not {CALLS_PER_FORWARD}")
+    check(len(meter.samples) == 1 and val_launches == CALLS_PER_FORWARD
+          * DDIM_STEPS, f"validation launches {meter.samples}")
+    launches = {"fit_train": sum(n for _, n in meter.steps),
+                "fit_validate": val_launches}
+
+    # a second trainer on the workdir: restore, then resume
+    resumed = Trainer(cfg, workdir, device="cuda")
+    t0 = time.perf_counter()
+    resumed.state, resumed.sampler_state = resumed.ckpt.restore(
+        resumed.state, resumed.sampler_state)
+    restore_s = time.perf_counter() - t0
+    diff = _state_equal(trainer, resumed)
+    print(f"[fit] restored step {resumed.state.step} in {restore_s:.2f} s: "
+          f"{len(resumed.state.names)} parameters, EMA tensors and AdamW "
+          f"moments, count {resumed.state.tx.count} and the sampler buffers "
+          f"bit for bit: {not diff}")
+    check(not diff, f"the restored state differs at {diff[:4]}")
+    del trainer
+    meter = _Meter(resumed)
+    step = resumed.fit(num_epochs=2, log_every=1, val_every_epochs=1)
+    rows = [json.loads(line) for line in
+            (workdir / "logs" / "progress.jsonl").read_text().splitlines()]
+    resumed_rows = [(int(r["step"]), int(r["epoch"])) for r in rows
+                    if "step" in r][FIT_STEPS_PER_EPOCH:]
+    print(f"[fit] resumed: (step, epoch) {resumed_rows}, checkpoints "
+          f"{resumed.ckpt.all_steps()}, steps " + ", ".join(
+              f"{w * 1e3:.2f} ms" for w, _ in meter.steps) + f" [{smi}]")
+    check(resumed_rows == [(s, 1) for s in range(FIT_STEPS_PER_EPOCH + 1,
+                                                  2 * FIT_STEPS_PER_EPOCH + 1)],
+          f"the resumed fit logged {resumed_rows}")
+    check(step == 2 * FIT_STEPS_PER_EPOCH and resumed.ckpt.all_steps()
+          == [FIT_STEPS_PER_EPOCH, step], "resumed fit's steps or saves")
+    check(all(n == CALLS_PER_FORWARD for _, n in meter.steps),
+          f"resumed train step launches {meter.steps}")
+    launches["fit_train"] += sum(n for _, n in meter.steps)
+    launches["fit_validate"] += sum(n for _, n in meter.samples)
+
+    # predict every test slice, assemble volumes, score them
+    meter.samples.clear()
+    t0 = time.perf_counter()
+    out_dir, metric_rows = resumed.predict(template_root=gt_root,
+                                           gt_root=gt_root)
+    predict_wall = time.perf_counter() - t0
+    sample_wall = sum(w for w, _ in meter.samples)
+    preds = sorted(out_dir.glob("*_pred.nii.gz"))
+    n_batches = -(-FIT_TEST_CASES * FIT_SLICES // VAL_BATCH)
+    print(f"[fit] predict: {len(meter.samples)} DDIM-{DDIM_STEPS} batches of "
+          f"{VAL_BATCH} in {sample_wall:.4f} s "
+          f"({FIT_TEST_CASES * FIT_SLICES / sample_wall:.3f} slices/s), "
+          f"{sum(n for _, n in meter.samples)} attention launches; "
+          f"{len(preds)} volumes, metric report {predict_wall - sample_wall:.2f} "
+          f"s, predict {predict_wall:.2f} s [{smi}]")
+    for r in metric_rows:
+        print("[fit] metrics " + ", ".join(
+            f"{k} {v:.4f}" if k != "case" else v for k, v in r.items()))
+    check(len(meter.samples) == n_batches and all(
+        n == CALLS_PER_FORWARD * DDIM_STEPS for _, n in meter.samples),
+          f"predict batches and launches {meter.samples}")
+    check(len(preds) == FIT_TEST_CASES, f"{len(preds)} predicted volumes")
+    for p in preds:
+        vol = read_nifti(p).data
+        check(vol.shape == (IMAGE, IMAGE, FIT_SLICES)
+              and np.isfinite(vol).all(), f"{p.name}: {vol.shape}")
+    check(len(metric_rows) == FIT_TEST_CASES and all(
+        math.isfinite(v) for r in metric_rows for k, v in r.items()
+        if k != "case"), "non-finite or missing metric rows")
+    check((out_dir / "metrics.csv").exists(), "no metrics.csv")
+    launches["predict"] = sum(n for _, n in meter.samples)
+    return launches
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
@@ -1003,6 +1256,7 @@ def main() -> None:
     norm_launches = phase_norm_op()
     phase_train_parity()
     attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
+    attn_launches.update(phase_fit(smi))
     print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
           f"after the imports [{smi}]")
     print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,

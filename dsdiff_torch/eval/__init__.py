@@ -1,1 +1,1 @@
-"""Evaluation metrics computed on the device."""
+"""Evaluation: metrics, volume assembly and reports, figures."""

@@ -93,14 +93,17 @@ class _Common(nn.Module):
         block = getattr(self, name)
         if kind != "res":
             return block(h)
+        # a dropout mask is drawn here, outside any checkpoint, so that the
+        # recompute in backward applies the same one
+        mask = block.dropout_mask(h) if block.drops() else None
         if self.remat and self.training and torch.is_grad_enabled():
             if self.stacked:
                 # the stream's slices, bound again when backward recomputes
                 params = dict(block.named_parameters())
-                return checkpoint(functional_call, block, params, (h, emb),
-                                  use_reentrant=False)
-            return checkpoint(block, h, emb, use_reentrant=False)
-        return block(h, emb)
+                return checkpoint(functional_call, block, params,
+                                  (h, emb, mask), use_reentrant=False)
+            return checkpoint(block, h, emb, mask, use_reentrant=False)
+        return block(h, emb, mask)
 
 
 class UNetEncoder(_Common):

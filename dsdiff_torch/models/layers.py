@@ -16,6 +16,7 @@ either way.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -34,6 +35,7 @@ __all__ = [
     "SEBlock",
     "zero_init",
     "hold_in_compute_dtype",
+    "dropout_generator",
 ]
 
 
@@ -192,7 +194,9 @@ class ResBlock(nn.Module):
             emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch, dtype=dtype
         )
         self.out_norm = GroupNorm32(out_ch)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
+        # bound by ``dropout_generator`` for a train step
+        self.generator: torch.Generator | None = None
         self.out_conv = zero_init(
             Conv(out_ch, out_ch, 3, padding=1, dtype=dtype)
         )
@@ -203,7 +207,30 @@ class ResBlock(nn.Module):
         else:
             self.skip = None
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def drops(self) -> bool:
+        """True where a forward applies dropout (training, rate above 0)."""
+        return self.training and self.dropout > 0
+
+    def dropout_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """The keep mask [B, out_ch, H', W'] of a forward on ``x``, drawn
+        from the bound generator: an element is kept with probability
+        ``1 - dropout``, as Flax's ``nn.Dropout``."""
+        if self.generator is None:
+            raise RuntimeError(
+                "ResBlock dropout needs a mask or a generator bound by "
+                "dropout_generator"
+            )
+        B, _, H, W = x.shape
+        if self.up:
+            H, W = 2 * H, 2 * W
+        elif self.down:
+            H, W = H // 2, W // 2
+        shape = (B, self.out_conv.in_channels, H, W)
+        return torch.rand(shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.dropout
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
         h = F.silu(self.in_norm(x))
         if self.up:
             h, x = _upsample(h), _upsample(x)
@@ -216,10 +243,28 @@ class ResBlock(nn.Module):
             h = F.silu(self.out_norm(h) * (1.0 + scale) + shift)
         else:
             h = F.silu(self.out_norm(h + emb_out))
-        h = self.out_conv(self.dropout(h))
+        if self.drops():
+            if mask is None:
+                mask = self.dropout_mask(x)
+            h = torch.where(mask, h / (1.0 - self.dropout), torch.zeros_like(h))
+        h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
+
+
+@contextlib.contextmanager
+def dropout_generator(model: nn.Module, generator: torch.Generator | None):
+    """Bind ``generator`` to every ``ResBlock`` of ``model`` inside the
+    block, so that training forwards draw their dropout masks from it."""
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    for b in blocks:
+        b.generator = generator
+    try:
+        yield
+    finally:
+        for b in blocks:
+            b.generator = None
 
 
 class SEBlock(nn.Module):

@@ -1,8 +1,8 @@
 """Model registry.
 
-Port of the JAX package's ``models/wrapper.py`` ``MODEL_REGISTRY`` /
-``build_model``. It holds the models ported so far; the others come with
-ROADMAP A17, and ``conditioned_call`` with A13.
+Port of the JAX package's ``models/wrapper.py``: ``MODEL_REGISTRY`` /
+``build_model`` (the models ported so far; the others come with ROADMAP
+A17) and ``conditioned_call``, the denoiser call per conditioning mode.
 """
 from __future__ import annotations
 
@@ -15,7 +15,50 @@ from ..utils.device import resolve_device
 from .dsunet import DSUNet
 from .dsunet_cached import DSUNetSplit
 
-__all__ = ["MODEL_REGISTRY", "build_model"]
+__all__ = ["MODEL_REGISTRY", "build_model", "conditioned_call",
+           "CONDITIONING_MODES"]
+
+CONDITIONING_MODES = (
+    "none", "concat", "crossattn", "hybrid", "adm", "hybrid-adm",
+    "crossattn-adm",
+)
+
+
+def _as_list(v) -> list:
+    if v is None:
+        return []
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v]
+
+
+def conditioned_call(apply_fn: Callable, mode: str | None, x: torch.Tensor,
+                     t: torch.Tensor, cond: dict | None = None, **kw):
+    """Dispatch a denoiser call per conditioning mode (ddpm.py:1326-1361):
+    ``c_concat`` joins x on the channel axis (NHWC, last), ``c_crossattn``
+    becomes the context (joined on the token axis, 1), ``c_adm`` goes in as
+    ``y``."""
+    cond = cond or {}
+    c_concat = _as_list(cond.get("c_concat"))
+    c_crossattn = _as_list(cond.get("c_crossattn"))
+    c_adm = cond.get("c_adm")
+
+    if mode in ("none", None):
+        return apply_fn(x, t, **kw)
+    if mode == "concat":
+        return apply_fn(torch.cat([x] + c_concat, dim=-1), t, **kw)
+    if mode == "crossattn":
+        return apply_fn(x, t, torch.cat(c_crossattn, dim=1), **kw)
+    if mode == "hybrid":
+        return apply_fn(torch.cat([x] + c_concat, dim=-1), t,
+                        torch.cat(c_crossattn, dim=1), **kw)
+    if mode == "adm":
+        return apply_fn(x, t, y=c_adm, **kw)
+    if mode == "hybrid-adm":
+        return apply_fn(torch.cat([x] + c_concat, dim=-1), t, y=c_adm, **kw)
+    if mode == "crossattn-adm":
+        return apply_fn(x, t, torch.cat(c_crossattn, dim=1), y=c_adm, **kw)
+    raise ValueError(f"unknown conditioning mode '{mode}'")
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "dsunet": DSUNet,

@@ -13,6 +13,11 @@ each in device memory.
 - ``cosine_lr`` is the optax linear warmup joined to the cosine decay.
 - The EMA decays with ``min(ema_decay, (1 + t) / (10 + t))`` where t is the
   step count before the update, and is kept in f32.
+- Gradient accumulation (``accum_steps`` k > 1) has ``optax.MultiSteps``
+  semantics: the running mean ``acc + (g - acc) / (n + 1)`` of k
+  micro-gradients, then one clip-and-AdamW update on every k-th call and
+  none on the others. As in the JAX package's ``TrainState``, the EMA
+  update and ``step`` run on every call.
 """
 from __future__ import annotations
 
@@ -49,11 +54,15 @@ def cosine_lr(base_lr: float, total_steps: int, warmup_steps: int = 0,
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip)?, adamw(lr, b1, b2,
     eps=1e-8, weight_decay))`` over a fixed list of parameters, updated in
-    place. ``lr`` is a number or a schedule of the update count."""
+    place. ``lr`` is a number or a schedule of the update count. With
+    ``accum_steps`` k > 1 it is ``optax.MultiSteps(chain, k)``: ``step``
+    folds the gradients into their running mean ``acc`` and updates the
+    parameters with it on every k-th call only."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float | Schedule,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, grad_clip: float | None = None):
+                 weight_decay: float = 0.0, grad_clip: float | None = None,
+                 accum_steps: int = 1):
         self.params = list(params)
         self.lr = lr if callable(lr) else (lambda count, v=float(lr): v)
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -62,10 +71,33 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # updates applied
+        self.accum_steps = int(accum_steps)
+        # MultiSteps' accumulator and its position in the cycle
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.accum_steps > 1 else [])
+        self.mini_step = 0
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def step(self, grads: Sequence[torch.Tensor]) -> bool:
+        """Take one call's gradients; returns whether the parameters were
+        updated (always, unless accumulating)."""
         grads = list(grads)
+        if self.accum_steps > 1:
+            # Welford's running mean, as optax.MultiSteps(use_grad_mean)
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            del diff
+            self.mini_step = (self.mini_step + 1) % self.accum_steps
+            if self.mini_step:
+                return False
+            self._update(self.acc)
+            torch._foreach_zero_(self.acc)
+            return True
+        self._update(grads)
+        return True
+
+    def _update(self, grads: list) -> None:
         if self.grad_clip:
             norm = global_norm(grads)
             # optax: g where norm < max_norm, else g / norm * max_norm
@@ -103,15 +135,11 @@ def make_optimizer(params: Sequence[torch.Tensor], lr: float | Schedule = 1e-4,
                    weight_decay: float = 0.0, betas: tuple = (0.9, 0.999),
                    grad_clip: float | None = None,
                    accum_steps: int = 1) -> AdamW:
-    """AdamW with optional global-norm clipping, as the JAX package's
-    ``make_optimizer``. Gradient accumulation is not ported yet."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_steps > 1) is not ported yet "
-            "(ROADMAP A13)"
-        )
+    """AdamW with optional global-norm clipping and gradient accumulation
+    over ``accum_steps`` calls, as the JAX package's ``make_optimizer``."""
     return AdamW(params, lr, b1=betas[0], b2=betas[1],
-                 weight_decay=weight_decay, grad_clip=grad_clip)
+                 weight_decay=weight_decay, grad_clip=grad_clip,
+                 accum_steps=accum_steps)
 
 
 def ema_decay_at(step: int, ema_decay: float) -> float:
@@ -126,8 +154,9 @@ class TrainState:
     """The model's f32 parameters (updated in place), the optimizer and the
     f32 EMA of the parameters, in ``model.named_parameters()`` order.
 
-    ``step`` counts applied updates; ``version`` changes whenever the
-    parameters or the EMA change, so a serving copy knows when to refresh.
+    ``step`` counts ``apply_gradients`` calls (applied updates, unless
+    accumulating); ``version`` changes whenever the parameters or the EMA
+    change, so a serving copy knows when to refresh.
     """
 
     def __init__(self, model: nn.Module, tx_factory: Callable[[list], AdamW],
@@ -151,17 +180,38 @@ class TrainState:
 
     @torch.no_grad()
     def load(self, params: dict, ema: dict, mu: dict, nu: dict, count: int,
-             step: int) -> None:
+             step: int, acc: dict | None = None, mini_step: int = 0) -> None:
         """Continue from a saved state: parameters, EMA and AdamW moments as
         ``{name: tensor}`` over every parameter name, optax's update
-        ``count`` and the step counter."""
+        ``count``, the step counter and, when accumulating, the gradient
+        accumulator and its ``mini_step``."""
         self.model.load_state_dict(params)
-        for values, dst in ((ema, self.ema), (mu, self.tx.mu), (nu, self.tx.nu)):
+        pairs = [(ema, self.ema), (mu, self.tx.mu), (nu, self.tx.nu)]
+        if self.tx.accum_steps > 1 and acc is not None:
+            pairs.append((acc, self.tx.acc))
+        for values, dst in pairs:
             for name, d in zip(self.names, dst):
                 d.copy_(values[name])
         self.tx.count = int(count)
+        self.tx.mini_step = int(mini_step)
         self.step = int(step)
         self.version += 1
+
+    def state_dict(self) -> dict:
+        """Everything ``load`` takes, as tensors on their device."""
+        names = self.names
+        out = {
+            "params": dict(zip(names, (p.detach() for p in self.params))),
+            "ema": dict(zip(names, self.ema)),
+            "mu": dict(zip(names, self.tx.mu)),
+            "nu": dict(zip(names, self.tx.nu)),
+            "count": self.tx.count,
+            "step": self.step,
+            "mini_step": self.tx.mini_step,
+        }
+        if self.tx.accum_steps > 1:
+            out["acc"] = dict(zip(names, self.tx.acc))
+        return out
 
     @torch.no_grad()
     def apply_gradients(self, grads: Sequence[torch.Tensor]) -> None:

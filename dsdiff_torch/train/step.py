@@ -11,7 +11,8 @@ place (``state.TrainState``). bf16 compute happens inside the model; the
 master parameters, loss and optimizer state stay f32, as in the JAX
 package. Random draws come from an explicit ``torch.Generator``; ``t`` and
 ``noise`` may be given instead, so that a test can replay another
-framework's draws.
+framework's draws. The ResBlocks' dropout masks come from the same
+generator (``models.layers.dropout_generator``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..core import losses as L
 from ..core import dpm_solver, process, sampling
 from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
+from ..models.layers import dropout_generator
 from . import schedule_sampler as ss
 from .state import TrainState, global_norm
 
@@ -130,9 +132,10 @@ def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
 
         model.train()
         model.zero_grad(set_to_none=True)
-        loss, per_elem, metrics = train_loss(task, sched, model, x0, cond, t,
-                                             noise, weights)
-        loss.backward()
+        with dropout_generator(model, generator):
+            loss, per_elem, metrics = train_loss(task, sched, model, x0, cond,
+                                                 t, noise, weights)
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.params]
         metrics["grad_norm"] = global_norm(grads)

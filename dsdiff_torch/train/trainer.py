@@ -1,30 +1,48 @@
-"""The trainer: config -> schedule -> model -> train step and samplers.
+"""The training orchestrator: data -> model -> train steps -> checkpoints,
+logs, validation and volume prediction.
 
-Port of the JAX package's ``train/trainer.py`` ``Trainer`` without its data,
-mesh and logging parts: the net_mode / schedule / variance defaults,
-``TaskConfig``, the model build (bf16 compute over f32 master parameters,
-``remat``; ``ds_diff_gaussian`` and the cached-condition ``ds_diff_split``),
-the cosine learning rate, AdamW, the EMA, the schedule sampler, the train
-step, every sampler over the EMA weights (``set_sampler`` switches on a live
-trainer), ``progressive_denoise`` and the validation metrics. ``fit``,
-``validate``, ``predict``, checkpoints and the data pipeline come with later
-slices (ROADMAP A13, A14): batches are fed to ``train_step`` from memory.
+Port of the JAX package's ``train/trainer.py`` ``Trainer`` on one card:
+the K-fold patient split and loaders (``_setup_data``), the net_mode /
+schedule / variance defaults, ``TaskConfig``, the model build (bf16 compute
+over f32 master parameters, ``remat``; ``ds_diff_gaussian`` and the
+cached-condition ``ds_diff_split``), the cosine learning rate over
+``len(train_loader)`` steps an epoch, AdamW, the EMA, the schedule sampler,
+the train step, ``fit`` (shannon curriculum, logging, validation and
+checkpoints with best-val-SSIM retention), every sampler over the EMA
+weights (``set_sampler`` switches on a live trainer), ``validate`` with its
+image dumps, ``progressive_denoise`` and ``predict`` (test slices -> NIfTI
+volumes -> metric report). The data store is the H5 slice store
+(``data_store: h5``, the default) or the npy case store (``npy``).
+
+Random numbers: ``fit`` seeds a generator on the trainer's device for each
+step from (seed, number of earlier ``fit`` calls of this trainer, step), so
+a run resumed at step k in a new process repeats the draws of the run that
+was not interrupted; ``validate`` starts every call from seed 0 and
+``predict`` from the config's ``seed``. The loader's shuffle and
+augmentation are numpy, keyed on (seed, epoch, index).
 """
 from __future__ import annotations
 
 import copy
+import time
 from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from ..core import sampling, schedules
+from ..core import process, sampling, schedules
+from ..data import h5store
+from ..data.npy_dataset import NpyCaseDataset
+from ..data.pipeline import BatchLoader, SliceDataset
+from ..eval.assemble import VolumeAssembler, evaluate_predictions
 from ..models import build_model, make_cached_denoiser
 from ..models.layers import hold_in_compute_dtype
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import flax_to_state_dict, train_state_from_flax
+from ..utils.logging import KVLogger, journal
 from . import schedule_sampler as ss
+from .checkpoints import CheckpointManager
 from .config import Config
 from .state import TrainState, cosine_lr, make_optimizer
 from .step import (
@@ -36,7 +54,7 @@ from .step import (
     run_sampler_loop,
 )
 
-__all__ = ["Trainer", "FEATURE_KINDS", "OPENAI_SCHEDULE_MODES"]
+__all__ = ["Trainer", "FEATURE_KINDS", "OPENAI_SCHEDULE_MODES", "model_params"]
 
 # net_mode -> (model registry key, feature kind)
 FEATURE_KINDS = {
@@ -59,6 +77,9 @@ OPENAI_SCHEDULE_MODES = frozenset(
     {"ds_diff_gaussian", "ds_diff_split", "disc_diff", "dit"}
 )
 
+# data_store -> the dataset class over it (same constructor, same rows)
+DATA_STORES = {"h5": SliceDataset, "npy": NpyCaseDataset}
+
 # unet_config keys that describe the reference's torch module, not ours
 _DROPPED_MODEL_KEYS = (
     "image_size", "use_checkpoint", "legacy", "use_new_attention_order",
@@ -67,9 +88,39 @@ _DROPPED_MODEL_KEYS = (
 )
 
 
+def model_params(cfg: Config, model_name: str, n_cond: int,
+                 use_edge=False) -> dict:
+    """``build_model``'s keyword arguments for a run config: the
+    ``unet_config`` parameters that describe this package's module, the
+    input channels (noise + ``n_cond`` conditions), the output channels
+    (doubled by ``learn_sigma``), the compute dtype (bf16 over f32 master
+    parameters unless ``bf16: false``; GroupNorm in f32) and ``remat``."""
+    params = dict(cfg.get_path("unet_config.params", {}) or {})
+    for drop in _DROPPED_MODEL_KEYS:
+        params.pop(drop, None)
+    if model_name in ("dsunet", "dsunet_split"):
+        params.setdefault("model_channels", 96)
+        params.setdefault("use_edge", bool(use_edge))
+    out_ch = int(cfg.get("output_ch", 1)) * (
+        2 if bool(cfg.get("learn_sigma", False)) else 1)
+    return dict(params, in_channels=1 + n_cond, out_channels=out_ch,
+                dtype=torch.bfloat16 if cfg.get("bf16", True) else torch.float32,
+                remat=bool(cfg.get("remat", False)))
+
+
+def _step_seed(seed: int, fit_call: int, step: int) -> int:
+    """The generator seed of train step ``step`` in ``fit`` call
+    ``fit_call``."""
+    words = np.random.SeedSequence([seed, fit_call, step]).generate_state(2)
+    return int(words[0]) << 32 | int(words[1])
+
+
 class Trainer:
-    """Builds the schedule, model, train state and samplers from a run
-    config. ``device`` defaults to ``"cuda"``.
+    """Builds the data, schedule, model, train state and samplers from a run
+    config. ``device`` defaults to ``"cuda"``. ``workdir`` (needed by
+    ``fit``, ``validate`` and ``predict``) receives ``logs/`` (metrics as
+    text, JSONL and CSV; the run journal ``log_txt.txt`` at its root),
+    ``checkpoint/<step>/``, ``images/`` and ``predictions/``.
 
     - ``train_step(batch, generator=None, t=None, noise=None)`` takes one
       optimizer step on an NHWC batch ``{"target": [B,H,W,1], "image":
@@ -86,13 +137,19 @@ class Trainer:
     - ``progressive_denoise(cond, generator=None, x_T=None)``: DDIM with
       every step's x0 prediction kept.
     - ``val_metrics(pred, target, valid=None)``: SSIM, MAE, PSNR.
+    - ``fit``, ``validate``, ``predict`` and ``ckpt`` (a
+      ``CheckpointManager``): as the JAX package's.
     """
 
     def __init__(self, cfg: Mapping, workdir=None, device=None):
         cfg = Config.wrap(dict(cfg))
         self.cfg = cfg
-        self.workdir = Path(workdir) if workdir is not None else None
         self.device = resolve_device(device or "cuda")
+        self.workdir = self.logger = self.ckpt = None
+        if workdir is not None:
+            self.workdir = Path(workdir)
+            self.workdir.mkdir(parents=True, exist_ok=True)
+            self.logger = KVLogger(self.workdir / "logs")
 
         net_mode = cfg.get("net_mode", "ds_diff_gaussian")
         model_name, feature_kind = FEATURE_KINDS.get(net_mode, (net_mode, None))
@@ -100,14 +157,22 @@ class Trainer:
             raise NotImplementedError(
                 f"net_mode '{net_mode}' is not ported yet (ROADMAP A17)"
             )
-        if cfg.get("h5_2d_img_dir"):
-            raise NotImplementedError(
-                "the data pipeline is not ported yet (ROADMAP A14)"
-            )
         self.keys = list(cfg.get("train_keys",
                                  ["F_Data1", "F_Data2", "S_Data1", "S_Data2"]))
         self.use_edge = cfg.get("use_edge", False) or False
+
+        # ---- data
+        store = cfg.get("data_store", "h5")
+        if store not in DATA_STORES:
+            raise ValueError(f"unknown data_store '{store}' "
+                             f"(have {sorted(DATA_STORES)})")
+        self.dataset_cls = DATA_STORES[store]
+        self.train_loader = self.val_loader = None
         n_cond = len(self.keys) - 1 + (1 if self.use_edge else 0)
+        data_root = cfg.get("h5_2d_img_dir")
+        if data_root:
+            self._setup_data(data_root)
+            n_cond = self.train_ds.image_channels()
 
         # ---- diffusion schedule
         T = int(cfg.get_path("diffusion.steps", cfg.get("diffusion_steps", 1000)))
@@ -148,35 +213,27 @@ class Trainer:
         )
 
         # ---- model
-        model_params = dict(cfg.get_path("unet_config.params", {}) or {})
-        for drop in _DROPPED_MODEL_KEYS:
-            model_params.pop(drop, None)
         self.base_out = int(cfg.get("output_ch", 1))
         in_ch = 1 + n_cond
-        out_ch = self.base_out * (2 if learn_sigma else 1)
-        # bf16 compute over f32 master parameters; GroupNorm in f32
-        dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
-        if model_name in ("dsunet", "dsunet_split"):
-            model_params.setdefault("model_channels", 96)
-            model_params.setdefault("use_edge", bool(self.use_edge))
+        params = model_params(cfg, model_name, n_cond, self.use_edge)
         seed = int(cfg.get("seed", 2024))
         # modules initialise on the CPU from its default generator: seed it
         # for this build only
         with torch.random.fork_rng(devices=[]):
             torch.default_generator.manual_seed(seed)
-            self.model = build_model(
-                model_name, device=self.device, in_channels=in_ch,
-                out_channels=out_ch, dtype=dtype,
-                remat=bool(cfg.get("remat", False)), **model_params,
-            )
+            self.model = build_model(model_name, device=self.device, **params)
         self.in_ch = in_ch
         self.n_cond = n_cond
         self.model_name = model_name
         self.n_params = sum(p.numel() for p in self.model.parameters())
+        if self.workdir is not None:
+            journal(self.workdir,
+                    f"model {model_name}: {self.n_params / 1e6:.2f}M params")
 
-        # ---- optimizer, EMA, schedule sampler (no loader yet: 1000 steps
-        # per epoch, as the JAX trainer assumes without one)
-        steps_per_epoch = 1000
+        # ---- optimizer, EMA, schedule sampler; 1000 steps an epoch without
+        # a loader, as the JAX trainer assumes
+        steps_per_epoch = (len(self.train_loader) if self.train_loader
+                           else 1000)
         lr = cosine_lr(
             float(cfg.get("lr", 1e-4)),
             int(cfg.get("num_epochs", 250)) * steps_per_epoch,
@@ -218,6 +275,154 @@ class Trainer:
             model_name == "dsunet_split"
             and bool(cfg.get("cached_cond_sampling", True)), {}
         )
+
+        if self.workdir is not None:
+            self.ckpt = CheckpointManager(
+                self.workdir / "checkpoint",
+                max_to_keep=int(cfg.get("keep_checkpoints", 3)),
+            )
+        self.best_ssim = -1.0
+        self._fit_calls = 0  # keys each fit call's step draws
+
+    # ------------------------------------------------------------------ data
+    def _setup_data(self, data_root) -> None:
+        cfg = self.cfg
+        root = Path(data_root)
+        image_size = int(cfg.get("image_size", 256))
+        split = f"images_tr_{image_size}"
+        cases = h5store.list_cases(root / split)
+        val_split = cfg.get("val_split")  # BraTS variant: explicit val dir
+        if val_split:
+            train_cases = cases
+            val_cases = None  # all cases of the explicit split
+        else:
+            fold_k = int(cfg.get("fold_K", 5))
+            fold_idx = int(cfg.get("fold_idx", 1))
+            train_cases, val_cases = h5store.kfold_split(
+                cases, fold_k, fold_idx % fold_k,
+                seed=int(cfg.get("seed", 2024)),
+            )
+        common = dict(root=root, split=split, keys=self.keys,
+                      use_edge=self.use_edge)
+        self.train_ds = self.dataset_cls(
+            cases=train_cases, augment=True,
+            aug_prob=float(cfg.get("augmentation_prob", 0.4)), **common,
+        )
+        if val_split:
+            common["split"] = val_split
+            self.val_ds = self.dataset_cls(cases=None, augment=False, **common)
+            val_cases = self.val_ds.cases
+        else:
+            self.val_ds = self.dataset_cls(cases=val_cases, augment=False,
+                                           **common)
+        bs = int(cfg.get("train_batch_size", 8))
+        vbs = int(cfg.get("val_batch_size", bs))
+        seed = int(cfg.get("seed", 2024))
+        self.train_loader = BatchLoader(self.train_ds, bs, seed=seed,
+                                        shuffle=True, drop_last=True)
+        self.val_loader = BatchLoader(self.val_ds, vbs, seed=seed,
+                                      shuffle=False, drop_last=False)
+        if self.workdir is not None:
+            journal(
+                self.workdir,
+                f"data: {len(train_cases)} train / {len(val_cases)} val "
+                f"cases, {len(self.train_ds)} / {len(self.val_ds)} slices",
+            )
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host batch array on the trainer's device; through pinned
+        memory and an asynchronous copy on a card."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _need_workdir(self, what: str) -> None:
+        if self.workdir is None:
+            raise ValueError(f"{what} needs a workdir")
+
+    # ----------------------------------------------------------------- train
+    def fit(self, num_epochs: int | None = None, max_steps: int | None = None,
+            log_every: int = 50, val_every_epochs: int | None = None,
+            val_on_done: bool = True) -> int:
+        """Train from the state's step to ``num_epochs`` (default the
+        config's) or ``max_steps``, validating and saving every
+        ``val_every_epochs`` epochs (default ``val_step``) and, with
+        ``val_on_done``, when ``max_steps`` ends the run. Returns the step.
+        Batches reach the card through pinned memory while the loader's
+        thread builds the next ones."""
+        cfg = self.cfg
+        if bool(cfg.get("device_data_cache", False)):
+            raise NotImplementedError(
+                "device_data_cache is not ported yet (ROADMAP A14)")
+        self._need_workdir("fit")
+        if self.train_loader is None:
+            raise ValueError("no dataset configured (h5_2d_img_dir)")
+        num_epochs = num_epochs or int(cfg.get("num_epochs", 250))
+        val_every = val_every_epochs or int(cfg.get("val_step", 5))
+        seed = int(cfg.get("seed", 2024))
+        fit_call = self._fit_calls
+        self._fit_calls += 1
+        step = int(self.state.step)
+        done = False
+        # resume the epoch stream where the restored step left off: the
+        # loader keys shuffle and augmentation on (seed, epoch, index)
+        epoch0 = step // max(len(self.train_loader), 1)
+        # shannon-entropy warm-up curriculum (trainer_use_gaussian_diff
+        # :172-234 / train_util.py:217-228)
+        curriculum = None
+        warmup_steps = int(cfg.get("shannon_warmup_steps", 2000))
+        if cfg.get("shannon", False):
+            from ..data.curriculum import EntropyCurriculum
+
+            curriculum = EntropyCurriculum(self.train_ds, seed=seed)
+            self._np_rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=self.device)
+        t_rate = time.time()
+        steps_at_rate = step
+        for epoch in range(epoch0, num_epochs):
+            t_ep = time.time()
+            for batch in self.train_loader.epoch(epoch):
+                if curriculum is not None and step < warmup_steps:
+                    batch = curriculum.batch(
+                        self.train_loader.batch_size, step, warmup_steps,
+                        self._np_rng,
+                    )
+                dev_batch = {k: self._to_device(batch[k])
+                             for k in ("image", "target")}
+                gen.manual_seed(_step_seed(seed, fit_call, step))
+                metrics = self.train_step(dev_batch, gen)
+                step += 1
+                if step % log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    dt = time.time() - t_rate
+                    if dt > 0 and step > steps_at_rate:
+                        m["steps_per_sec_per_chip"] = (
+                            (step - steps_at_rate) / dt)
+                    t_rate = time.time()
+                    steps_at_rate = step
+                    m["step"] = step
+                    m["epoch"] = epoch
+                    for k, v in m.items():
+                        self.logger.logkv(
+                            k if k.startswith(("step", "epoch"))
+                            else f"train_{k}", v)
+                    self.logger.dumpkvs()
+                if max_steps and step >= max_steps:
+                    done = True
+                    break
+            journal(self.workdir,
+                    f"epoch {epoch} done in {time.time() - t_ep:.1f}s "
+                    f"(step {step})")
+            if (epoch + 1) % val_every == 0 or (done and val_on_done):
+                vm = self.validate(max_batches=int(
+                    cfg.get("limit_val_batches", 8)))
+                self.ckpt.save(step, self.state, self.sampler_state,
+                               metrics={"val_ssim": vm["ssim"],
+                                        "val_mae": vm["mae"]})
+            if done:
+                break
+        return step
 
     def _respaced(self) -> schedules.DiffusionSchedule:
         return schedules.respace(
@@ -366,6 +571,129 @@ class Trainer:
         self._refresh_sample_model()
         frames = self._row_fn(cond, generator, x_T)
         return frames[-1], frames
+
+    # ------------------------------------------------------------------- val
+    def validate(self, max_batches: int = 8) -> dict:
+        """Sample the first ``max_batches`` validation batches from the EMA
+        weights (the generator seeded 0 at every call), average SSIM, MAE
+        and PSNR over the valid rows of each batch and over the batches,
+        log them and, with ``log_images`` (default on), dump the first
+        batch's images."""
+        self._need_workdir("validate")
+        if self.val_loader is None:
+            raise ValueError("no dataset configured (h5_2d_img_dir)")
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        tot = {"ssim": 0.0, "mae": 0.0, "psnr": 0.0}
+        n = 0
+        first = None
+        for i, batch in enumerate(self.val_loader.epoch(0)):
+            if i >= max_batches:
+                break
+            pred = self.sample_fn(self._to_device(batch["image"]), gen)
+            m = self.val_metrics(pred, self._to_device(batch["target"]),
+                                 self._to_device(batch["valid"]))
+            for k in tot:
+                tot[k] += float(m[k])
+            n += 1
+            if first is None:
+                first = (batch, pred.float().cpu().numpy())
+        out = {k: v / max(n, 1) for k, v in tot.items()}
+        for k, v in out.items():
+            self.logger.logkv(f"val_{k}", v)
+        self.logger.dumpkvs()
+        journal(self.workdir,
+                f"val ssim {out['ssim']:.4f} mae {out['mae']:.4f} "
+                f"psnr {out['psnr']:.2f}")
+        if first is not None and self.cfg.get("log_images", True):
+            try:
+                self._log_images(*first)
+            except Exception as e:  # image dumps never stop training
+                journal(self.workdir, f"image logging failed: {e!r}")
+        return out
+
+    def _log_images(self, batch: dict, pred: np.ndarray) -> None:
+        """Per-validation image dumps under <workdir>/images/step_<n>: the
+        sample grid, the progressive-denoise row and the disentangle
+        heatmaps (trainer_ds_diff.py:649-696, 771-789)."""
+        from ..eval import visualize as V
+
+        out_dir = self.workdir / "images" / f"step_{int(self.state.step):07d}"
+        V.image_grid({"cond": batch["image"], "target": batch["target"],
+                      "pred": pred}, out_dir / "samples.png")
+        if self._row_fn is not None:
+            gen = torch.Generator(device=self.device).manual_seed(2)
+            _, frames = self.progressive_denoise(
+                self._to_device(batch["image"]), gen)
+            V.denoise_row(frames.float().cpu().numpy(),
+                          out_dir / "denoise_row.png")
+        if self.task.feature_kind == "ds":
+            feats = self._val_features(batch)
+            if feats is not None:
+                V.disentangle_heatmaps(feats, out_dir)
+
+    @torch.inference_mode()
+    def _val_features(self, batch: dict):
+        """One noised forward of the EMA weights at t = T/2 (noise seeded
+        3) for the DSUNet feature dict of the heatmap dump
+        (trainer_use_gaussian_diff.py:472-475); None for a model without
+        one."""
+        self._refresh_sample_model()
+        target = self._to_device(batch["target"])
+        cond = self._to_device(batch["image"])
+        t = torch.full((target.shape[0],), self.sched.num_timesteps // 2,
+                       dtype=torch.long, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(3)
+        noise = torch.randn(target.shape, generator=gen, device=self.device)
+        xt = process.q_sample(self.sched, target, t, noise)
+        out = self.sample_model(torch.cat([xt, cond], dim=-1),
+                                process.model_timestep(self.sched, t))
+        if isinstance(out, tuple) and isinstance(out[1], dict):
+            return out[1]
+        return None
+
+    # --------------------------------------------------------------- predict
+    def predict(self, out_dir=None, split: str | None = None,
+                template_root=None, gt_root=None, gt_name: str | None = None):
+        """Sample every test slice (``images_ts_<size>`` unless ``split``)
+        from the EMA weights, assemble one NIfTI volume per case under
+        ``out_dir`` (default <workdir>/predictions) on the template's grid
+        where ``template_root/<case>/<gt_name>`` exists, and, with
+        ``gt_root``, score each against its ground truth into
+        ``metrics.csv`` (inference_2d_with_gaussian_main parity). Returns
+        (out_dir, metric rows)."""
+        cfg = self.cfg
+        if out_dir is None:
+            self._need_workdir("predict without out_dir")
+            out_dir = self.workdir / "predictions"
+        out_dir = Path(out_dir)
+        image_size = int(cfg.get("image_size", 256))
+        test_ds = self.dataset_cls(
+            root=Path(cfg.get("h5_2d_img_dir")),
+            split=split or f"images_ts_{image_size}", keys=self.keys,
+            use_edge=self.use_edge, augment=False,
+        )
+        loader = BatchLoader(test_ds, int(cfg.get("val_batch_size", 8)),
+                             shuffle=False, drop_last=False)
+        asm = VolumeAssembler(out_dir, task_id=str(cfg.get("Task_id", "task")))
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(cfg.get("seed", 2024)))
+        for batch in loader.epoch(0):
+            pred = self.sample_fn(self._to_device(batch["image"]), gen)
+            asm.add_batch(batch["case"], batch["slice"],
+                          pred.float().cpu().numpy(), batch["valid"])
+        gt_file = gt_name or f"{self.keys[-1]}.nii.gz"
+        for case in asm.cases():
+            template = None
+            if template_root:
+                cand = Path(template_root) / case / gt_file
+                if cand.exists():
+                    template = cand
+            asm.write_case(case, template)
+        rows = []
+        if gt_root:
+            rows = evaluate_predictions(out_dir, gt_root, gt_file,
+                                        report_path=out_dir / "metrics.csv")
+        return out_dir, rows
 
     def train_step(self, batch: Mapping[str, torch.Tensor],
                    generator: torch.Generator | None = None,

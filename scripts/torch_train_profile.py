@@ -1,16 +1,18 @@
 """Where the time of one flagship train step goes on a CUDA card.
 
-    python scripts/torch_train_profile.py
+    python scripts/torch_train_profile.py [--batch 32]
 
 Builds the PyTorch port's flagship ``Trainer`` (bf16 compute over f32
 master weights, remat, random weights from a seed, the config of
-``chip_smoke.py``), takes two warm-up steps at batch 8, 256², times three
+``chip_smoke.py``), takes two warm-up steps at batch 8 (or ``--batch``;
+the config's own is 32), 256², on a batch held on the card, times three
 steps without the profiler, then traces one step with ``torch.profiler``
 and prints: the median step wall, device busy time (the sum of the CUDA
 kernels' times; one stream), the idle share, kernel launches, peak memory,
 and device time by kernel family (those of ``torch_serve_profile.py``) and
 by kernel name. Exits non-zero when there is no CUDA device.
 """
+import argparse
 import statistics
 import subprocess
 import sys
@@ -30,6 +32,9 @@ from torch_serve_profile import device_us, family  # noqa: E402
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         sys.exit(1)
@@ -41,7 +46,7 @@ def main() -> None:
     random_params(trainer.model, SEED)
     trainer.reset_state()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    B = TRAIN_BATCH
+    B = args.batch
     batch = {
         "target": torch.rand(B, IMAGE, IMAGE, 1, generator=gen,
                              device="cuda") * 2 - 1,

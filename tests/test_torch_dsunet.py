@@ -12,7 +12,9 @@ import torch
 from dsdiff_tpu.models.dsunet import DSUNet as JDSUNet
 from dsdiff_torch.models import build_model
 from dsdiff_torch.utils.flax_bridge import flax_to_state_dict
-from torch_parity_utils import random_flax_params
+from torch_parity_utils import one_thread, random_flax_params
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATOL = 1e-4
 

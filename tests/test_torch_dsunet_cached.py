@@ -19,7 +19,9 @@ from dsdiff_torch.utils.flax_bridge import (
     random_params,
     train_state_from_flax,
 )
-from torch_parity_utils import TINY, random_flax_params
+from torch_parity_utils import TINY, one_thread, random_flax_params
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATOL = 1e-4
 SAME_OPS_ATOL = 1e-6

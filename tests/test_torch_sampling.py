@@ -22,7 +22,9 @@ from dsdiff_torch.core import sampling as PS
 from dsdiff_torch.core import schedules as PSch
 from dsdiff_torch.models import build_model
 from dsdiff_torch.utils.flax_bridge import flax_to_state_dict
-from torch_parity_utils import TINY, random_flax_params
+from torch_parity_utils import TINY, one_thread, random_flax_params
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ANALYTIC_ATOL = 1e-5
 MODEL_ATOL = {"ancestral": 1e-4, "dpm++": 1e-4, "reverse": 1e-4,

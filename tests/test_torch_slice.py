@@ -16,7 +16,10 @@ from dsdiff_tpu.models.dsunet import DSUNet as JDSUNet
 from dsdiff_torch.core import sampling as PS
 from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.trainer import Trainer
-from torch_parity_utils import TINY, random_flax_params, tiny_cfg
+from torch_parity_utils import (TINY, one_thread, random_flax_params,
+                                tiny_cfg)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATOL = 1e-4
 
@@ -145,7 +148,7 @@ def test_trainer_without_device_needs_a_card(monkeypatch):
         Trainer(tiny_cfg())
 
 
-def test_trainer_refuses_what_is_not_ported():
+def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="unknown sampler 'heun'"):
         Trainer(dict(tiny_cfg(), sampler_setting={"sampler": "heun"}),
                 device="cpu")
@@ -155,7 +158,8 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A16"):
         Trainer(tiny_cfg(), device="cpu").set_sampler(int8=True)
     with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(dict(tiny_cfg(), h5_2d_img_dir="/data"), device="cpu")
+        Trainer(dict(tiny_cfg(), device_data_cache=True), tmp_path,
+                device="cpu").fit()
     with pytest.raises(ValueError, match="not yet ported"):
         Trainer(dict(tiny_cfg(), net_mode="disc_diff"), device="cpu")
 

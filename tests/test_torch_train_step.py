@@ -39,7 +39,10 @@ from dsdiff_torch.eval import metrics as PM
 from dsdiff_torch.ops import flash_attention as PF
 from dsdiff_torch.train.trainer import Trainer
 from dsdiff_torch.utils.flax_bridge import flax_to_state_dict
-from torch_parity_utils import TINY, random_flax_params, tiny_cfg
+from torch_parity_utils import (TINY, one_thread, random_flax_params,
+                                tiny_cfg)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RTOL = 1e-4
 GRAD_TOL = 1e-4

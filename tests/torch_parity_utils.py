@@ -6,6 +6,7 @@ packages; Flax param trees go into the port through its layout bridge.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -15,6 +16,18 @@ TINY = dict(
     model_channels=32, num_res_blocks=1, attention_resolutions=[2],
     channel_mult=[1, 2], num_head_channels=16, use_scale_shift_norm=True,
 )
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one CPU thread for a module's tests. With six xdist workers
+    on eight cores each process's torch thread pool spins against the
+    others': a file of tiny train steps that takes 6 s alone took 470 s
+    under that load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def tiny_cfg(steps=3):
