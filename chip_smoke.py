@@ -31,8 +31,17 @@ then drives the main path in both directions:
   split and loaders, ``fit`` at the config's batch 32 (three steps, a
   validation, a checkpoint), a second ``Trainer`` on the same workdir that
   restores the checkpoint bit for bit and resumes ``fit`` at epoch 1, then
-  ``predict`` writing one NIfTI volume per test case and the metric report.
+  ``predict`` writing one NIfTI volume per test case and the metric report;
+- the other denoisers the run config names and palette (``families``):
+  ``ddpm`` (UNet), ``disc_diff`` (DiscUNet, attention at head dim 192),
+  ``palette`` (the gamma-conditioned UNet) and ``dit`` (DiT-B/8), each at
+  its config's full width and 256²: full-width f32 and bf16 forwards with
+  the attention kernel against plain attention, one request through
+  ``Trainer.sample_fn`` and three bf16 train steps through
+  ``Trainer.train_step``.
 
+``python3 chip_smoke.py --phases kernels,families`` runs only the named
+phases (device and build always run; the kernels line needs every phase).
 Each main-path run checks that every call of its kernels went through them.
 Weights are random, from a seed. Exits non-zero, before printing any
 result, when there is no CUDA device or when any phase fails. The last line
@@ -40,6 +49,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import shutil
@@ -61,13 +71,15 @@ from dsdiff_torch.data import synthetic
 from dsdiff_torch.data.nifti import Nifti, read_nifti, write_nifti
 from dsdiff_torch.models import attention as attention_module
 from dsdiff_torch.models import build_model
+from dsdiff_torch.models import dit as dit_module
 from dsdiff_torch.models.attention import AttentionBlock
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
 from dsdiff_torch.ops import fused_norm as fn
+from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.step import TaskConfig, train_loss
 from dsdiff_torch.train.surgery import convert_stream_layout
-from dsdiff_torch.train.trainer import Trainer
+from dsdiff_torch.train.trainer import FEATURE_KINDS, Trainer, model_params
 from dsdiff_torch.utils.device import disable_tf32
 from dsdiff_torch.utils.flax_bridge import flax_to_state_dict, random_params
 
@@ -179,6 +191,30 @@ OTHER_CONFIG_ATTENTION = [
     (name, ((image // rate) ** 2, mult * C // hc, hc))
     for name, C, hc, image in OTHER_CONFIGS
     for rate, mult in ((8, 2), (16, 3), (32, 3))]
+
+# the other denoisers the run config names (configs/train_config.yaml:2)
+# and palette, each run as configs/train_config.yaml merged with its model
+# config (ddpm.yaml sets no net_mode: the run sets it): (net_mode, model
+# config, attention calls of one forward at 256² as (N, heads, D, calls)).
+# ddpm is the flagship's backbone with one encoder: attention after each res
+# block at rates 8, 16, 32, 2 a level in the encoder and 3 in the decoder,
+# and the middle's. disc_diff and palette: channel_mult (1, 2, 4, 8), so of
+# rates 8 and 16 only 8 exists: 32² at 8 x 96 = 768 channels in 4 heads;
+# disc_diff runs 4 encoders (4 x 2 + 1 + 3 = 12), palette one (2 + 1 + 3).
+# dit: 12 blocks over the 32² tokens of 8² patches, 768 wide in 12 heads.
+CONFIGS = Path(__file__).resolve().parent / "configs"
+FAMILIES = [
+    ("ddpm", "ddpm.yaml", [(1024, 4, 48, 5), (256, 6, 48, 5), (64, 6, 48, 6)]),
+    ("disc_diff", "disc_diff.yaml", [(1024, 4, 192, 12)]),
+    ("palette", "palette.yaml", [(1024, 4, 192, 6)]),
+    ("dit", "dsdiff_gaussian.yaml", [(1024, 12, 64, 12)]),
+]
+FAMILY_TRAIN_STEPS = 3
+# the families' own attention shapes, timed at these batches; head dims of
+# the other DiT sizes (XL: 72) and round ones held error only, batch 4
+FAMILY_KERNEL_BATCHES = (SERVE_BATCH, 8)
+HEAD_DIM_HELD = [("DiT-XL/8 at 256²", (1024, 16, 72)),
+                 ("D = 96", (1024, 8, 96)), ("D = 256", (1024, 3, 256))]
 
 TRAIN_BATCH = 8  # bench.py's train batch
 # the fit phase: the flagship config's own train batch, on a synthetic store
@@ -345,8 +381,53 @@ def phase_build():
                 print(f"[build] {line.strip()}")
 
 
+def _attention_row(gen, batch, N, H, D, dtype, calls, card: str) -> dict:
+    """Kernel vs plain at one shape, the kernel, the plain version and SDPA
+    timed (events and CUDA graph); fails on an error over KERNEL_TOL."""
+    qkv = torch.randn(batch, N, 3, H, D, generator=gen, device="cuda",
+                      dtype=dtype)
+    q, k, v = qkv.unbind(2)  # strided thirds, as the model's
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = fa.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    tol = KERNEL_TOL[dtype]
+    qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
+    sdpa_in = [tuple(t.transpose(1, 2).contiguous()
+                     for t in x.unbind(2)) for (x,) in qkvs]
+    iters = 50 if N >= 1024 else 200
+    kernel = lambda x: fa.flash_attention(*x.unbind(2))  # noqa: E731
+    ms = time_ms_cycling(kernel, qkvs, iters)
+    graph_ms = time_ms_graph(kernel, qkvs)
+    plain_ms = time_ms_cycling(
+        lambda x: fa.reference_attention(*x.unbind(2)), qkvs, iters)
+    lib_ms = time_ms_cycling(F.scaled_dot_product_attention, sdpa_in, iters)
+    lib_graph_ms = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
+    del qkvs, sdpa_in
+    bound_ms, bound_by = attention_bound(batch, N, H, D, dtype)
+    row = dict(shape=[batch, N, H, D], dtype=str(dtype).split(".")[1],
+               route=fa.ROUTES[dtype], calls_per_forward=calls,
+               max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / graph_ms)
+    print(f"[kernel] flash_attention {row['shape']} {row['dtype']} "
+          f"({row['route']}): max_abs_err {err:.3e} (tol {tol:.0e}), "
+          f"kernel {ms:.5f} ms (graph {graph_ms:.5f}), plain "
+          f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (graph "
+          f"{lib_graph_ms:.5f}), bound {bound_ms:.5f} ms "
+          f"({bound_by}), {100 * bound_ms / graph_ms:.2f}% of bound "
+          f"in the graph [{card}]")
+    check(err <= tol, f"flash_attention {row['shape']} "
+          f"{row['dtype']}: error {err} over {tol}")
+    return row
+
+
 def phase_kernels(card: str):
-    """Kernel vs plain at the flagship attention shapes; returns the rows.
+    """Kernel vs plain at the flagship attention shapes, with the calls of
+    one flagship forward, and at the other families' (head dims 192 and 64),
+    with ``families``: {family: calls of one forward}; returns the rows.
     bf16 runs the kernel's wgmma route, f32 its tf32x3 route."""
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -354,52 +435,29 @@ def phase_kernels(card: str):
     for batch in (SERVE_BATCH, TRAIN_BATCH, 16, FIT_BATCH):
         for dtype in (torch.bfloat16, torch.float32):
             for N, H, D, calls in ATTENTION_CALLS:
-                qkv = torch.randn(batch, N, 3, H, D, generator=gen,
-                                  device="cuda", dtype=dtype)
-                q, k, v = qkv.unbind(2)  # strided thirds, as the model's
-                got = fa.flash_attention(q, k, v)
-                torch.cuda.synchronize()
-                want = fa.reference_attention(q, k, v)
-                err = (got.float() - want.float()).abs().max().item()
-                tol = KERNEL_TOL[dtype]
-                qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
-                sdpa_in = [tuple(t.transpose(1, 2).contiguous()
-                                 for t in x.unbind(2)) for (x,) in qkvs]
-                iters = 50 if N >= 1024 else 200
-                kernel = lambda x: fa.flash_attention(*x.unbind(2))  # noqa: E731
-                ms = time_ms_cycling(kernel, qkvs, iters)
-                graph_ms = time_ms_graph(kernel, qkvs)
-                plain_ms = time_ms_cycling(
-                    lambda x: fa.reference_attention(*x.unbind(2)), qkvs, iters)
-                lib_ms = time_ms_cycling(F.scaled_dot_product_attention,
-                                         sdpa_in, iters)
-                lib_graph_ms = time_ms_graph(F.scaled_dot_product_attention,
-                                             sdpa_in)
-                del qkvs, sdpa_in
-                bound_ms, bound_by = attention_bound(batch, N, H, D, dtype)
-                row = dict(shape=[batch, N, H, D], dtype=str(dtype).split(".")[1],
-                           route=fa.ROUTES[dtype], calls_per_forward=calls,
-                           max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, share_of_bound=bound_ms / graph_ms)
-                rows.append(row)
-                print(f"[kernel] flash_attention {row['shape']} {row['dtype']} "
-                      f"({row['route']}): max_abs_err {err:.3e} (tol {tol:.0e}), "
-                      f"kernel {ms:.5f} ms (graph {graph_ms:.5f}), plain "
-                      f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (graph "
-                      f"{lib_graph_ms:.5f}), bound {bound_ms:.5f} ms "
-                      f"({bound_by}), {100 * bound_ms / graph_ms:.2f}% of bound "
-                      f"in the graph [{card}]")
-                check(err <= tol, f"flash_attention {row['shape']} "
-                      f"{row['dtype']}: error {err} over {tol}")
+                rows.append(_attention_row(gen, batch, N, H, D, dtype, calls,
+                                           card))
+    # the families' shapes past the flagship's (ddpm's are the flagship's),
+    # each timed once: {(N, H, D): {family: calls per forward}}
+    flagship_shapes = {(N, H, D) for N, H, D, _ in ATTENTION_CALLS}
+    family_shapes: dict = {}
+    for family, _, shapes in FAMILIES:
+        for N, H, D, calls in shapes:
+            if (N, H, D) not in flagship_shapes:
+                family_shapes.setdefault((N, H, D), {})[family] = calls
+    for batch in FAMILY_KERNEL_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for (N, H, D), families in family_shapes.items():
+                row = _attention_row(gen, batch, N, H, D, dtype, None, card)
+                rows.append(dict(row, families=families))
     # error only: the adaptive request's shapes (partial tiles in every
-    # one) and the other configs' (N mostly not a multiple of the 64-row
-    # tile, 32-channel heads)
+    # one), the other configs' (N mostly not a multiple of the 64-row
+    # tile, 32-channel heads) and the other head dims the kernel takes
     held = ([("the adaptive request", ADAPTIVE_BATCH, shape)
              for shape in ADAPTIVE_ATTENTION]
             + [(name, SERVE_BATCH, shape)
-               for name, shape in OTHER_CONFIG_ATTENTION])
+               for name, shape in OTHER_CONFIG_ATTENTION]
+            + [(name, SERVE_BATCH, shape) for name, shape in HEAD_DIM_HELD])
     for dtype in (torch.bfloat16, torch.float32):
         for what, batch, (N, H, D) in held:
             qkv = torch.randn(batch, N, 3, H, D, generator=gen,
@@ -527,13 +585,17 @@ def phase_norm_op():
 
 
 def _with_plain_attention(fn):
-    """``fn()`` with the models' attention swapped for the plain version."""
-    kernel_attention = attention_module.scaled_attention
-    attention_module.scaled_attention = fa.reference_attention
+    """``fn()`` with the models' attention (the U-Nets' AttentionBlock and
+    DiT's blocks) swapped for the plain version."""
+    modules = (attention_module, dit_module)
+    kernel_attention = [m.scaled_attention for m in modules]
+    for m in modules:
+        m.scaled_attention = fa.reference_attention
     try:
         return fn()
     finally:
-        attention_module.scaled_attention = kernel_attention
+        for m, f in zip(modules, kernel_attention):
+            m.scaled_attention = f
 
 
 def _forward_kernel_and_plain(dtype, batch=PARITY_BATCH, image=IMAGE):
@@ -1184,24 +1246,220 @@ def _fit(tmp: Path, smi: str):
     return launches
 
 
+def family_config(net_mode: str, model_yaml: str):
+    """configs/train_config.yaml merged with a family's model config, as a
+    user runs it."""
+    return load_run_config(CONFIGS / "train_config.yaml", CONFIGS / model_yaml,
+                           overrides={"net_mode": net_mode})
+
+
+def _family_parity(cfg, calls: int) -> None:
+    """A family's model at full width, batch PARITY_BATCH at 256², with the
+    attention kernel against plain attention: f32 with TF32 off, then bf16,
+    each within its tolerance of the output's largest magnitude, and
+    ``calls`` kernel launches a forward."""
+    disable_tf32()
+    net_mode = cfg["net_mode"]
+    name, _ = FEATURE_KINDS[net_mode]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for dtype, rtol in ((torch.float32, MODEL_RTOL),
+                        (torch.bfloat16, MODEL_BF16_RTOL)):
+        params = dict(model_params(cfg, name, len(cfg["train_keys"]) - 1),
+                      dtype=dtype)
+        model = random_params(build_model(name, device="cuda", **params),
+                              SEED).eval()
+        x = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 4, generator=gen,
+                        device="cuda")
+        t = torch.tensor([17.0, 803.0], device="cuda")
+
+        def forward():
+            out = model(x, t)
+            return (out[0] if isinstance(out, tuple) else out).float()
+
+        with torch.inference_mode():
+            before = fa.LAUNCHES
+            out_kernel = forward()
+            torch.cuda.synchronize()
+            launched = fa.LAUNCHES - before
+            out_plain = _with_plain_attention(forward)
+        torch.cuda.synchronize()
+        err = (out_kernel - out_plain).abs().max().item()
+        scale = out_plain.abs().max().item()
+        tol = rtol * max(1.0, scale)
+        dname = str(dtype).split(".")[1]
+        print(f"[families] {net_mode} {type(model).__name__} {IMAGE}² batch "
+              f"{PARITY_BATCH} {dname} ({fa.ROUTES[dtype]} route): "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| "
+              f"{scale:.3f}), {launched} kernel launches")
+        check(torch.isfinite(out_kernel).all().item(),
+              f"{net_mode} {dname}: non-finite output")
+        check(launched == calls, f"{net_mode} {dname}: {launched} attention "
+              f"launches in a forward, not {calls}")
+        check(err <= tol, f"{net_mode} {dname} parity error {err} over {tol}")
+        del model, out_kernel, out_plain
+
+
+def _family_request(trainer, calls: int, smi: str) -> int:
+    """One request of batch SERVE_BATCH at 256² through
+    ``trainer.sample_fn``: shape, finite values, ``calls`` launches a model
+    call, and (for the samplers that end on a clipped x0) the range [-1, 1].
+    Returns the launches."""
+    net_mode = trainer.cfg["net_mode"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
+                       generator=gen, device="cuda")
+    model_calls = []
+    hook = trainer.sample_model.register_forward_hook(
+        lambda *_: model_calls.append(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    try:
+        t0 = time.perf_counter()
+        out = trainer.sample_fn(cond, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    launched = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sampler = (f"palette DDIM-{trainer.sample_steps} eta {trainer.eta}"
+               if trainer.palette else
+               f"{trainer.sampler_name.upper()}-{trainer.rsched.num_timesteps}")
+    print(f"[families] {net_mode} request, {sampler}, batch {SERVE_BATCH}, "
+          f"{IMAGE}²: {wall:.4f} s, {SERVE_BATCH / wall:.3f} slices/s, peak "
+          f"{peak:.3f} GiB, {len(model_calls)} model calls, {launched} "
+          f"attention launches, max |x| {out.abs().max().item():.4f} [{smi}]")
+    # palette's DDIM adds sigma z after its last clipped x0 (eta 1): its
+    # samples may pass 1 by that noise, as the JAX package's do
+    _check_sample(out, SERVE_BATCH, IMAGE, not trainer.palette,
+                  f"{net_mode} request")
+    check(len(model_calls) == trainer.sample_steps,
+          f"{net_mode}: {len(model_calls)} model calls, not "
+          f"{trainer.sample_steps}")
+    check(launched == calls * len(model_calls),
+          f"{net_mode}: {launched} launches for {len(model_calls)} model calls")
+    return launched
+
+
+def _family_train(trainer, calls: int, smi: str) -> int:
+    """FAMILY_TRAIN_STEPS bf16 train steps at batch TRAIN_BATCH, 256²,
+    through ``trainer.train_step`` from random weights: finite metrics (the
+    com/dist loss for disc_diff), ``calls`` launches a step, the EMA after
+    step 1, every parameter tensor moved. Returns the launches."""
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    net_mode = trainer.cfg["net_mode"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    batch = {
+        "target": torch.rand(TRAIN_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                             device="cuda") * 2 - 1,
+        "image": torch.randn(TRAIN_BATCH, IMAGE, IMAGE, trainer.n_cond,
+                             generator=gen, device="cuda"),
+    }
+    start = [p.detach().clone() for p in trainer.state.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    times = []
+    for i in range(FAMILY_TRAIN_STEPS):
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = fa.LAUNCHES - before
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"[families] {net_mode} train step {i + 1}: "
+              f"{times[-1] * 1e3:.2f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
+              + f", {launched} attention launches")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"{net_mode}: non-finite metric at step {i + 1}: {vals}")
+        check(vals["grad_norm"] > 0, f"{net_mode}: zero gradient norm")
+        if net_mode == "disc_diff":
+            check("loss_disen" in vals, "disc_diff: no loss_disen")
+        check(launched == calls, f"{net_mode}: {launched} attention launches "
+              f"in a train step, not {calls}")
+        if i == 0:
+            worst = 0.0
+            for p0, p1, ema in zip(start, trainer.state.params,
+                                   trainer.state.ema):
+                want = 0.1 * p0 + 0.9 * p1.detach()
+                scale = want.abs().max().item()
+                if scale > 0:
+                    worst = max(worst,
+                                (ema - want).abs().max().item() / scale)
+            print(f"[families] {net_mode} EMA after step 1: max error "
+                  f"{worst:.3e} of each tensor's max |0.1 p0 + 0.9 p1| (tol "
+                  f"{EMA_RTOL:.0e})")
+            check(worst <= EMA_RTOL, f"{net_mode} EMA after step 1: {worst}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(start, trainer.state.params))
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"[families] {net_mode} train step {step_ms:.2f} ms (median of "
+          f"steps 2-{FAMILY_TRAIN_STEPS}), {TRAIN_BATCH / step_ms * 1e3:.3f} "
+          f"slices/s, peak {peak:.3f} GiB, {moved}/{len(start)} parameter "
+          f"tensors moved [{smi}]")
+    check(moved == len(start), f"{net_mode}: only {moved} of {len(start)} "
+          f"parameter tensors moved")
+    return fa.LAUNCHES
+
+
+def phase_families(smi: str) -> dict:
+    """Each family at its config's full width: forward parity, one request,
+    three train steps. Returns the attention launches by path."""
+    launches = {}
+    for net_mode, model_yaml, shapes in FAMILIES:
+        t0 = time.perf_counter()
+        calls = sum(c for *_, c in shapes)
+        cfg = family_config(net_mode, model_yaml)
+        _family_parity(cfg, calls)
+        trainer = _serving_trainer(cfg)
+        print(f"[families] {net_mode}: {type(trainer.model).__name__} "
+              f"{trainer.n_params / 1e6:.2f} M params, bf16, {calls} "
+              f"attention calls a forward")
+        launches[f"{net_mode}_serve"] = _family_request(trainer, calls, smi)
+        launches[f"{net_mode}_train"] = _family_train(trainer, calls, smi)
+        del trainer
+        torch.cuda.empty_cache()
+        print(f"[families] {net_mode} done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
+
+
+def _family_forward(rows, shapes, key):
+    """Sum of ``key`` over one forward of a family at batch SERVE_BATCH in
+    bf16: its (N, heads, D, calls), each shape's row at that batch."""
+    at = {tuple(r["shape"][1:]): r for r in rows
+          if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"}
+    return sum(at[(N, H, D)][key] * calls for N, H, D, calls in shapes)
 
 
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
                  norm_launches: int) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
     (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
-    each dtype. GroupNorm+SiLU: one call at each flagship norm shape, batch
+    each dtype, and the same for one forward of each other family.
+    GroupNorm+SiLU: one call at each flagship norm shape, batch
     SERVE_BATCH, bf16."""
-    serve = [r for r in attn_rows
-             if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
+    serve = [r for r in attn_rows if "families" not in r
+             and r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
     ops_ms = sum(r["bound_ms"] * r["calls_per_forward"] for r in serve
                  if r["bound_by"] == "operations")
     attn_bound = _per_forward(serve, "bound_ms")
     norm = [r for r in norm_rows
             if r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+            "bound_ms")
+    per_family = {
+        family: dict({k: _family_forward(attn_rows, shapes, k) for k in keys},
+                     calls=sum(c for *_, c in shapes))
+        for family, _, shapes in FAMILIES}
     return {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1210,7 +1468,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in serve),
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
         "ms": _per_forward(serve, "ms"),
         "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
@@ -1220,6 +1478,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "library_graph_ms": _per_forward(serve, "library_graph_ms"),
         "per": f"one DSUNet forward, batch {SERVE_BATCH}, bf16, "
                f"{CALLS_PER_FORWARD} calls",
+        "per_family_forward": per_family,
     }, {
         "name": "group_norm_silu",
         "route": "cuda",
@@ -1240,27 +1499,52 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
     }]}
 
 
-def main() -> None:
+PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "families")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {', '.join(PHASES)} "
+                         f"(default all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     t0 = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    attn_rows = phase_kernels(smi)
-    norm_rows = phase_norm_kernels(smi)
-    phase_model_parity()
-    trainer, serve_launches, walls, peaks, first = phase_serve(smi)
-    attn_launches = {"serve": serve_launches}
-    attn_launches["serve_samplers"] = phase_serve_samplers(trainer, first, smi)
-    del trainer, first
-    phase_split_parity()
-    attn_launches["serve_cached"] = phase_serve_cached(smi, walls, peaks)
-    norm_launches = phase_norm_op()
-    phase_train_parity()
-    attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
-    attn_launches.update(phase_fit(smi))
-    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s "
-          f"after the imports [{smi}]")
-    print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
-                                  norm_launches)))
+    attn_rows = norm_rows = norm_launches = None
+    attn_launches = {}
+    walls = peaks = ()
+    if "kernels" in phases:
+        attn_rows = phase_kernels(smi)
+    if "norm" in phases:
+        norm_rows = phase_norm_kernels(smi)
+        norm_launches = phase_norm_op()
+    if "serve" in phases:
+        phase_model_parity()
+        trainer, serve_launches, walls, peaks, first = phase_serve(smi)
+        attn_launches["serve"] = serve_launches
+        attn_launches["serve_samplers"] = phase_serve_samplers(trainer, first,
+                                                               smi)
+        del trainer, first
+    if "split" in phases:
+        phase_split_parity()
+        attn_launches["serve_cached"] = phase_serve_cached(smi, walls, peaks)
+    if "train" in phases:
+        phase_train_parity()
+        attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
+    if "fit" in phases:
+        attn_launches.update(phase_fit(smi))
+    if "families" in phases:
+        attn_launches.update(phase_families(smi))
+    print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
+          f"passed in {time.perf_counter() - t0:.1f} s after the imports "
+          f"[{smi}]")
+    if len(set(phases)) == len(PHASES):
+        print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
+                                      norm_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,8 +1,7 @@
 """Loss primitives: VLB math, Charbonnier, and the DS-Diff disentangle losses.
 
-Port of the JAX package's ``core/losses.py:35-275``: plain tensor functions
-with no module state. ``disc_disentangle_loss`` comes with the ``disc_diff``
-pipeline (ROADMAP A17).
+Port of the JAX package's ``core/losses.py:35-278``: plain tensor functions
+with no module state.
 
 - ``normal_kl`` / ``discretized_gaussian_log_likelihood``: the VLB helpers.
 - ``charbonnier``: the per-element L1-Charbonnier regression loss.
@@ -12,6 +11,7 @@ pipeline (ROADMAP A17).
   ('eu' mode). The distance is written out as ``sqrt(max(|a|²+|b|²-2a·b, 0)
   + 1e-12)``, not ``torch.cdist``, whose gradient at coincident points and
   internal matmul path differ.
+- ``disc_disentangle_loss``: DisC-Diff's common/distinct MSE ratio.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ __all__ = [
     "euclidean_disentangle_loss",
     "disentangle_loss",
     "ds_disentangle_losses",
+    "disc_disentangle_loss",
 ]
 
 
@@ -224,3 +225,23 @@ def ds_disentangle_losses(
         "s_a_l": sal_logit, "s_a_l_perfect": sal_perfect,
     }
     return c_s_loss, s_a_l_loss, heatmaps
+
+
+def disc_disentangle_loss(features: dict) -> torch.Tensor:
+    """DisC-Diff com/dist ratio over DiscUNet's features ([n, B, ...] each):
+    the mean pairwise MSE between the streams' common features (pulled
+    together) over that between their distinct features (pushed apart),
+    + 1e-8."""
+    com = features["common"]
+    dist = features["distinct"]
+    n = com.shape[0]
+
+    def pair_mse(x):
+        total, count = 0.0, 0
+        for i in range(n):
+            for j in range(i + 1, n):
+                total = total + ((x[i] - x[j]) ** 2).mean()
+                count += 1
+        return total / max(count, 1)
+
+    return pair_mse(com) / (pair_mse(dist) + 1e-8)

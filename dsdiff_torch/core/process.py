@@ -1,7 +1,7 @@
 """The Gaussian diffusion process: sampling moments and training losses.
 
 Port of the JAX package's ``core/process.py:55-355`` (``prior_bpd`` comes
-with the evaluation tools, ROADMAP A17). Every per-timestep coefficient is a
+with the evaluation tools, ROADMAP A17b). Every per-timestep coefficient is a
 gather from a [T] table of the schedule; ``t`` is a [B] integer tensor.
 Images are NHWC, so a learned-sigma output splits on the trailing channel
 axis.

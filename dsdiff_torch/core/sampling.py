@@ -158,7 +158,7 @@ def ddim_sample_loop(
 
     ``eta > 0`` adds per-step noise, drawn from ``generator`` or taken in
     order from ``noise`` (one tensor per step, for tests).
-    Classifier guidance (``guidance_fn``) comes with ROADMAP A17.
+    Classifier guidance (``guidance_fn``) comes with ROADMAP A17b.
     Returns x_0, or ``(x_0, x0s)`` with ``collect_x0`` where x0s stacks the
     per-step pred_x0 as [T, ...].
     """

@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``models/attention.py:211-239 AttentionBlock``. The
 other attention modules (``CrossAttention``, ``FFTAttention``,
-``SpatialTransformer``) come with a later slice (ROADMAP A17).
+``SpatialTransformer``) come with a later slice (ROADMAP A17b).
 """
 from __future__ import annotations
 

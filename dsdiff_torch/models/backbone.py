@@ -1,7 +1,7 @@
 """U-Net encoder / middle / decoder components.
 
 Port of the JAX package's ``models/backbone.py:31-176`` with the
-``AttentionBlock`` path (``SpatialTransformer`` comes with ROADMAP A17).
+``AttentionBlock`` path (``SpatialTransformer`` comes with ROADMAP A17b).
 With ``remat``, each ``ResBlock`` (and only it, as in the JAX package) runs
 under activation checkpointing while the module trains with grad enabled;
 serving and ``torch.inference_mode`` never checkpoint.
@@ -51,7 +51,7 @@ class _Common(nn.Module):
         if use_spatial_transformer or use_fft_attention:
             raise NotImplementedError(
                 "SpatialTransformer / FFT attention are not ported yet "
-                "(ROADMAP A17)"
+                "(ROADMAP A17b)"
             )
         self.model_channels = model_channels
         self.num_res_blocks = num_res_blocks

@@ -20,7 +20,7 @@ two channels):
 - ``remat`` checkpoints every ``ResBlock`` of the encoders, middle and
   decoder while training.
 
-``fusion='crossattn'`` (ROADMAP A17) is not ported yet. ``DSTrunk`` holds
+``fusion='crossattn'`` (ROADMAP A17b) is not ported yet. ``DSTrunk`` holds
 what ``DSUNetSplit`` (``dsunet_cached.py``) shares with this model.
 """
 from __future__ import annotations
@@ -183,7 +183,7 @@ class DSUNet(DSTrunk):
             raise ValueError(f"unknown stream_mode '{stream_mode}'")
         if fusion != "concat":
             raise NotImplementedError(
-                f"fusion='{fusion}' is not ported yet (ROADMAP A17)"
+                f"fusion='{fusion}' is not ported yet (ROADMAP A17b)"
             )
         self.use_edge = use_edge
         self.stream_mode = stream_mode

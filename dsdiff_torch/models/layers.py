@@ -255,9 +255,10 @@ class ResBlock(nn.Module):
 
 @contextlib.contextmanager
 def dropout_generator(model: nn.Module, generator: torch.Generator | None):
-    """Bind ``generator`` to every ``ResBlock`` of ``model`` inside the
-    block, so that training forwards draw their dropout masks from it."""
-    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    """Bind ``generator`` to every module of ``model`` that draws in a
+    training forward (one with a ``generator`` attribute: ``ResBlock``'s
+    dropout masks, DiT's label dropout) inside the block."""
+    blocks = [m for m in model.modules() if hasattr(m, "generator")]
     for b in blocks:
         b.generator = generator
     try:

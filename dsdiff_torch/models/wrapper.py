@@ -1,8 +1,11 @@
 """Model registry.
 
 Port of the JAX package's ``models/wrapper.py``: ``MODEL_REGISTRY`` /
-``build_model`` (the models ported so far; the others come with ROADMAP
-A17) and ``conditioned_call``, the denoiser call per conditioning mode.
+``build_model`` (the denoisers: ``unet``, ``dsunet``, ``dsunet_split``,
+``disc_unet``, ``dit`` and the DiT sizes by name; the VAE and the MedSegDiff
+models come with ROADMAP A17b) and ``conditioned_call``, the denoiser call
+per conditioning mode, which returns whatever the model returns (a feature
+model's ``(out, features)`` tuple included).
 """
 from __future__ import annotations
 
@@ -12,8 +15,11 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from .disc_unet import DiscUNet
+from .dit import DIT_CONFIGS, DiT, make_dit
 from .dsunet import DSUNet
 from .dsunet_cached import DSUNetSplit
+from .unet import UNet
 
 __all__ = ["MODEL_REGISTRY", "build_model", "conditioned_call",
            "CONDITIONING_MODES"]
@@ -60,9 +66,15 @@ def conditioned_call(apply_fn: Callable, mode: str | None, x: torch.Tensor,
         return apply_fn(x, t, torch.cat(c_crossattn, dim=1), y=c_adm, **kw)
     raise ValueError(f"unknown conditioning mode '{mode}'")
 
+
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
+    "unet": UNet,
     "dsunet": DSUNet,
     "dsunet_split": DSUNetSplit,
+    "disc_unet": DiscUNet,
+    "dit": DiT,
+    **{name.lower(): (lambda n: (lambda **kw: make_dit(n, **kw)))(name)
+       for name in DIT_CONFIGS},
 }
 
 

@@ -16,27 +16,36 @@
 // - One warpgroup (128 threads) per 64-row Q tile; grid (ceil(N/64), B*H).
 // - One TMA tensor map per operand per launch, over the view's own shape and
 //   strides as a 4-D tensor (D, H, rows, B), box (64, 1, 64, 1), 128-byte
-//   swizzle. The box is 64 wide whatever D is: TMA's out-of-bounds fill pads
-//   D < 64 with zeros in shared memory only, so every tile row is 128 bytes
-//   and the swizzled layout that wgmma reads is the same for every D. Ragged
-//   N and M tails get the same zero fill.
-// - K and V tiles of 64 keys go through a ring of two stages, each with an
-//   mbarrier that TMA completes; thread 0 refills a stage as soon as the
-//   warpgroup is done with it, so the load of tile j+1 overlaps the products
-//   of tile j. Two stages keep shared memory at 41 KB, so up to five blocks
-//   share an SM (scripts/torch_attention_variants.py times a 4-stage ring).
+//   swizzle. A box is one swizzle atom: 64 head columns, 128 bytes a row, the
+//   widest box that swizzle takes. A tile of 64 rows is NA = ceil(D/64) atoms
+//   (1 up to D=64, 3 at D=192, 4 at 256), one box each, 8 KB apart in shared
+//   memory. TMA's out-of-bounds fill pads the columns past D with zeros in
+//   shared memory only, so the swizzled layout that wgmma reads is the same
+//   for every D. Ragged N and M tails get the same zero fill.
+// - K and V tiles of 64 keys go through a ring, each stage with an mbarrier
+//   that TMA completes; thread 0 refills a stage as soon as the warpgroup is
+//   done with it. At D <= 64 the ring has two stages, so the load of tile j+1
+//   overlaps the products of tile j, and shared memory stays at 41 KB: up to
+//   five blocks share an SM (scripts/torch_attention_variants.py times a
+//   4-stage ring). Above 64 it has one stage: the tiles grow with NA (73 KB
+//   at D=192, 97 KB at 256), and the blocks that share an SM (three at 192,
+//   two at 256) hide each other's loads; two stages would leave one block.
 // - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
-//   K-major (D contiguous), ceil(D/16) k-steps (3 at D=48), f32 accumulate.
+//   K-major (D contiguous), KSTEPS k-steps of 16 columns (3 at D=48, 12 at
+//   192; above 64, 4 * NA, the padding columns being zeros), f32 accumulate;
+//   a k-step moves the descriptors 32 bytes inside an atom, 8 KB to the next.
 // - Online softmax in registers: scores pre-scaled by log2(e)/sqrt(D) and
 //   exponentiated with ex2.approx.ftz; a row lives in the 4 lanes of a quad,
 //   so row max and sum take two shuffles. Keys past M get -inf.
 // - O += P V: wgmma m64n64k16 with P as the register A operand (the S
 //   accumulator's fragment is, pair by pair, the A fragment of the next
 //   product, so P is packed to bf16 in place) and V from shared memory as an
-//   MN-major B operand (D contiguous, transpose bit set).
+//   MN-major B operand (D contiguous, transpose bit set), one m64n64 product
+//   per atom of V into its own 32 accumulators: O costs 32 * NA registers a
+//   thread (128 at D=256).
 // - Epilogue: O / l in f32, rounded to bf16, stored to the strided o; rows
 //   past N and columns past D are not stored.
-// It takes: D <= 64, 16-byte aligned bases, and batch, row and head strides
+// It takes: D <= 256, 16-byte aligned bases, and batch, row and head strides
 // that are multiples of 8 elements (TMA's 16-byte stride rule); the Python
 // wrapper checks this. P enters the second product in bf16, as in
 // jax.nn.dot_product_attention (probabilities cast to the value dtype).
@@ -64,6 +73,13 @@
 //   multiples of 4 floats (the model's qkv thirds), else 4-byte copies; rows
 //   padded to 8*DK + 4 floats keep fragment loads free of bank conflicts.
 //   Shared memory: 5 tiles of 64 x (8*DK + 4) floats, 66,560 B at D=48.
+// - Above D=64 the same design would not fit: Q's split fragments alone
+//   would take 8 * DK registers a thread and five tiles 250,880 B at D=192,
+//   above the 232,448 B a block may have. There DK is rounded up to 12, 16,
+//   24 or 32 (fewer instantiations; the padding columns are zeros), Q stays
+//   in shared memory and each k-step's fragment is loaded and split once per
+//   K/V tile (the loop runs k-steps outside, the 8 key n-tiles inside), and
+//   the ring has one stage: three tiles, 150,528 B at D=192, 199,680 B at 256.
 //
 // Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 495 TF32, 3.35 TB/s),
 // batch 16, per call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D;
@@ -103,10 +119,31 @@ struct Strides {
 
 constexpr int WG = 128;                      // one warpgroup
 constexpr int TILE = 64;                     // Q rows, and keys per K/V tile
-constexpr int TILE_BYTES = TILE * 64 * 2;    // 64 rows of 128 bytes
-constexpr int STAGES = 2;                    // K/V ring depth
-constexpr int SMEM_BYTES = (1 + 2 * STAGES) * TILE_BYTES + 1024;  // + align
-static_assert(SMEM_BYTES <= 48 * 1024, "above 48 KB needs an opt-in");
+constexpr int ATOM_BYTES = TILE * 64 * 2;    // 64 rows of one 128-byte atom
+// K/V ring depth for a tile NA atoms wide
+__host__ __device__ constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }
+// Q tile + the ring's K and V tiles, + 1024 to align the base
+__host__ __device__ constexpr int wg_smem_bytes(int na) {
+  return (1 + 2 * wg_stages(na)) * na * ATOM_BYTES + 1024;
+}
+
+// Raise `kernel`'s dynamic shared memory cap to `smem` bytes where that is
+// above the default 48 KB, once per device (it costs microseconds of host
+// time a call); bit d of `done` records device d. Setting it twice from two
+// threads is harmless.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, uint64_t& done) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,15 +177,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one (64 x 64) box at (d=0, h, row, b) of a 4-D map into shared memory
+// one (64 x 64) box at (d, h, row, b) of a 4-D map into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int row, int b) {
+                                         uint32_t bar, int d, int h, int row,
+                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(row),
       "r"(b)
       : "memory");
+}
+
+// the NA atoms of a tile's rows [row, row + 64): atom a holds columns
+// 64a..64a+63
+template <int NA>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int h, int row,
+                                              int b) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+    tma_load(dst + a * ATOM_BYTES, map, bar, 64 * a, h, row, b);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -238,13 +288,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Accumulator fragment of wgmma m64nN (f32), thread t of the warpgroup:
 // warp w = t / 32 owns rows 16w..16w+15; with g = (t % 32) / 4 and
 // c = 2 * (t % 4), element 4i + 2r + e is (row 16w + g + 8r, col 8i + c + e).
-template <int KSTEPS>
+// NA: 128-byte atoms a tile row spans; KSTEPS: k-steps of QK^T.
+template <int NA, int KSTEPS>
 __global__ void __launch_bounds__(WG)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, int H, int N, int M, int D,
                Strides ost, float scale_log2) {
+  constexpr int STAGES = wg_stages(NA);
+  constexpr int TILE_BYTES = NA * ATOM_BYTES;
+  static_assert(KSTEPS <= 4 * NA, "k-steps past the tile");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES + 1];  // K/V stages, then Q
 
@@ -270,25 +324,31 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(q_bar, TILE_BYTES);
-    tma_load(q_smem, &tq, q_bar, h, n0, b);
+    tma_load_tile<NA>(q_smem, &tq, q_bar, h, n0, b);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
       mbar_expect_tx(bar(s), 2 * TILE_BYTES);
-      tma_load(k_smem(s), &tk, bar(s), h, s * TILE, b);
-      tma_load(v_smem(s), &tv, bar(s), h, s * TILE, b);
+      tma_load_tile<NA>(k_smem(s), &tk, bar(s), h, s * TILE, b);
+      tma_load_tile<NA>(v_smem(s), &tv, bar(s), h, s * TILE, b);
     }
   }
 
-  float acc[32], sc[32];
+  float acc[NA][32], sc[32];  // acc[a]: O's columns 64a..64a+63
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = sc[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[a][i] = 0.f;
+  }
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
   const int c = 2 * (lane % 4);
 
   // Q and K: 8-row groups 1024 bytes apart (SBO); a k-step of 16 columns
-  // moves the start 32 bytes inside the 128-byte swizzle atom. V: the
-  // contraction runs over its rows, so a k-step of 16 keys moves 2048 bytes;
-  // the 64 columns are one atom wide, so the LBO is never stepped.
+  // moves the start 32 bytes inside the 128-byte swizzle atom, and every
+  // fourth one to the next atom (8 KB on, 512 in the descriptor's 16-byte
+  // units). V: the contraction runs over its rows, so a k-step of 16 keys
+  // moves 2048 bytes; each product covers one atom's 64 columns, so the LBO
+  // is never stepped.
   const uint64_t q_desc = make_desc(q_smem, 16, 1024);
   mbar_wait(q_bar, 0);
 
@@ -300,8 +360,10 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int step = 512 * (kk / 4) + 2 * (kk % 4);
+      wgmma_ss(sc, q_desc + step, k_desc + step, kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -341,27 +403,36 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
             exp2_ftz(fmaf(sc[4 * i + 2 * r + 1], scale_log2, -m_run[r]));
         l_run[r] += p0 + p1;
         p[2 * i + r] = pack_bf16(p0, p1);
-        acc[4 * i + 2 * r] *= alpha[r];
-        acc[4 * i + 2 * r + 1] *= alpha[r];
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          acc[a][4 * i + 2 * r] *= alpha[r];
+          acc[a][4 * i + 2 * r + 1] *= alpha[r];
+        }
       }
     }
 
-    const uint64_t v_desc = make_desc(v_smem(s), 8192, 1024);
-    fence_regs(acc);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-               v_desc + 128 * kk);
+    for (int a = 0; a < NA; ++a) {
+      const uint64_t v_desc =
+          make_desc(v_smem(s) + a * ATOM_BYTES, ATOM_BYTES, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[a], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                 p[4 * kk + 3], v_desc + 128 * kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
 
     __syncthreads();  // every warp is done with stage s: refill it
     if (tid == 0 && j + STAGES < ntiles) {
       mbar_expect_tx(bar(s), 2 * TILE_BYTES);
-      tma_load(k_smem(s), &tk, bar(s), h, (j + STAGES) * TILE, b);
-      tma_load(v_smem(s), &tv, bar(s), h, (j + STAGES) * TILE, b);
+      tma_load_tile<NA>(k_smem(s), &tk, bar(s), h, (j + STAGES) * TILE, b);
+      tma_load_tile<NA>(v_smem(s), &tv, bar(s), h, (j + STAGES) * TILE, b);
     }
   }
 
@@ -376,19 +447,21 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (row >= N) continue;
     __nv_bfloat16* orow = ob + row * ost.n;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = 8 * i + c;
-      const float v0 = acc[4 * i + 2 * r] * inv_l;
-      const float v1 = acc[4 * i + 2 * r + 1] * inv_l;
-      if (D % 2 == 0) {  // col even and < D: col + 1 < D, 4-byte aligned
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(v0, v1);
-      } else {
-        if (col < D) orow[col] = __float2bfloat16(v0);
-        if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * a + 8 * i + c;
+        const float v0 = acc[a][4 * i + 2 * r] * inv_l;
+        const float v1 = acc[a][4 * i + 2 * r + 1] * inv_l;
+        if (D % 2 == 0) {  // col even and < D: col + 1 < D, 4-byte aligned
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < D) orow[col] = __float2bfloat16(v0);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+        }
       }
-    }
   }
 }
 
@@ -434,13 +507,17 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int KSTEPS>
+template <int NA, int KSTEPS>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                  const CUtensorMap& tv, __nv_bfloat16* o, int B, int H, int N,
                  int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+  constexpr int smem = wg_smem_bytes(NA);
+  const auto kernel = attn_fwd_wgmma<NA, KSTEPS>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = allow_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B * H);
-  attn_fwd_wgmma<KSTEPS><<<grid, WG, SMEM_BYTES, st>>>(tq, tk, tv, o, H, N, M,
-                                                       D, os, scale_log2);
+  kernel<<<grid, WG, smem, st>>>(tq, tk, tv, o, H, N, M, D, os, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -450,7 +527,8 @@ int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 
 constexpr int F_WARPS = 4;  // one 16-row slab of the 64-row Q tile per warp
 constexpr int F_THREADS = 32 * F_WARPS;
-constexpr int F_STAGES = 2;  // K/V ring depth
+// K/V ring depth; DK <= 8 also holds Q's split fragments in registers
+__host__ __device__ constexpr int f_stages(int dk) { return dk <= 8 ? 2 : 1; }
 // Row stride of a tile in shared memory, in floats, for a head dimension
 // padded to 8 * DK: 8 * DK + 4 is 4 modulo 8, so the 8 rows x 4 columns of a
 // K or Q fragment load, and the 4 row pairs x 8 columns of a V fragment
@@ -459,10 +537,11 @@ __host__ __device__ constexpr int f_ld(int dk) { return 8 * dk + 4; }
 __host__ __device__ constexpr int f_tile_floats(int dk) {
   return TILE * f_ld(dk);
 }
-// Q tile + F_STAGES K and V tiles
+// Q tile + the ring's K and V tiles
 __host__ __device__ constexpr int f_smem_bytes(int dk) {
-  return (1 + 2 * F_STAGES) * f_tile_floats(dk) * 4;
+  return (1 + 2 * f_stages(dk)) * f_tile_floats(dk) * 4;
 }
+static_assert(f_smem_bytes(32) <= 232448, "D=256 tiles above the block limit");
 
 // x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (to nearest,
 // ties away from zero, as cvt.rna.tf32.f32 rounds, here in two integer
@@ -557,6 +636,8 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                 Strides ost, float scale_log2) {
   constexpr int LD = f_ld(DK);
   constexpr int TF = f_tile_floats(DK);
+  constexpr int F_STAGES = f_stages(DK);
+  constexpr bool Q_IN_REGS = DK <= 8;
   extern __shared__ __align__(16) float fsm[];
   const float* q_t = fsm;
   const auto k_t = [&](int s) { return fsm + (1 + s) * TF; };
@@ -590,16 +671,19 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 
   cp_async_wait<F_STAGES - 1>();  // group 0 (Q, K/V tile 0) has landed
   __syncthreads();
-  uint32_t qh[DK][4], ql[DK][4];  // Q's A fragments, pre-scaled, split
-  {
-    const float* qr = q_t + (16 * warp + g) * LD + t;
+  // Q's A fragment of k-step kk, pre-scaled, split
+  const float* qr = q_t + (16 * warp + g) * LD + t;
+  const auto q_frag = [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+    split_tf32(qr[8 * kk] * scale_log2, hi[0], lo[0]);
+    split_tf32(qr[8 * LD + 8 * kk] * scale_log2, hi[1], lo[1]);
+    split_tf32(qr[8 * kk + 4] * scale_log2, hi[2], lo[2]);
+    split_tf32(qr[8 * LD + 8 * kk + 4] * scale_log2, hi[3], lo[3]);
+  };
+  // held in registers for the whole run where DK <= 8
+  uint32_t qh[Q_IN_REGS ? DK : 1][4], ql[Q_IN_REGS ? DK : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      split_tf32(qr[8 * kk] * scale_log2, qh[kk][0], ql[kk][0]);
-      split_tf32(qr[8 * LD + 8 * kk] * scale_log2, qh[kk][1], ql[kk][1]);
-      split_tf32(qr[8 * kk + 4] * scale_log2, qh[kk][2], ql[kk][2]);
-      split_tf32(qr[8 * LD + 8 * kk + 4] * scale_log2, qh[kk][3], ql[kk][3]);
-    }
+    for (int kk = 0; kk < DK; ++kk) q_frag(kk, qh[kk], ql[kk]);
   }
 
   for (int j = 0; j < ntiles; ++j) {
@@ -614,16 +698,33 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     // S = (Q scale_log2) K^T for 64 keys: 8 n-tiles of 8 keys, DK k-steps
     float sc[8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-      const float* kr = kt + (8 * n + g) * LD + t;  // K[key 8n+g][d t]
+    if constexpr (Q_IN_REGS) {
 #pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* kr = kt + (8 * n + g) * LD + t;  // K[key 8n+g][d t]
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          uint32_t b0h, b0l, b1h, b1l;
+          split_tf32(kr[8 * kk], b0h, b0l);
+          split_tf32(kr[8 * kk + 4], b1h, b1l);
+          mma_3xtf32(sc[n], qh[kk], ql[kk], b0h, b1h, b0l, b1l);
+        }
+      }
+    } else {
       for (int kk = 0; kk < DK; ++kk) {
-        uint32_t b0h, b0l, b1h, b1l;
-        split_tf32(kr[8 * kk], b0h, b0l);
-        split_tf32(kr[8 * kk + 4], b1h, b1l);
-        mma_3xtf32(sc[n], qh[kk], ql[kk], b0h, b1h, b0l, b1l);
+        uint32_t ah[4], al[4];
+        q_frag(kk, ah, al);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* kr = kt + (8 * n + g) * LD + 8 * kk + t;
+          uint32_t b0h, b0l, b1h, b1l;
+          split_tf32(kr[0], b0h, b0l);
+          split_tf32(kr[4], b1h, b1l);
+          mma_3xtf32(sc[n], ah, al, b0h, b1h, b0l, b1l);
+        }
       }
     }
 
@@ -724,19 +825,9 @@ int launch_tf32x3(const float* q, const float* k, const float* v, float* o,
                   Strides vs, Strides os, float scale_log2, cudaStream_t st) {
   constexpr int smem = f_smem_bytes(DK);
   const auto kernel = attn_fwd_tf32x3<DK, VEC>;
-  // the opt-in above 48 KB, once per device (it costs microseconds of host
-  // time a call); setting it twice from two threads is harmless
-  static uint64_t opted_in = 0;  // bit d: done on device d
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static uint64_t opted_in = 0;
+  const cudaError_t err = allow_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if (smem > 48 * 1024 && !(opted_in & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in |= bit;
-  }
   const dim3 grid((N + TILE - 1) / TILE, B * H);
   kernel<<<grid, F_THREADS, smem, st>>>(q, k, v, o, H, N, M, D, qs, ks, vs,
                                         os, scale_log2);
@@ -759,10 +850,19 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
     F32_CASE(5)
     F32_CASE(6)
     F32_CASE(7)
-    default:
-      return launch_tf32x3<8, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
-                                   scale_log2, st);
+    F32_CASE(8)
   }
+  // above D=64, DK rounded up to 12, 16, 24 or 32
+#define F32_UP_TO(DK)                                                       \
+  if (D <= 8 * DK)                                                          \
+    return launch_tf32x3<DK, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, \
+                                  scale_log2, st);
+  F32_UP_TO(12)
+  F32_UP_TO(16)
+  F32_UP_TO(24)
+  return launch_tf32x3<32, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
+                                scale_log2, st);
+#undef F32_UP_TO
 #undef F32_CASE
 }
 
@@ -785,12 +885,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
     if (res == CUDA_SUCCESS) res = encode(fn, &tv, v, B, M, H, D, vs);
     if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
-    switch ((D + 15) / 16) {  // k-steps of QK^T
-      case 1: return launch_wgmma<1>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      case 2: return launch_wgmma<2>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      case 3: return launch_wgmma<3>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      default: return launch_wgmma<4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    switch ((D + 15) / 16) {  // k-steps of QK^T; above 64, one atom more
+      case 1: return launch_wgmma<1, 1>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+      case 2: return launch_wgmma<1, 2>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+      case 3: return launch_wgmma<1, 3>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+      case 4: return launch_wgmma<1, 4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
     }
+    if (D <= 128) return launch_wgmma<2, 8>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    if (D <= 192) return launch_wgmma<3, 12>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    return launch_wgmma<4, 16>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -810,7 +913,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
 // current device for the launch only when it differs) and returns
 // cudaGetLastError() (0 on success), or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -(1000 + CUresult) when a tensor map cannot be
-// encoded. The caller checks shapes and, for bf16, alignment: 1 <= D <= 64,
+// encoded. The caller checks shapes and, for bf16, alignment: 1 <= D <= 256,
 // N >= 1, M >= 1, B*H <= 65535; bf16 bases 16-byte aligned and b, n, h
 // strides multiples of 8 elements.
 extern "C" int dsdiff_flash_attention(

@@ -4,7 +4,9 @@ Port of the JAX package's ``ops/flash_attention.py``. ``flash_attention`` launch
 the hand-written kernel ``csrc/flash_attention.cu`` on CUDA tensors;
 ``reference_attention`` is the same math in plain PyTorch (an f32 softmax,
 cast back to q's dtype), used for CPU tensors and to check the kernel.
-Layout: ``[B, N, heads, D]`` in and out.
+Layout: ``[B, N, heads, D]`` in and out, head dims 1 to 256 as the TPU
+kernel takes them (the flagship's 48, DiT-B's 64, DiT-XL's 72, the
+disc_diff and palette U-Nets' 192).
 
 The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
 bf16 through ``wgmma`` with K/V fed by TMA, f32 through ``mma.sync`` in three
@@ -36,7 +38,10 @@ __all__ = ["flash_attention", "reference_attention", "FlashAttention",
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
-MAX_HEAD_DIM = 64  # bf16 pads the head dimension to 64 on chip, f32 to 8k
+# as the TPU kernel: bf16 pads the head dimension to a multiple of 64 on
+# chip (one 128-byte swizzle atom), f32 to a multiple of 8 up to 64 and to
+# 96, 128, 192 or 256 above
+MAX_HEAD_DIM = 256
 # the kernel's route for each dtype it takes
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 

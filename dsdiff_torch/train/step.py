@@ -1,9 +1,11 @@
 """Task knobs, the train step, the sample function and validation metrics.
 
 Port of the JAX package's ``train/step.py``: ``TaskConfig``, ``_denoiser``,
-``make_train_step``, ``make_sample_fn`` with every sampler and
-``make_val_metrics``. Split-input (patched) sampling and the ``disc``
-disentangle loss come with ROADMAP A17.
+``make_train_step`` (with the 'ds' and 'disc' disentangle losses),
+``make_sample_fn`` with every sampler and ``make_val_metrics``; and the
+Palette pipeline's train step and sampler (``make_palette_train_step``,
+``make_palette_sample_fn``, the JAX trainer's ``_setup_palette_steps``).
+Split-input (patched) sampling comes with ROADMAP A17b.
 
 The train step is eager: one forward through ``training_losses`` and the
 disentangle losses, one backward, then the optimizer and EMA update in
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 
 from ..core import losses as L
-from ..core import dpm_solver, process, sampling
+from ..core import dpm_solver, palette, process, sampling
 from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
 from ..models.layers import dropout_generator
@@ -32,7 +34,8 @@ from . import schedule_sampler as ss
 from .state import TrainState, global_norm
 
 __all__ = ["TaskConfig", "train_loss", "make_train_step", "draw_x_T",
-           "run_sampler_loop", "make_sample_fn", "make_val_metrics"]
+           "run_sampler_loop", "make_sample_fn", "make_val_metrics",
+           "make_palette_train_step", "make_palette_sample_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +75,9 @@ def train_loss(task: TaskConfig, sched: DiffusionSchedule, model: nn.Module,
                x0: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
                noise: torch.Tensor, weights: torch.Tensor):
     """The train step's objective: ``mean(weights * training_losses)`` plus
-    ``disen_lambda * (C-S + S-A-L)`` for 'ds' features. Returns (loss,
-    per-element loss [B], metrics dict of 0-d tensors)."""
+    ``disen_lambda * (C-S + S-A-L)`` for 'ds' features or ``disen_lambda *
+    com/dist`` for 'disc' features. Returns (loss, per-element loss [B],
+    metrics dict of 0-d tensors)."""
     terms, feats = process.training_losses(
         sched, _denoiser(model, cond), x0, t, noise,
         parameterization=task.parameterization,
@@ -93,6 +97,10 @@ def train_loss(task: TaskConfig, sched: DiffusionSchedule, model: nn.Module,
         loss = loss + task.disen_lambda * (cs + sal)
         metrics["loss_disen_cs"] = cs
         metrics["loss_disen_sal"] = sal
+    elif task.feature_kind == "disc" and feats is not None:
+        disen = L.disc_disentangle_loss(feats)
+        loss = loss + task.disen_lambda * disen
+        metrics["loss_disen"] = disen
     metrics["loss"] = loss
     return loss, terms["loss"], metrics
 
@@ -104,19 +112,17 @@ def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
     ``batch`` holds NHWC ``target`` [B, H, W, C] and ``image`` (the
     condition). ``state`` is updated in place and returned; ``metrics`` are
     0-d f32 tensors: loss, loss_simple, loss_vlb (learned sigma),
-    loss_disen_cs and loss_disen_sal ('ds' features), and grad_norm, the
-    global norm of the gradients before any clipping.
+    loss_disen_cs and loss_disen_sal ('ds' features), loss_disen ('disc'
+    features), and grad_norm, the global norm of the gradients before any
+    clipping.
     """
-    if task.feature_kind not in (None, "ds"):
-        raise NotImplementedError(
-            f"feature kind '{task.feature_kind}' is not ported yet (ROADMAP A17)"
-        )
+    if task.feature_kind not in (None, "ds", "disc"):
+        raise ValueError(f"unknown feature kind '{task.feature_kind}'")
 
     def step(state: TrainState, sampler_state: ss.SamplerState, batch: dict,
              generator: torch.Generator | None = None,
              t: torch.Tensor | None = None,
              noise: torch.Tensor | None = None):
-        model = state.model
         x0 = batch["target"]
         cond = batch["image"]
         B = x0.shape[0]
@@ -130,23 +136,93 @@ def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
                               device=cond.device) >= task.cond_dropout
             cond = cond * keep.to(cond.dtype)
 
-        model.train()
-        model.zero_grad(set_to_none=True)
-        with dropout_generator(model, generator):
-            loss, per_elem, metrics = train_loss(task, sched, model, x0, cond,
-                                                 t, noise, weights)
-            loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in state.params]
-        metrics["grad_norm"] = global_norm(grads)
-        state.apply_gradients(grads)
-        del grads
-        model.zero_grad(set_to_none=True)  # free them before the next step
+        metrics, per_elem = _optimizer_step(
+            state, lambda model: train_loss(task, sched, model, x0, cond, t,
+                                            noise, weights), generator)
         sampler_state = ss.update_state(sampler_state, t, per_elem.detach())
-        return state, sampler_state, {k: v.detach().float()
-                                      for k, v in metrics.items()}
+        return state, sampler_state, metrics
 
     return step
+
+
+def _optimizer_step(state: TrainState, objective: Callable,
+                    generator: torch.Generator | None) -> tuple[dict, object]:
+    """One optimizer step on ``objective(model) -> (loss, aux, metrics)``:
+    the model in training mode with its dropout draws bound to
+    ``generator``, backward, grad_norm, then the optimizer and EMA update of
+    ``state``. Returns (the metrics, detached f32; aux)."""
+    model = state.model
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with dropout_generator(model, generator):
+        loss, aux, metrics = objective(model)
+        loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in state.params]
+    metrics["grad_norm"] = global_norm(grads)
+    state.apply_gradients(grads)
+    del grads
+    model.zero_grad(set_to_none=True)  # free them before the next step
+    return {k: v.detach().float() for k, v in metrics.items()}, aux
+
+
+def make_palette_train_step(sched: palette.GammaSchedule) -> Callable:
+    """The Palette pipeline's step over the train ``GammaSchedule``: the
+    same signature and state as ``make_train_step``'s. ``t`` is uniform over
+    the schedule; the model sees ``[cond, y_t]`` and ``gamma * 1000`` as its
+    timestep and the loss is the eps MSE. The sampler state passes through
+    unchanged. Metrics: loss, loss_simple (the same), grad_norm."""
+
+    def step(state: TrainState, sampler_state, batch: dict,
+             generator: torch.Generator | None = None,
+             t: torch.Tensor | None = None,
+             noise: torch.Tensor | None = None):
+        x0 = batch["target"]
+        B = x0.shape[0]
+        if t is None:
+            t = torch.randint(0, sched.num_timesteps, (B,),
+                              generator=generator, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                                device=x0.device)
+
+        def objective(model):
+            loss = palette.training_loss(
+                sched, lambda x, g: model(x, g * 1000.0), x0, batch["image"],
+                t.to(x0.device), noise)
+            return loss, None, {"loss": loss, "loss_simple": loss}
+
+        metrics, _ = _optimizer_step(state, objective, generator)
+        return state, sampler_state, metrics
+
+    return step
+
+
+def make_palette_sample_fn(model: nn.Module, sched: palette.GammaSchedule,
+                           sampler: str = "ddim", ddim_steps: int = 50,
+                           eta: float = 0.0,
+                           clip_denoised: bool = True) -> Callable:
+    """Returns ``fn(cond, generator=None, x_T=None, noise=None) -> samples
+    [B, H, W, 1]`` over the test ``GammaSchedule``: DDIM with ``eta`` for
+    'ddim', the ancestral loop over every step for any other name. ``x_T``
+    and the per-step ``noise`` are drawn from ``generator`` unless given."""
+
+    def denoise(x, gamma):
+        return model(x, gamma * 1000.0)
+
+    @torch.inference_mode()
+    def fn(cond: torch.Tensor, generator: torch.Generator | None = None,
+           x_T: torch.Tensor | None = None,
+           noise: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
+        if sampler == "ddim":
+            return palette.ddim_sample_loop(
+                sched, denoise, cond, generator, ddim_steps=ddim_steps,
+                eta=eta, clip_denoised=clip_denoised, y_T=x_T, noise=noise)
+        return palette.p_sample_loop(sched, denoise, cond, generator,
+                                     clip_denoised=clip_denoised, y_T=x_T,
+                                     noise=noise)
+
+    return fn
 
 
 def draw_x_T(cond: torch.Tensor, out_channels: int,
@@ -207,7 +283,7 @@ def make_sample_fn(
     """
     if patch_params:
         raise NotImplementedError(
-            "split-input (patched) sampling is not ported yet (ROADMAP A17)"
+            "split-input (patched) sampling is not ported yet (ROADMAP A17b)"
         )
     dpm_family = ("dpm", "dpm_solver", "dpm_singlestep", "dpm_adaptive")
     # raises ValueError for an unknown name

@@ -4,8 +4,13 @@ logs, validation and volume prediction.
 Port of the JAX package's ``train/trainer.py`` ``Trainer`` on one card:
 the K-fold patient split and loaders (``_setup_data``), the net_mode /
 schedule / variance defaults, ``TaskConfig``, the model build (bf16 compute
-over f32 master parameters, ``remat``; ``ds_diff_gaussian`` and the
-cached-condition ``ds_diff_split``), the cosine learning rate over
+over f32 master parameters, ``remat``) for every denoiser the run config
+names: ``ds_diff_gaussian``, the cached-condition ``ds_diff_split``,
+``ddpm`` (UNet), ``disc_diff`` (DiscUNet, one stream per input channel,
+with its com/dist loss) and ``dit`` (DiT, sized by ``ViT_config``); the
+gamma-conditioned ``palette`` pipeline (its own train and test schedules,
+the denoiser given ``gamma * 1000``, DDIM or ancestral sampling); the
+cosine learning rate over
 ``len(train_loader)`` steps an epoch, AdamW, the EMA, the schedule sampler,
 the train step, ``fit`` (shannon curriculum, logging, validation and
 checkpoints with best-val-SSIM retention), every sampler over the EMA
@@ -31,7 +36,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..core import process, sampling, schedules
+from ..core import palette, process, sampling, schedules
 from ..data import h5store
 from ..data.npy_dataset import NpyCaseDataset
 from ..data.pipeline import BatchLoader, SliceDataset
@@ -48,6 +53,8 @@ from .state import TrainState, cosine_lr, make_optimizer
 from .step import (
     TaskConfig,
     draw_x_T,
+    make_palette_sample_fn,
+    make_palette_train_step,
     make_sample_fn,
     make_train_step,
     make_val_metrics,
@@ -90,21 +97,37 @@ _DROPPED_MODEL_KEYS = (
 
 def model_params(cfg: Config, model_name: str, n_cond: int,
                  use_edge=False) -> dict:
-    """``build_model``'s keyword arguments for a run config: the
-    ``unet_config`` parameters that describe this package's module, the
-    input channels (noise + ``n_cond`` conditions), the output channels
-    (doubled by ``learn_sigma``), the compute dtype (bf16 over f32 master
-    parameters unless ``bf16: false``; GroupNorm in f32) and ``remat``."""
+    """``build_model``'s keyword arguments for a run config: the input
+    channels (noise + ``n_cond`` conditions), the output channels (doubled
+    by ``learn_sigma``), the compute dtype (bf16 over f32 master parameters
+    unless ``bf16: false``; norms in f32) and, by model, as the JAX trainer
+    builds it: for ``dit`` the ``ViT_config`` sizes; for the U-Nets the
+    ``unet_config`` parameters that describe this package's module and
+    ``remat``, except ``disc_unet``, which takes one stream per input
+    channel and no ``remat``."""
+    in_ch = 1 + n_cond
+    out_ch = int(cfg.get("output_ch", 1)) * (
+        2 if bool(cfg.get("learn_sigma", False)) else 1)
+    dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
+    if model_name == "dit":
+        vit = dict(cfg.get_path("ViT_config.params", {}) or {})
+        return dict(
+            input_size=int(vit.get("input_size", cfg.get("image_size", 256))),
+            patch_size=int(vit.get("patch_size", 8)),
+            in_channels=in_ch, out_channels=out_ch, dtype=dtype,
+            hidden_size=int(vit.get("hidden_size", 768)),
+            depth=int(vit.get("depth", 12)),
+            num_heads=int(vit.get("num_heads", 12)),
+        )
     params = dict(cfg.get_path("unet_config.params", {}) or {})
     for drop in _DROPPED_MODEL_KEYS:
         params.pop(drop, None)
+    if model_name == "disc_unet":
+        return dict(params, n_streams=in_ch, out_channels=out_ch, dtype=dtype)
     if model_name in ("dsunet", "dsunet_split"):
         params.setdefault("model_channels", 96)
         params.setdefault("use_edge", bool(use_edge))
-    out_ch = int(cfg.get("output_ch", 1)) * (
-        2 if bool(cfg.get("learn_sigma", False)) else 1)
-    return dict(params, in_channels=1 + n_cond, out_channels=out_ch,
-                dtype=torch.bfloat16 if cfg.get("bf16", True) else torch.float32,
+    return dict(params, in_channels=in_ch, out_channels=out_ch, dtype=dtype,
                 remat=bool(cfg.get("remat", False)))
 
 
@@ -134,8 +157,12 @@ class Trainer:
       ``order``, ``method``, ``skip_type``, ``algorithm_type``);
       ``set_sampler`` changes it. ``ds_diff_split`` serves through the
       cached-condition sampler unless ``cached_cond_sampling`` is false.
+      ``palette`` owns its sampler: DDIM-``sample_steps`` with ``ddim_eta``
+      over the test gamma schedule for 'ddim', the ancestral loop over all
+      its steps for any other name.
     - ``progressive_denoise(cond, generator=None, x_T=None)``: DDIM with
-      every step's x0 prediction kept.
+      every step's x0 prediction kept (not for ``ds_diff_split`` and
+      ``palette``).
     - ``val_metrics(pred, target, valid=None)``: SSIM, MAE, PSNR.
     - ``fit``, ``validate``, ``predict`` and ``ckpt`` (a
       ``CheckpointManager``): as the JAX package's.
@@ -153,9 +180,9 @@ class Trainer:
 
         net_mode = cfg.get("net_mode", "ds_diff_gaussian")
         model_name, feature_kind = FEATURE_KINDS.get(net_mode, (net_mode, None))
-        if net_mode in ("latent", "palette", "diffusion"):
+        if net_mode == "latent":
             raise NotImplementedError(
-                f"net_mode '{net_mode}' is not ported yet (ROADMAP A17)"
+                f"net_mode '{net_mode}' is not ported yet (ROADMAP A17b)"
             )
         self.keys = list(cfg.get("train_keys",
                                  ["F_Data1", "F_Data2", "S_Data1", "S_Data2"]))
@@ -254,14 +281,19 @@ class Trainer:
         self.sampler_state = ss.make_schedule_sampler(
             cfg.get("schedule_sampler", "uniform"), T, device=self.device
         )
-        self._train_step = make_train_step(self.task, self.sched)
         self.val_metrics = make_val_metrics()
-
-        # ---- samplers over the EMA weights
         samp = cfg.get("sampler_setting", {}) or {}
         self.sample_steps = int(samp.get("sample_steps", 20))
         self.sampler_name = samp.get("sampler", "ddim")
         self.eta = float(samp.get("ddim_eta", 0.0))
+        self.palette = net_mode in ("palette", "diffusion")
+        if self.palette:
+            self._setup_palette_schedules()
+            self._train_step = make_palette_train_step(self.gs_train)
+        else:
+            self._train_step = make_train_step(self.task, self.sched)
+
+        # ---- samplers over the EMA weights
         # the serving copy: compute-dtype weights, filled from the EMA
         self.sample_model = hold_in_compute_dtype(
             copy.deepcopy(self.model).requires_grad_(False)
@@ -432,10 +464,33 @@ class Trainer:
             device=self.device,
         )
 
+    def _setup_palette_schedules(self) -> None:
+        """The Palette pipeline's train and test gamma schedules
+        (``palette.train_schedule`` / ``test_schedule``)."""
+        cfg = self.cfg
+        train = dict(cfg.get_path("palette.train_schedule", {}) or {})
+        test = dict(cfg.get_path("palette.test_schedule", {}) or {})
+        self.gs_train = palette.GammaSchedule.create(
+            n_timestep=int(train.get("n_timestep", 2000)),
+            linear_start=float(train.get("linear_start", 1e-6)),
+            linear_end=float(train.get("linear_end", 0.01)),
+            device=self.device,
+        )
+        self.gs_test = palette.GammaSchedule.create(
+            n_timestep=int(test.get("n_timestep", 1000)),
+            linear_start=float(test.get("linear_start", 1e-4)),
+            linear_end=float(test.get("linear_end", 0.09)),
+            device=self.device,
+        )
+
     def _build_sampler(self, cached: bool, solver_options: dict) -> None:
         """(Re)build ``_sample`` over ``rsched`` from the current sampler
         name, step count and eta; the progressive-denoise loop follows."""
-        if cached:
+        if self.palette:
+            self._sample = make_palette_sample_fn(
+                self.sample_model, self.gs_test, self.sampler_name,
+                self.sample_steps, self.eta)
+        elif cached:
             self._sample = self._make_cached_sample_fn(self.rsched)
         else:
             samp = self.cfg.get("sampler_setting", {}) or {}
@@ -472,6 +527,8 @@ class Trainer:
             raise NotImplementedError(
                 "int8 serving is not ported yet (ROADMAP A16)"
             )
+        if self.palette:
+            raise ValueError("palette owns its own sampler")
         if sampler is not None:
             self.sampler_name = sampler
         if sample_steps is not None:
@@ -511,8 +568,10 @@ class Trainer:
     def _make_denoise_row_fn(self):
         """DDIM over ``rsched`` that keeps every step's x0 prediction;
         ``None`` for ``ds_diff_split`` (the cached-condition sampler has its
-        own closure)."""
-        if self.cfg.get("net_mode") == "ds_diff_split":
+        own closure) and for ``palette`` (its denoiser is conditioned on
+        gamma, not on ``rsched``'s timesteps; the JAX package's image dump
+        skips its row too)."""
+        if self.cfg.get("net_mode") == "ds_diff_split" or self.palette:
             return None
         model = self.sample_model
         task = self.task

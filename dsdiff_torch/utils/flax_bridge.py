@@ -9,6 +9,8 @@ level included). Leaves translate as:
 - conv ``kernel`` HWIO -> ``weight`` OIHW,
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in],
 - norm ``scale`` -> ``weight``; ``bias`` unchanged;
+- ``Embed``'s ``embedding`` [num, features] -> ``nn.Embedding``'s
+  ``weight``, the same layout;
 - under a stacked subtree (``stream_mode='vmap'``: ``encoders``,
   ``cond_encoders``) every leaf keeps its leading stream axis, and the
   target parameter's rank says which layout a kernel has.
@@ -45,7 +47,8 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "embedding": "weight"}
 
 
 def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int) -> np.ndarray:
@@ -125,8 +128,10 @@ def random_params(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter with seeded, scaled normals, in place.
 
     Weights get ``N(0, 1/fan_in)``, norm scales ``1 + N(0, 0.1²)`` and biases
-    ``N(0, 0.1²)``, so the zero-initialised output layers are not zero and a
-    random model's output depends on every layer. Drawn on the CPU from a
+    ``N(0, 0.1²)``, so the zero-initialised layers (every ``OutHead``, the
+    ResBlocks' second conv, DiT's ``adaLN``, ``final_adaLN`` and
+    ``final_proj``) are not zero and a random model's output depends on
+    every layer. Drawn on the CPU from a
     ``torch.Generator`` in name order, so the fill is the same on any device.
     Parameters under the model's ``stacked_prefixes`` carry a leading stream
     axis, and each stream's slice is filled by the same rules.

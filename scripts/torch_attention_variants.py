@@ -10,7 +10,7 @@ their times count) and design alternatives. Each variant edits one route
 (bf16 ``wgmma`` or f32 ``tf32x3``) and is graph-timed
 (``chip_smoke.time_ms_graph``, inputs rotated through device memory) beside
 the package's kernel and ``scaled_dot_product_attention`` at the flagship's
-attention shapes in that dtype, in turns: package, variants, variants
+and the other families' attention shapes in that dtype, in turns: package, variants, variants
 reversed, package. Every variant's largest error against the plain version
 is printed. Then times the host side of one call at ``[4, 64, 6, 48]``: the
 wrapper, its checks, the C entry with (bf16) and without (f32) the three
@@ -35,7 +35,9 @@ from dsdiff_torch.ops import _build  # noqa: E402
 from dsdiff_torch.ops import flash_attention as fa  # noqa: E402
 
 SHAPES = [(4, 1024, 4, 48), (8, 1024, 4, 48), (16, 1024, 4, 48),
-          (4, 256, 6, 48), (4, 64, 6, 48)]
+          (4, 256, 6, 48), (4, 64, 6, 48),
+          # the disc_diff / palette U-Nets' and DiT-B's
+          (4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 12, 64)]
 BF16, F32 = torch.bfloat16, torch.float32
 # name -> (edits of the source, whether the output is still right, dtype
 # of the route it edits)
@@ -47,8 +49,8 @@ VARIANTS = {
                  "(fmaf(sc[4 * i + 2 * r + 1], scale_log2")], False, BF16),
     "no_qk": ([("      wgmma_ss(sc, q_desc", "      if (D < 0) wgmma_ss(sc, q_desc")],
               False, BF16),
-    "no_pv": ([("      wgmma_rs(acc, p[4 * kk]", "      if (D < 0) wgmma_rs(acc, p[4 * kk]")],
-              False, BF16),
+    "no_pv": ([("        wgmma_rs(acc[a], p[4 * kk]",
+                "        if (D < 0) wgmma_rs(acc[a], p[4 * kk]")], False, BF16),
     # K/V tiles loaded once into the ring and reused: no refills, no waits
     "no_refill": ([("if (tid == 0 && j + STAGES < ntiles) {",
                     "if (tid == 0 && j + STAGES < ntiles && D < 0) {"),
@@ -59,15 +61,14 @@ VARIANTS = {
                 "mt * scale_log2);\n      alpha[r] = exp2f("),
                ("const float p0 = exp2_ftz(", "const float p0 = exp2f("),
                ("            exp2_ftz(fmaf(", "            exp2f(fmaf(")], True, BF16),
-    # a four-stage ring: 74,752 B of shared memory, opted in above 48 KB
-    "stages_4": ([("constexpr int STAGES = 2;", "constexpr int STAGES = 4;"),
-                  ('static_assert(SMEM_BYTES <= 48 * 1024, "above 48 KB needs an opt-in");\n', ""),
-                  ("  attn_fwd_wgmma<KSTEPS><<<grid, WG, SMEM_BYTES, st>>>(",
-                   "  cudaFuncSetAttribute(attn_fwd_wgmma<KSTEPS>,\n"
-                   "                       cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
-                   "                       SMEM_BYTES);\n"
-                   "  attn_fwd_wgmma<KSTEPS><<<grid, WG, SMEM_BYTES, st>>>(")], True,
-                 BF16),
+    # a four-stage ring at D <= 64: 74,752 B of shared memory, opted in above
+    # 48 KB
+    "stages_4": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
+                   "constexpr int wg_stages(int na) { return na == 1 ? 4 : 1; }")],
+                 True, BF16),
+    # two stages above D=64 too: 121 KB at D=192, one block an SM
+    "wide_stages_2": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
+                        "constexpr int wg_stages(int na) { return 2; }")], True, BF16),
     # f32: one TF32 pass (hi * hi only), which prices the two extra passes;
     # its error shows why the route needs them
     "f32_one_pass": ([("  mma_tf32(d, a_lo, b0_hi, b1_hi);\n"

@@ -60,3 +60,34 @@ def test_the_entry_points_train_resume_and_sample(store, tmp_path):
     assert all(np.isfinite(v) for k, v in rows[0].items() if k != "case")
     with pytest.raises(SystemExit):
         train_cli.main([])  # --config_file is required
+
+
+def test_the_entry_points_train_and_sample_a_ddpm_run(store, tmp_path):
+    """A non-DS net_mode through the same entry points: ``ddpm`` (the plain
+    conditional UNet, eps and L2 as configs/ddpm.yaml sets them)."""
+    import yaml
+
+    cfg = tiny_cfg()
+    cfg.update(net_mode="ddpm", parameterization="eps", loss_type="l2",
+               learn_sigma=False, disentangle_distance=None,
+               unet_config={"params": dict(
+                   model_channels=32, num_res_blocks=1,
+                   attention_resolutions=[2], channel_mult=[1, 2],
+                   num_head_channels=16, use_scale_shift_norm=True)},
+               h5_2d_img_dir=str(store / "data"), image_size=16,
+               train_keys=["A", "B", "C", "GT"], train_batch_size=2,
+               val_batch_size=2, fold_K=2, fold_idx=0, limit_val_batches=1,
+               result_path=str(tmp_path / "results"), log_images=False,
+               filepath_img=str(store / "gt"), Task_name="synth")
+    path = tmp_path / "ddpm.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    assert train_cli.main(["--config_file", str(path), "--max_steps", "1",
+                           "--device", "cpu"]) == 1
+    workdir = tmp_path / "results" / "synth_r1_ddpm_fold2-0"
+    assert "model unet:" in (workdir / "log_txt.txt").read_text()
+    assert sorted(p.name for p in (workdir / "checkpoint").iterdir()) == ["1"]
+    out_dir, rows = sample_cli.main(["--config_file", str(path), "--workdir",
+                                     str(workdir), "--device", "cpu",
+                                     "--sample_steps", "2"])
+    assert len(rows) == 1 and (out_dir / "metrics.csv").exists()
+    assert all(np.isfinite(v) for k, v in rows[0].items() if k != "case")

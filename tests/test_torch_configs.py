@@ -52,6 +52,34 @@ def test_port_model_matches_the_jax_parameter_count(run, model, width, hw):
     assert n_port == sum(s.size for s in jax.tree.leaves(shapes))
 
 
+@pytest.mark.parametrize("net_mode, model, millions", [
+    ("ddpm", "ddpm.yaml", 47.55),
+    ("disc_diff", "disc_diff.yaml", 250.83),
+    ("palette", "palette.yaml", 142.43),
+    ("dit", "dsdiff_gaussian.yaml", 129.81),
+])
+def test_other_families_match_the_jax_parameter_count(net_mode, model,
+                                                      millions):
+    """The other denoisers the run config names, built as each trainer
+    builds them (DiscUNet one stream per input channel, DiT sized by
+    ``ViT_config``); ``ddpm.yaml`` sets no net_mode, so the run sets it."""
+    cfg = load_run_config(CONFIGS / "train_config.yaml", CONFIGS / model,
+                          overrides={"net_mode": net_mode})
+    name, _ = FEATURE_KINDS[net_mode]
+    params = model_params(cfg, name, len(cfg.get("train_keys")) - 1)
+    with torch.device("meta"):
+        port = build_model(name, device="meta", **params)
+    assert all(p.is_meta for p in port.parameters())
+    n_port = sum(p.numel() for p in port.parameters())
+
+    jm = jax_build_model(name, **dict(params, dtype=jnp.bfloat16))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 256, 256, 4), jnp.float32),
+                            jnp.zeros((1,), jnp.float32))
+    assert n_port == sum(s.size for s in jax.tree.leaves(shapes))
+    assert round(n_port / 1e6, 2) == millions
+
+
 # the keys the fit, validate and predict path reads beyond the model's
 FIT_KEYS = ("Task_name", "Task_id", "fold_K", "fold_idx", "train_batch_size",
             "val_batch_size", "image_size", "val_step", "augmentation_prob",
@@ -72,3 +100,29 @@ def test_smoke_fit_config_is_the_flagship_config_but_its_cuts():
     for key, (full, cut) in chip_smoke.FIT_CUTS.items():
         assert yaml_cfg.get(key, full) == full and fit[key] == cut, key
     assert chip_smoke.FIT_BATCH == 32 and chip_smoke.VAL_BATCH == 8
+
+
+def test_smoke_families_are_the_config_files_and_their_attention_calls():
+    """chip_smoke's families phase runs each family's config file as a user
+    would, and its expected attention calls a forward are the attention
+    blocks of the model built from that file (16 / 12 / 6 / 12)."""
+    import chip_smoke
+
+    from dsdiff_torch.models.attention import AttentionBlock
+
+    want = {"ddpm": 16, "disc_diff": 12, "palette": 6, "dit": 12}
+    for net_mode, yaml_name, shapes in chip_smoke.FAMILIES:
+        cfg = chip_smoke.family_config(net_mode, yaml_name)
+        assert cfg["net_mode"] == net_mode and cfg["image_size"] == 256
+        name, _ = FEATURE_KINDS[net_mode]
+        with torch.device("meta"):
+            model = build_model(name, device="meta", **model_params(
+                cfg, name, len(cfg["train_keys"]) - 1))
+        blocks = sum(isinstance(m, AttentionBlock) for m in model.modules())
+        if net_mode == "dit":
+            blocks = model.depth
+            assert (model.pos_embed.shape[0], model.block_0.heads,
+                    model.block_0.hidden // model.block_0.heads) == shapes[0][:3]
+        assert blocks == sum(c for *_, c in shapes) == want[net_mode]
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "kernels,nothing"])

@@ -116,7 +116,7 @@ def _bf16_misaligned():
     "make, err, match",
     [
         (lambda: [torch.zeros(1, 8, 2, 8)] * 3, ValueError, "CUDA"),
-        (lambda: [torch.zeros(1, 8, 2, 80)] * 3, ValueError, "head dim"),
+        (lambda: [torch.zeros(1, 8, 2, 264)] * 3, ValueError, "head dim"),
         (lambda: [torch.zeros(1, 8, 2, 8, dtype=torch.float16)] * 3, TypeError,
          None),
         (lambda: [torch.zeros(8, 2, 8)] * 3, ValueError, None),  # rank
@@ -143,6 +143,22 @@ def test_bf16_refusals_do_not_touch_the_qkv_thirds():
         qkv = torch.zeros(2, 40, 3, heads, D, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="CUDA device"):
             PF.flash_attention(*qkv.unbind(2))
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 4, 192), (2, 64, 2, 256),
+                                   (2, 1024, 12, 64), (1, 70, 2, 72)])
+def test_wrapper_takes_head_dims_up_to_256(shape):
+    """The head dims of the TPU kernel's gate (up to 256; 192 in the
+    disc_diff and palette U-Nets, 64 in DiT-B, 72 in DiT-XL) pass every
+    check of both routes, as strided qkv thirds, and fail only for want of
+    a CUDA device; 264 is refused."""
+    B, N, H, D = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros(B, N, 3, H, D, dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA device"):
+            PF._check(*qkv.unbind(2))
+    with pytest.raises(ValueError, match="outside 1..256"):
+        PF._check(*[torch.zeros(B, N, H, 264)] * 3)
 
 
 GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
@@ -182,7 +198,35 @@ def test_cuda_kernel_matches_plain_version(B, N, M, H, D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [7, 12, 20])
+@pytest.mark.parametrize(
+    "B, N, M, H, D",
+    [(2, 1024, 1024, 4, 192), (2, 1024, 1024, 12, 64), (1, 130, 200, 2, 72),
+     (1, 1000, 77, 2, 96), (1, 77, 300, 2, 256), (1, 64, 64, 1, 128),
+     (1, 100, 1, 2, 160), (1, 65, 129, 1, 200)],
+)
+def test_cuda_kernel_takes_head_dims_up_to_256(B, N, M, H, D, dtype):
+    """Every head dim the TPU kernel takes, on both routes, as strided
+    thirds: bf16 reads ceil(D/64) swizzle atoms a row (its k-steps cross
+    atoms, one PV product per atom), f32 rounds D up to 96, 128, 192 or 256
+    with Q left in shared memory; ragged N and M tails included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(N * 7 + M + D)
+    q = torch.randn(B, N, 3, H, D, generator=g, device="cuda",
+                    dtype=dtype).unbind(2)[0]
+    _, k, v = torch.randn(B, M, 3, H, D, generator=g, device="cuda",
+                          dtype=dtype).unbind(2)
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (B, N, H, D) and err <= GPU_TOL[dtype], (D, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 12, 20, 100, 250])
 def test_cuda_kernel_takes_head_dims_that_are_not_multiples_of_8(D, dtype):
     """q, k, v cut from a buffer whose head width is padded to a multiple
     of 8, so the bf16 stride rule holds while D itself does not."""
@@ -228,7 +272,8 @@ def test_cuda_kernel_gradient_matches_plain_version(dtype, atol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_with_one_hot_v_returns_p(dtype):
+@pytest.mark.parametrize("D", [48, 192])
+def test_cuda_kernel_with_one_hot_v_returns_p(dtype, D):
     """v[m] = e_(m mod D), so out[n, d] sums P[n, m] over keys m = d mod D:
     a key that the second product took in another order than the first
     (the routes permute the keys of each 8- or 16-key step between S's
@@ -236,7 +281,7 @@ def test_cuda_kernel_with_one_hot_v_returns_p(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, N, M, H, D = 2, 70, 200, 2, 48
+    B, N, M, H = 2, 70, 200, 2
     g = torch.Generator(device="cuda").manual_seed(7)
     q = torch.randn(B, N, H, D, generator=g, device="cuda", dtype=dtype)
     k = torch.randn(B, M, H, D, generator=g, device="cuda", dtype=dtype)

@@ -160,8 +160,10 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         Trainer(dict(tiny_cfg(), device_data_cache=True), tmp_path,
                 device="cpu").fit()
+    with pytest.raises(NotImplementedError, match="A17b"):
+        Trainer(dict(tiny_cfg(), net_mode="latent"), device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
-        Trainer(dict(tiny_cfg(), net_mode="disc_diff"), device="cpu")
+        Trainer(dict(tiny_cfg(), net_mode="medseg_v1"), device="cpu")
 
 
 # ------------------------------------------------ every way the model serves
