@@ -38,7 +38,17 @@ then drives the main path in both directions:
   its config's full width and 256²: full-width f32 and bf16 forwards with
   the attention kernel against plain attention, one request through
   ``Trainer.sample_fn`` and three bf16 train steps through
-  ``Trainer.train_step``.
+  ``Trainer.train_step``;
+- the latent pipeline (``latent``): the attention kernel at the KL-VAE's
+  single 512-wide head and the latent UNet's shapes, full-width f32 and
+  bf16 parity of the VAE's encode and decode and of the latent UNet, the
+  VAE's GAN training through ``VaeTrainer`` (configs/autoencoder_kl.yaml,
+  batch 8 at 256², ``disc_start`` cut to 0) with a checkpoint and
+  ``reconstruction_metrics``, the same through ``python -m
+  dsdiff_torch.cli.train_vae``, then the latent ``Trainer``
+  (configs/train_config.yaml + latent.yaml at batch 8) on that checkpoint:
+  ``fit``, one DDIM-20 request decoded to 256² and
+  ``progressive_denoise``.
 
 ``python3 chip_smoke.py --phases kernels,families`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
@@ -72,6 +82,7 @@ from dsdiff_torch.data.nifti import Nifti, read_nifti, write_nifti
 from dsdiff_torch.models import attention as attention_module
 from dsdiff_torch.models import build_model
 from dsdiff_torch.models import dit as dit_module
+from dsdiff_torch.models import vae as vae_module
 from dsdiff_torch.models.attention import AttentionBlock
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
@@ -80,6 +91,7 @@ from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.step import TaskConfig, train_loss
 from dsdiff_torch.train.surgery import convert_stream_layout
 from dsdiff_torch.train.trainer import FEATURE_KINDS, Trainer, model_params
+from dsdiff_torch.train.vae_loop import VaeTrainer
 from dsdiff_torch.utils.device import disable_tf32
 from dsdiff_torch.utils.flax_bridge import flax_to_state_dict, random_params
 
@@ -215,6 +227,31 @@ FAMILY_TRAIN_STEPS = 3
 FAMILY_KERNEL_BATCHES = (SERVE_BATCH, 8)
 HEAD_DIM_HELD = [("DiT-XL/8 at 256²", (1024, 16, 72)),
                  ("D = 96", (1024, 8, 96)), ("D = 256", (1024, 3, 256))]
+
+# the latent pipeline: the KL-VAE of configs/autoencoder_kl.yaml, whose
+# bottleneck attention (encoder and decoder, one call each) is one head over
+# 512 channels at 32² tokens for 256² images, and the latent UNet of
+# configs/train_config.yaml + latent.yaml over 32² latents (C = 192,
+# channel_mult (1, 2, 4), attention at rates 1, 2 and 4 in 64-channel
+# heads: 2 a level in the encoder, the middle's, 3 a level in the decoder)
+VAE_ATTENTION = (1024, 1, 512)
+LATENT_ATTENTION_CALLS = [(1024, 3, 64, 5), (256, 6, 64, 5), (64, 12, 64, 6)]
+LATENT_CALLS_PER_FORWARD = sum(c for *_, c in LATENT_ATTENTION_CALLS)  # 16
+LATENT_N_COND = 3  # configs/train_config.yaml's four train_keys
+# a latent request: the UNet at each step, each condition encoded, one
+# decode; a latent train step: the conditions and the target encoded
+LATENT_REQUEST_CALLS = (DDIM_STEPS * LATENT_CALLS_PER_FORWARD
+                        + LATENT_N_COND + 1)                       # 324
+LATENT_STEP_CALLS = LATENT_N_COND + 1 + LATENT_CALLS_PER_FORWARD  # 20
+# a VAE GAN step: encode + decode in the AE step and in the disc step
+VAE_STEP_CALLS = 4
+VAE_TRAIN_STEPS = LATENT_TRAIN_STEPS = 3
+VAE_BATCH = 8  # configs/autoencoder_kl.yaml's train_batch_size
+# what the latent phase cuts of the configs' runs, each printed
+VAE_CUTS = {"disc_start": (50001, 0)}
+LATENT_CUTS = {"train_batch_size": (32, 8), "limit_val_batches": (8, 1),
+               "log_images": (True, False)}
+LATENT_KERNEL_BATCHES = (SERVE_BATCH, VAE_BATCH)
 
 TRAIN_BATCH = 8  # bench.py's train batch
 # the fit phase: the flagship config's own train batch, on a synthetic store
@@ -585,9 +622,10 @@ def phase_norm_op():
 
 
 def _with_plain_attention(fn):
-    """``fn()`` with the models' attention (the U-Nets' AttentionBlock and
-    DiT's blocks) swapped for the plain version."""
-    modules = (attention_module, dit_module)
+    """``fn()`` with the models' attention (the U-Nets' AttentionBlock,
+    DiT's blocks and the KL-VAE's bottleneck) swapped for the plain
+    version."""
+    modules = (attention_module, dit_module, vae_module)
     kernel_attention = [m.scaled_attention for m in modules]
     for m in modules:
         m.scaled_attention = fa.reference_attention
@@ -1426,6 +1464,380 @@ def phase_families(smi: str) -> dict:
         print(f"[families] {net_mode} done in {time.perf_counter() - t0:.1f} s")
     return launches
 
+def latent_configs(root: Path, workdir: Path):
+    """configs/autoencoder_kl.yaml and configs/train_config.yaml +
+    latent.yaml, as a user runs them, on the synthetic npy store ``root``
+    with VAE_CUTS and LATENT_CUTS; the latent run's ``vae_checkpoint`` is
+    the VAE run's checkpoint directory under ``workdir``."""
+    data = dict(h5_2d_img_dir=str(root), data_store="npy", train_keys=FIT_KEYS,
+                seed=SEED)
+    vae = load_run_config(CONFIGS / "autoencoder_kl.yaml", overrides=dict(
+        data, result_path=str(workdir),
+        **{k: cut for k, (_, cut) in VAE_CUTS.items()}))
+    latent = load_run_config(
+        CONFIGS / "train_config.yaml", CONFIGS / "latent.yaml",
+        overrides=dict(data, vae_checkpoint=str(workdir / "vae" / "checkpoint"),
+                       **{k: cut for k, (_, cut) in LATENT_CUTS.items()}))
+    return vae, latent
+
+
+def _latent_kernel_rows(card: str) -> list:
+    """Kernel vs plain, timed, at the VAE's [B, 1024, 1, 512] and the
+    latent UNet's three shapes, at B = 4 (a request's) and 8 (the VAE
+    trainer's, the latent trainer's and its validation's), in both
+    dtypes."""
+    disable_tf32()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch in LATENT_KERNEL_BATCHES:
+            rows.append(dict(_attention_row(gen, batch, *VAE_ATTENTION, dtype,
+                                            None, card), latent="vae"))
+            for N, H, D, calls in LATENT_ATTENTION_CALLS:
+                rows.append(dict(_attention_row(gen, batch, N, H, D, dtype,
+                                                calls, card), latent="unet"))
+    return rows
+
+
+def _latent_parity(latent_cfg) -> None:
+    """Full width, kernel vs plain attention, f32 with TF32 off and bf16:
+    the KL-VAE's encode (moments) and decode at batch PARITY_BATCH, 256²,
+    one launch each, and the latent UNet forward on 32² latents, 16
+    launches; each within its tolerance of the output's largest
+    magnitude."""
+    disable_tf32()
+    fs = dict(latent_cfg.get_path("first_stage.params"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    x = torch.rand(PARITY_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                   device="cuda") * 2 - 1
+    lat = IMAGE // 8
+    z = torch.randn(PARITY_BATCH, lat, lat, fs["embed_dim"], generator=gen,
+                    device="cuda")
+    zx = torch.randn(PARITY_BATCH, lat, lat, 4 * fs["embed_dim"],
+                     generator=gen, device="cuda")
+    t = torch.tensor([17.0, 803.0], device="cuda")
+    for dtype, rtol in ((torch.float32, MODEL_RTOL),
+                        (torch.bfloat16, MODEL_BF16_RTOL)):
+        vae = random_params(build_model("autoencoder_kl", device="cuda",
+                                        dtype=dtype, **fs), SEED).eval()
+        params = dict(model_params(latent_cfg, "unet", LATENT_N_COND),
+                      dtype=dtype)
+        unet = random_params(build_model("unet", device="cuda", **params),
+                             SEED).eval()
+        runs = (("AutoencoderKL encode (mean, logvar)",
+                 lambda: _moments(vae, x), 1),
+                ("AutoencoderKL decode", lambda: vae.decode(z), 1),
+                ("latent UNet", lambda: unet(zx, t), LATENT_CALLS_PER_FORWARD))
+        name = str(dtype).split(".")[1]
+        for what, fn, calls in runs:
+            with torch.inference_mode():
+                before = fa.LAUNCHES
+                got = fn().float()
+                torch.cuda.synchronize()
+                launched = fa.LAUNCHES - before
+                want = _with_plain_attention(fn).float()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            tol = rtol * max(1.0, scale)
+            print(f"[latent] {what} {name} ({fa.ROUTES[dtype]} route): "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| "
+                  f"{scale:.3f}), {launched} kernel launches")
+            check(torch.isfinite(got).all().item(),
+                  f"{what} {name}: non-finite output")
+            check(launched == calls, f"{what} {name}: {launched} attention "
+                  f"launches, not {calls}")
+            check(err <= tol, f"{what} {name}: parity error {err} over {tol}")
+        del vae, unet
+        torch.cuda.empty_cache()
+
+
+def _moments(vae, x):
+    """The posterior's mean and log-variance, stacked."""
+    post = vae.encode(x)
+    return torch.stack([post.mean, post.logvar])
+
+
+def _vae_train(vae_cfg, workdir: Path, smi: str) -> dict:
+    """``VaeTrainer`` at the config's batch: VAE_TRAIN_STEPS GAN steps
+    through ``fit`` (disc_start cut to 0: the generator term and the disc
+    step run from the first step), every parameter of both networks moved,
+    d_weight finite, VAE_STEP_CALLS launches a step, a checkpoint, then
+    ``reconstruction_metrics``. Returns the launches."""
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    trainer = VaeTrainer(vae_cfg, workdir / "vae", device="cuda")
+    n_vae = sum(p.numel() for p in trainer.vae.parameters())
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    print(f"[latent] VaeTrainer: AutoencoderKL {n_vae / 1e6:.2f} M params, "
+          f"PatchDiscriminator {n_disc / 1e6:.2f} M, bf16, batch "
+          f"{trainer.batch_size} at {IMAGE}², {len(trainer.train_ds)} slices")
+    check(trainer.batch_size == VAE_BATCH, f"VAE batch {trainer.batch_size}")
+    start = [p.detach().clone() for p in trainer.vae_state.params]
+    dstart = [p.detach().clone() for p in trainer.disc_state.params]
+    log = []
+    for name in ("ae_step", "d_step"):
+        inner = getattr(trainer, name)
+
+        def timed(*args, _inner=inner, _name=name, **kw):
+            before = fa.LAUNCHES
+            t0 = time.perf_counter()
+            out = _inner(*args, **kw)
+            torch.cuda.synchronize()
+            log.append((_name, time.perf_counter() - t0,
+                        fa.LAUNCHES - before, out))
+            return out
+
+        setattr(trainer, name, timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    t0 = time.perf_counter()
+    step = trainer.fit(max_steps=VAE_TRAIN_STEPS, log_every=1)
+    fit_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"vae_train": fa.LAUNCHES}
+    ae = [(w, n, out[1]) for name, w, n, out in log if name == "ae_step"]
+    disc = [(w, n, out) for name, w, n, out in log if name == "d_step"]
+    for i, ((wa, na, m), (wd, nd, dm)) in enumerate(zip(ae, disc)):
+        vals = {k: float(v) for k, v in {**m, **dm}.items()}
+        print(f"[latent] VAE step {i + 1}: AE {wa * 1e3:.2f} ms + disc "
+              f"{wd * 1e3:.2f} ms, {na + nd} attention launches, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items())))
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"VAE step {i + 1}: non-finite metric {vals}")
+        check(vals["d_weight"] > 0, f"VAE step {i + 1}: d_weight {vals}")
+        check(na + nd == VAE_STEP_CALLS,
+              f"VAE step {i + 1}: {na + nd} attention launches")
+    step_s = statistics.median(wa + wd for (wa, _, _), (wd, _, _)
+                               in zip(ae[1:], disc[1:]))
+    # a tensor may have a gradient of exactly zero at every step, and then
+    # stays: the attention's key bias (q.(k + b) shifts a row's scores
+    # alike, which the softmax removes) and the discriminator's out-conv
+    # bias (while every logit lies in (-1, 1) the hinge loss's two terms
+    # pull it equally both ways). AdamW's first moment says which; a
+    # parameter outside the graph would have raised in autograd.grad
+    moved, zero_grad, unmoved = {}, {}, {}
+    for net, state, first in (("VAE", trainer.vae_state, start),
+                              ("discriminator", trainer.disc_state, dstart)):
+        zero_grad[net] = [n for n, mu in zip(state.names, state.tx.mu)
+                          if not mu.any()]
+        unmoved[net] = [n for n, a, p in zip(state.names, first, state.params)
+                        if torch.equal(a, p) and n not in zero_grad[net]]
+        moved[net] = sum(not torch.equal(a, p)
+                         for a, p in zip(first, state.params))
+    print(f"[latent] VAE fit: {step} steps in {fit_wall:.2f} s, step "
+          f"{step_s * 1e3:.2f} ms (median of steps 2-{step}, AE + disc), "
+          f"{VAE_BATCH / step_s:.3f} slices/s, peak {peak:.3f} GiB; "
+          f"parameter tensors moved: VAE {moved['VAE']}/{len(start)}, "
+          f"discriminator {moved['discriminator']}/{len(dstart)}; gradient "
+          f"exactly zero at every step: {zero_grad}; checkpoints "
+          f"{trainer.ckpt.all_steps()} [{smi}]")
+    check(step == VAE_TRAIN_STEPS and trainer.ckpt.latest_step() == step,
+          f"VAE fit ended at {step}, checkpoints {trainer.ckpt.all_steps()}")
+    check(not any(unmoved.values()), f"parameters with a gradient that did "
+          f"not move: {unmoved}")
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    rec = trainer.reconstruction_metrics(max_batches=1)
+    torch.cuda.synchronize()
+    launches["vae_reconstruct"] = fa.LAUNCHES - before
+    print(f"[latent] reconstruction_metrics (1 batch of {VAE_BATCH}): {rec} "
+          f"in {time.perf_counter() - t0:.2f} s, "
+          f"{launches['vae_reconstruct']} attention launches")
+    check(all(math.isfinite(v) for v in rec.values())
+          and launches["vae_reconstruct"] == 2, f"reconstruction {rec}")
+    return launches
+
+
+def _vae_cli(vae_cfg, workdir: Path) -> None:
+    """``python -m dsdiff_torch.cli.train_vae --max_steps 2``, no
+    ``--device``: the entry point trains on the card by default."""
+    # configs/autoencoder_kl.yaml as a user edits it: the top-level keys
+    # the phase changes replaced (strings, integers and lists, written as
+    # JSON, which YAML reads as written), the file otherwise as it is
+    source = CONFIGS / "autoencoder_kl.yaml"
+    want = dict(vae_cfg.to_dict(), result_path=str(workdir / "cli"))
+    file_cfg = load_run_config(source)
+    changed = {k: v for k, v in want.items() if file_cfg.get(k) != v}
+    lines = [line for line in source.read_text().splitlines()
+             if line.split(":", 1)[0] not in changed]
+    cfg_path = workdir / "autoencoder_kl_smoke.yaml"
+    cfg_path.write_text("\n".join(
+        lines + [f"{k}: {json.dumps(v)}" for k, v in changed.items()]) + "\n")
+    check(load_run_config(cfg_path) == want,
+          "the edited autoencoder_kl.yaml does not read back as the phase's "
+          "config")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "dsdiff_torch.cli.train_vae", "--config_file",
+         str(cfg_path), "--max_steps", "2"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    run = workdir / "cli" / f"{vae_cfg['Task_name']}_{vae_cfg['Task_id']}_vae"
+    saved = sorted(p.name for p in (run / "checkpoint").iterdir()) \
+        if (run / "checkpoint").exists() else []
+    print(f"[latent] python -m dsdiff_torch.cli.train_vae --max_steps 2: exit "
+          f"{out.returncode} in {time.perf_counter() - t0:.1f} s, "
+          f"'{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ''}'"
+          f", checkpoints {saved}")
+    check(out.returncode == 0, f"train_vae CLI failed: {out.stderr[-2000:]}")
+    check(saved == ["2"], f"train_vae CLI checkpoints {saved}")
+
+
+def _latent_trainer(latent_cfg, workdir: Path, smi: str) -> dict:
+    """The latent ``Trainer`` with the VAE phase's checkpoint as
+    ``vae_checkpoint``: LATENT_TRAIN_STEPS steps through ``fit`` at batch 8
+    (each batch encoded: LATENT_STEP_CALLS launches), then its validation (a
+    DDIM-20 batch of 8: the conditions encoded, the sample decoded,
+    LATENT_REQUEST_CALLS launches) and save; a second trainer that restores
+    that checkpoint bit for bit then serves one DDIM-20 request of batch
+    SERVE_BATCH through ``sample_images`` (LATENT_REQUEST_CALLS launches,
+    decoded to 256²) and ``progressive_denoise`` (as many). Returns the
+    launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    run = workdir / "latent"
+    trainer = Trainer(latent_cfg, run, device="cuda")
+    fs = trainer.first_stage
+    vae_state = torch.load(workdir / "vae" / "checkpoint"
+                           / str(VAE_TRAIN_STEPS) / "state.pt",
+                           map_location="cpu", weights_only=True)["params"]
+    # held in the compute dtype: the checkpoint's f32 weights, rounded
+    restored = all(torch.equal(p.cpu(), vae_state[n].to(p.dtype))
+                   for n, p in fs.vae.named_parameters())
+    print(f"[latent] Trainer: latent UNet {trainer.n_params / 1e6:.2f} M "
+          f"params, in {trainer.in_ch} / out {trainer.base_out} channels on "
+          f"{IMAGE // fs.downsample}² latents, bf16, remat; first stage from "
+          f"the VAE run's checkpoint/{VAE_TRAIN_STEPS} (its weights, in the "
+          f"compute dtype: {restored}), scale_factor {fs.scale_factor}")
+    check(trainer.in_ch == 4 * (1 + LATENT_N_COND) and trainer.base_out == 4,
+          "latent channels")
+    check(restored, "the first stage is not the VAE checkpoint's")
+    meter = _Meter(trainer)
+    encodes: list = []
+    fs.encode_batch = _Meter._wrap(fs.encode_batch, encodes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    step = trainer.fit(max_steps=LATENT_TRAIN_STEPS, log_every=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fit_launches = fa.LAUNCHES
+    rows = [json.loads(line) for line in (run / "logs" / "progress.jsonl")
+            .read_text().splitlines()]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    print(f"[latent] fit: {step} steps at batch {trainer.train_loader.batch_size}"
+          f": the batch's encode (conditions and target, "
+          f"{(LATENT_N_COND + 1) * trainer.train_loader.batch_size} VAE "
+          f"encoder passes at {IMAGE}²) " + ", ".join(
+              f"{w * 1e3:.2f} ms" for w, _ in encodes)
+          + "; the UNet train step " + ", ".join(
+              f"{w * 1e3:.2f} ms" for w, _ in meter.steps)
+          + f"; losses {losses}, peak {peak:.3f} GiB [{smi}]")
+    check(all(n == LATENT_N_COND + 1 for _, n in encodes),
+          f"latent encode launches {encodes}")
+    check(step == LATENT_TRAIN_STEPS and len(losses) == step
+          and all(math.isfinite(v) for v in losses), f"latent fit {rows}")
+    check(all(n == LATENT_CALLS_PER_FORWARD for _, n in meter.steps),
+          f"latent train step launches {meter.steps}")
+    train_launches = sum(n for _, n in encodes + meter.steps)
+    val_launches = fit_launches - train_launches
+    launches = {"latent_fit": train_launches, "latent_validate": val_launches}
+    check(train_launches == LATENT_TRAIN_STEPS * LATENT_STEP_CALLS,
+          f"latent fit: {train_launches} attention launches in train steps")
+    saved = json.loads((run / "checkpoint" / str(step) / "metrics.json")
+                       .read_text())
+    print(f"[latent] validate: {len(meter.samples)} DDIM-{DDIM_STEPS} batch "
+          f"of {latent_cfg.get('val_batch_size')} (its sampler "
+          + ", ".join(f"{w:.4f} s" for w, _ in meter.samples)
+          + f"), {val_launches} attention launches; saved step {step} with "
+          f"{saved} in " + ", ".join(f"{w:.2f} s" for w, _ in meter.saves)
+          + f" [{smi}]")
+    check(len(meter.samples) == 1 and val_launches == LATENT_REQUEST_CALLS,
+          f"latent validation: {meter.samples}, {val_launches} launches, not "
+          f"{LATENT_REQUEST_CALLS}")
+    check(trainer.ckpt.all_steps() == [step] and set(saved) == {
+        "val_ssim", "val_mae"} and all(math.isfinite(v)
+                                       for v in saved.values()),
+          f"latent checkpoints {trainer.ckpt.all_steps()}, metrics {saved}")
+
+    # a second trainer on the run: restore, then serve from it
+    resumed = Trainer(latent_cfg, run, device="cuda")
+    t0 = time.perf_counter()
+    resumed.state, resumed.sampler_state = resumed.ckpt.restore(
+        resumed.state, resumed.sampler_state)
+    restore_s = time.perf_counter() - t0
+    diff = _state_equal(trainer, resumed)
+    print(f"[latent] restored step {resumed.state.step} in {restore_s:.2f} s "
+          f"bit for bit: {not diff}")
+    check(not diff, f"the restored latent state differs at {diff[:4]}")
+    del trainer, meter
+    trainer = resumed
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cond = torch.rand(SERVE_BATCH, IMAGE, IMAGE, LATENT_N_COND, generator=gen,
+                      device="cuda") * 2 - 1
+    for what in ("request", "progressive_denoise"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        if what == "request":
+            out = trainer.sample_images(cond, gen)
+            frames = None
+        else:
+            out, frames = trainer.progressive_denoise(cond, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fa.LAUNCHES - before
+        launches[f"latent_{what}"] = launched
+        print(f"[latent] {what}: DDIM-{DDIM_STEPS}, batch {SERVE_BATCH}, "
+              f"{IMAGE}²: {wall:.4f} s, {SERVE_BATCH / wall:.3f} slices/s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              f"{launched} attention launches, decoded {tuple(out.shape)} "
+              f"in [{out.min().item():.4f}, {out.max().item():.4f}]"
+              + ("" if frames is None else
+                 f", {tuple(frames.shape)} latent x0 frames") + f" [{smi}]")
+        # the decoder's output is not clipped (nor is the JAX package's);
+        # DDIM clips each latent x0 to [-1, 1]
+        _check_sample(out, SERVE_BATCH, IMAGE, False, f"latent {what}")
+        check(launched == LATENT_REQUEST_CALLS, f"latent {what}: {launched} "
+              f"attention launches, not {LATENT_REQUEST_CALLS}")
+        if frames is not None:
+            check(frames.shape == (DDIM_STEPS, SERVE_BATCH, IMAGE // 8,
+                                   IMAGE // 8, 4), f"frames {frames.shape}")
+            check(frames.abs().max().item() <= 1.0,
+                  "latent x0 frames outside [-1, 1]")
+    return launches
+
+
+def phase_latent(smi: str):
+    """The latent pipeline at full width: kernel rows at its shapes,
+    kernel vs plain parity of the VAE and the latent UNet, the VAE's GAN
+    training (in process and through its CLI) on a synthetic npy store,
+    then the latent trainer on that VAE's checkpoint. Returns (kernel rows,
+    attention launches by path)."""
+    t_phase = time.perf_counter()
+    rows = _latent_kernel_rows(smi)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_latent_"))
+    try:
+        root = tmp / "data"
+        synthetic.make_structured_dataset(root, n_cases=FIT_CASES,
+                                          n_slices=FIT_SLICES, hw=IMAGE,
+                                          seed=SEED, store="npy")
+        vae_cfg, latent_cfg = latent_configs(root, tmp)
+        print("[latent] cuts: " + ", ".join(
+            f"{k} {a} -> {b}" for k, (a, b) in {**VAE_CUTS,
+                                                **LATENT_CUTS}.items())
+              + f"; {VAE_TRAIN_STEPS} VAE steps and {LATENT_TRAIN_STEPS} "
+              f"latent steps; train_keys are the synthetic store's A, B, C "
+              f"-> GT; vae_checkpoint is the VAE phase's")
+        _latent_parity(latent_cfg)
+        launches = _vae_train(vae_cfg, tmp, smi)
+        _vae_cli(vae_cfg, tmp)
+        launches.update(_latent_trainer(latent_cfg, tmp, smi))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[latent] done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
 
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
@@ -1440,13 +1852,24 @@ def _family_forward(rows, shapes, key):
     return sum(at[(N, H, D)][key] * calls for N, H, D, calls in shapes)
 
 
+def _latent_request(rows, key):
+    """Sum of ``key`` over one latent request (batch SERVE_BATCH, bf16):
+    the UNet's calls at each of the DDIM_STEPS steps, each condition's
+    encode and the decode."""
+    at = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+    unet = sum(at[(SERVE_BATCH, N, H, D)][key] * calls
+               for N, H, D, calls in LATENT_ATTENTION_CALLS)
+    vae = at[(SERVE_BATCH,) + VAE_ATTENTION][key]
+    return DDIM_STEPS * unet + (LATENT_N_COND + 1) * vae
+
+
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
-                 norm_launches: int) -> dict:
+                 norm_launches: int, latent_rows) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
     (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
-    each dtype, and the same for one forward of each other family.
-    GroupNorm+SiLU: one call at each flagship norm shape, batch
-    SERVE_BATCH, bf16."""
+    each dtype, and the same for one forward of each other family and for
+    one latent request. GroupNorm+SiLU: one call at each flagship norm
+    shape, batch SERVE_BATCH, bf16."""
     serve = [r for r in attn_rows if "families" not in r
              and r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
     ops_ms = sum(r["bound_ms"] * r["calls_per_forward"] for r in serve
@@ -1468,7 +1891,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows + latent_rows),
         "ms": _per_forward(serve, "ms"),
         "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
@@ -1479,6 +1902,12 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "per": f"one DSUNet forward, batch {SERVE_BATCH}, bf16, "
                f"{CALLS_PER_FORWARD} calls",
         "per_family_forward": per_family,
+        "per_latent_request": dict(
+            {k: _latent_request(latent_rows, k) for k in keys},
+            calls=LATENT_REQUEST_CALLS,
+            per=f"DDIM-{DDIM_STEPS}, batch {SERVE_BATCH}, bf16: the latent "
+                f"UNet's {LATENT_CALLS_PER_FORWARD} calls a step and "
+                f"{LATENT_N_COND + 1} VAE calls at {list(VAE_ATTENTION)}"),
     }, {
         "name": "group_norm_silu",
         "route": "cuda",
@@ -1499,7 +1928,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
     }]}
 
 
-PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "families")
+PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "families",
+          "latent")
 
 
 def main(argv=None) -> None:
@@ -1514,7 +1944,7 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
-    attn_rows = norm_rows = norm_launches = None
+    attn_rows = norm_rows = norm_launches = latent_rows = None
     attn_launches = {}
     walls = peaks = ()
     if "kernels" in phases:
@@ -1539,12 +1969,15 @@ def main(argv=None) -> None:
         attn_launches.update(phase_fit(smi))
     if "families" in phases:
         attn_launches.update(phase_families(smi))
+    if "latent" in phases:
+        latent_rows, latent_launches = phase_latent(smi)
+        attn_launches.update(latent_launches)
     print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
           f"passed in {time.perf_counter() - t0:.1f} s after the imports "
           f"[{smi}]")
     if len(set(phases)) == len(PHASES):
         print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
-                                      norm_launches)))
+                                      norm_launches, latent_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``models/wrapper.py``: ``MODEL_REGISTRY`` /
 ``build_model`` (the denoisers: ``unet``, ``dsunet``, ``dsunet_split``,
-``disc_unet``, ``dit`` and the DiT sizes by name; the VAE and the MedSegDiff
-models come with ROADMAP A17b) and ``conditioned_call``, the denoiser call
+``disc_unet``, ``dit`` and the DiT sizes by name, and the first stage
+``autoencoder_kl``; the MedSegDiff models come with ROADMAP A17b) and ``conditioned_call``, the denoiser call
 per conditioning mode, which returns whatever the model returns (a feature
 model's ``(out, features)`` tuple included).
 """
@@ -20,6 +20,7 @@ from .dit import DIT_CONFIGS, DiT, make_dit
 from .dsunet import DSUNet
 from .dsunet_cached import DSUNetSplit
 from .unet import UNet
+from .vae import AutoencoderKL
 
 __all__ = ["MODEL_REGISTRY", "build_model", "conditioned_call",
            "CONDITIONING_MODES"]
@@ -73,6 +74,7 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "dsunet_split": DSUNetSplit,
     "disc_unet": DiscUNet,
     "dit": DiT,
+    "autoencoder_kl": AutoencoderKL,
     **{name.lower(): (lambda n: (lambda **kw: make_dit(n, **kw)))(name)
        for name in DIT_CONFIGS},
 }

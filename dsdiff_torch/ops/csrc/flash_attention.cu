@@ -45,7 +45,17 @@
 //   thread (128 at D=256).
 // - Epilogue: O / l in f32, rounded to bf16, stored to the strided o; rows
 //   past N and columns past D are not stored.
-// It takes: D <= 256, 16-byte aligned bases, and batch, row and head strides
+// - Above D=256 (the VAE's single 512-wide head): O's 32 * NA registers would
+//   pass the 255 a thread may hold, so a block owns NV = NA / 2 atoms of O's
+//   columns, one grid dimension (z) over the two column slices. Each block
+//   computes the full-D scores (Q and K tiles of NA atoms, 6 up to D=384, 8
+//   up to 512) and multiplies P by its own slice of V only: the QK^T work
+//   and the Q/K reads are done twice, which at one head costs the second
+//   block's QK^T (half the operations of the call). Shared memory is one
+//   stage of Q (NA atoms), K (NA) and V (NV): 160 KB + 1 KB at D=512, one
+//   block an SM. Atoms of Q and K wholly past D (D=264 in 6 atoms) are never
+//   loaded by TMA: the block zeroes them once, so their k-steps add nothing.
+// It takes: D <= 512, 16-byte aligned bases, and batch, row and head strides
 // that are multiples of 8 elements (TMA's 16-byte stride rule); the Python
 // wrapper checks this. P enters the second product in bf16, as in
 // jax.nn.dot_product_attention (probabilities cast to the value dtype).
@@ -80,6 +90,15 @@
 //   in shared memory and each k-step's fragment is loaded and split once per
 //   K/V tile (the loop runs k-steps outside, the 8 key n-tiles inside), and
 //   the ring has one stage: three tiles, 150,528 B at D=192, 199,680 B at 256.
+// - Above D=256 (attn_fwd_tf32x3_wide) a Q tile and a K tile no longer fit
+//   beside each other (132,096 B each at D=512). DK is rounded up to 48 or 64;
+//   Q stays in shared memory, K is streamed in chunks of 64 columns (one
+//   17,408 B buffer, filled, waited on and consumed 8 k-steps at a time), and
+//   as on the bf16 route a block owns half of O's columns (DV = DK / 2 PV
+//   n-tiles, grid z over the two halves) and holds only that half of each V
+//   tile: 132,096 + 17,408 + 66,560 = 216,064 B at D=512 (166,912 B at 384).
+//   Both blocks of a Q tile compute the full scores; the copies are not
+//   overlapped with the products (a simple kernel first).
 //
 // Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 495 TF32, 3.35 TB/s),
 // batch 16, per call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D;
@@ -122,10 +141,12 @@ constexpr int TILE = 64;                     // Q rows, and keys per K/V tile
 constexpr int ATOM_BYTES = TILE * 64 * 2;    // 64 rows of one 128-byte atom
 // K/V ring depth for a tile NA atoms wide
 __host__ __device__ constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }
-// Q tile + the ring's K and V tiles, + 1024 to align the base
-__host__ __device__ constexpr int wg_smem_bytes(int na) {
-  return (1 + 2 * wg_stages(na)) * na * ATOM_BYTES + 1024;
+// Q tile (NA atoms) + the ring's K (NA) and V (NV) tiles, + 1024 to align the
+// base
+__host__ __device__ constexpr int wg_smem_bytes(int na, int nv) {
+  return (na + wg_stages(na) * (na + nv)) * ATOM_BYTES + 1024;
 }
+static_assert(wg_smem_bytes(8, 4) <= 232448, "D=512 tiles above the block limit");
 
 // Raise `kernel`'s dynamic shared memory cap to `smem` bytes where that is
 // above the default 48 KB, once per device (it costs microseconds of host
@@ -189,16 +210,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// the NA atoms of a tile's rows [row, row + 64): atom a holds columns
-// 64a..64a+63
-template <int NA>
+// `atoms` atoms of a tile's rows [row, row + 64) from column col0 on: atom a
+// holds columns col0 + 64a .. col0 + 64a + 63
 __device__ __forceinline__ void tma_load_tile(uint32_t dst,
                                               const CUtensorMap* map,
-                                              uint32_t bar, int h, int row,
+                                              uint32_t bar, int col0,
+                                              int atoms, int h, int row,
                                               int b) {
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-    tma_load(dst + a * ATOM_BYTES, map, bar, 64 * a, h, row, b);
+  for (int a = 0; a < atoms; ++a)
+    tma_load(dst + a * ATOM_BYTES, map, bar, col0 + 64 * a, h, row, b);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -288,8 +308,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Accumulator fragment of wgmma m64nN (f32), thread t of the warpgroup:
 // warp w = t / 32 owns rows 16w..16w+15; with g = (t % 32) / 4 and
 // c = 2 * (t % 4), element 4i + 2r + e is (row 16w + g + 8r, col 8i + c + e).
-// NA: 128-byte atoms a tile row spans; KSTEPS: k-steps of QK^T.
-template <int NA, int KSTEPS>
+// NA: 128-byte atoms a Q or K tile row spans; NV: atoms of O's columns this
+// block owns (NA, or NA / 2 above D=256, blockIdx.z picking the slice);
+// KSTEPS: k-steps of QK^T.
+template <int NA, int NV, int KSTEPS>
 __global__ void __launch_bounds__(WG)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -298,7 +320,9 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                Strides ost, float scale_log2) {
   constexpr int STAGES = wg_stages(NA);
   constexpr int TILE_BYTES = NA * ATOM_BYTES;
+  constexpr int V_BYTES = NV * ATOM_BYTES;
   static_assert(KSTEPS <= 4 * NA, "k-steps past the tile");
+  static_assert(NV == NA || 2 * NV == NA, "O's columns in one or two slices");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES + 1];  // K/V stages, then Q
 
@@ -306,7 +330,7 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_smem = base;
   const auto k_smem = [&](int s) { return base + (1 + s) * TILE_BYTES; };
   const auto v_smem = [&](int s) {
-    return base + (1 + STAGES + s) * TILE_BYTES;
+    return base + (1 + STAGES) * TILE_BYTES + s * V_BYTES;
   };
   const uint32_t bar0 = smem_u32(bars);
   const auto bar = [&](int s) { return bar0 + 8u * s; };
@@ -316,28 +340,49 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int n0 = blockIdx.x * TILE;
   const int ntiles = (M + TILE - 1) / TILE;
+  // this block's first column of O (and of V); the atoms of Q/K and of V
+  // that hold columns below D, the only ones TMA loads
+  const int col0 = 64 * NV * blockIdx.z;
+  const int qk_atoms = min(NA, (D + 63) / 64);
+  const int v_atoms = min(NV, (D - col0 + 63) / 64);
+  const uint32_t qk_bytes = qk_atoms * ATOM_BYTES;
+  const uint32_t kv_bytes = qk_bytes + v_atoms * ATOM_BYTES;
 
+  if (NA > 4 && qk_atoms < NA) {  // zero the Q and K atoms past D once: k-steps read them
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    constexpr int CHUNKS = ATOM_BYTES / 16;
+    for (int t = 0; t <= STAGES; ++t) {
+      const uint32_t tile = t == 0 ? q_smem : k_smem(t - 1);
+      for (int i = tid; i < (NA - qk_atoms) * CHUNKS; i += WG)
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         tile + qk_bytes + 16 * i),
+                     "r"(zero.x), "r"(zero.y), "r"(zero.z), "r"(zero.w)
+                     : "memory");
+    }
+    // make the generic-proxy stores visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
   if (tid == 0) {
     for (int s = 0; s <= STAGES; ++s) mbar_init(bar(s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(q_bar, TILE_BYTES);
-    tma_load_tile<NA>(q_smem, &tq, q_bar, h, n0, b);
+    mbar_expect_tx(q_bar, qk_bytes);
+    tma_load_tile(q_smem, &tq, q_bar, 0, qk_atoms, h, n0, b);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
-      mbar_expect_tx(bar(s), 2 * TILE_BYTES);
-      tma_load_tile<NA>(k_smem(s), &tk, bar(s), h, s * TILE, b);
-      tma_load_tile<NA>(v_smem(s), &tv, bar(s), h, s * TILE, b);
+      mbar_expect_tx(bar(s), kv_bytes);
+      tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, s * TILE, b);
+      tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, s * TILE, b);
     }
   }
 
-  float acc[NA][32], sc[32];  // acc[a]: O's columns 64a..64a+63
+  float acc[NV][32], sc[32];  // acc[a]: O's columns col0+64a..col0+64a+63
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sc[i] = 0.f;
 #pragma unroll
-    for (int a = 0; a < NA; ++a) acc[a][i] = 0.f;
+    for (int a = 0; a < NV; ++a) acc[a][i] = 0.f;
   }
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
@@ -404,7 +449,7 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         l_run[r] += p0 + p1;
         p[2 * i + r] = pack_bf16(p0, p1);
 #pragma unroll
-        for (int a = 0; a < NA; ++a) {
+        for (int a = 0; a < NV; ++a) {
           acc[a][4 * i + 2 * r] *= alpha[r];
           acc[a][4 * i + 2 * r + 1] *= alpha[r];
         }
@@ -412,10 +457,10 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     }
 
 #pragma unroll
-    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    for (int a = 0; a < NV; ++a) fence_regs(acc[a]);
     wgmma_fence();
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
+    for (int a = 0; a < NV; ++a) {
       const uint64_t v_desc =
           make_desc(v_smem(s) + a * ATOM_BYTES, ATOM_BYTES, 1024);
 #pragma unroll
@@ -426,13 +471,14 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    for (int a = 0; a < NV; ++a) fence_regs(acc[a]);
 
     __syncthreads();  // every warp is done with stage s: refill it
     if (tid == 0 && j + STAGES < ntiles) {
-      mbar_expect_tx(bar(s), 2 * TILE_BYTES);
-      tma_load_tile<NA>(k_smem(s), &tk, bar(s), h, (j + STAGES) * TILE, b);
-      tma_load_tile<NA>(v_smem(s), &tv, bar(s), h, (j + STAGES) * TILE, b);
+      const int row = (j + STAGES) * TILE;
+      mbar_expect_tx(bar(s), kv_bytes);
+      tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, row, b);
+      tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, row, b);
     }
   }
 
@@ -447,10 +493,10 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (row >= N) continue;
     __nv_bfloat16* orow = ob + row * ost.n;
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NV; ++a)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int col = 64 * a + 8 * i + c;
+        const int col = col0 + 64 * a + 8 * i + c;
         const float v0 = acc[a][4 * i + 2 * r] * inv_l;
         const float v1 = acc[a][4 * i + 2 * r + 1] * inv_l;
         if (D % 2 == 0) {  // col even and < D: col + 1 < D, 4-byte aligned
@@ -507,16 +553,16 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int NA, int KSTEPS>
+template <int NA, int KSTEPS, int NV = NA>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                  const CUtensorMap& tv, __nv_bfloat16* o, int B, int H, int N,
                  int M, int D, Strides os, float scale_log2, cudaStream_t st) {
-  constexpr int smem = wg_smem_bytes(NA);
-  const auto kernel = attn_fwd_wgmma<NA, KSTEPS>;
+  constexpr int smem = wg_smem_bytes(NA, NV);
+  const auto kernel = attn_fwd_wgmma<NA, NV, KSTEPS>;
   static uint64_t opted_in = 0;
   const cudaError_t err = allow_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + TILE - 1) / TILE, B * H);
+  const dim3 grid((N + TILE - 1) / TILE, B * H, NA / NV);
   kernel<<<grid, WG, smem, st>>>(tq, tk, tv, o, H, N, M, D, os, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -620,6 +666,119 @@ __device__ __forceinline__ void load_tile_f32(uint32_t dst,
   }
 }
 
+// Q's A fragment of k-step kk (rows g and g + 8 of the warp's slab at qr,
+// row stride LD), pre-scaled and split
+template <int LD>
+__device__ __forceinline__ void q_frag_tf32(const float* qr, int kk,
+                                            float scale, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split_tf32(qr[8 * kk] * scale, hi[0], lo[0]);
+  split_tf32(qr[8 * LD + 8 * kk] * scale, hi[1], lo[1]);
+  split_tf32(qr[8 * kk + 4] * scale, hi[2], lo[2]);
+  split_tf32(qr[8 * LD + 8 * kk + 4] * scale, hi[3], lo[3]);
+}
+
+// Key tile j's scores sc into P: keys past M (the ragged last tile) get
+// -inf, then the online softmax in log2 units moves the running max and
+// row sums and rescales the DV accumulator n-tiles. Rows g (r = 0) and
+// g + 8 (r = 1) live in the 4 lanes of a quad. Every row's first tile
+// holds key 0, so m_run is finite from the first tile on and
+// alpha = exp2(-inf) = 0.
+template <int DV>
+__device__ __forceinline__ void softmax_tile(float (&sc)[8][4], int j, int M,
+                                             int t, float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&acc)[DV][4]) {
+  if ((j + 1) * TILE > M) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (j * TILE + 8 * n + 2 * t + e >= M)
+          sc[n][e] = sc[n][2 + e] = -INFINITY;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mt = fmaxf(mt, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m_run[r], mt);
+    alpha[r] = exp2_ftz(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[n][e] = exp2_ftz(sc[n][e] - m_run[e / 2]);
+      l_run[e / 2] += sc[n][e];
+    }
+#pragma unroll
+  for (int dn = 0; dn < DV; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
+}
+
+// acc += P V over DV n-tiles of the V tile at vt (row stride LD), P in f32
+// split like the other operands
+template <int DV, int LD>
+__device__ __forceinline__ void pv_tf32x3(float (&acc)[DV][4],
+                                          const float (&sc)[8][4],
+                                          const float* vt, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    uint32_t ph[4], pl[4];
+    split_tf32(sc[n][0], ph[0], pl[0]);  // (g, key 2t)    as a0 (g, t)
+    split_tf32(sc[n][2], ph[1], pl[1]);  // (g+8, key 2t)  as a1 (g+8, t)
+    split_tf32(sc[n][1], ph[2], pl[2]);  // (g, key 2t+1)  as a2 (g, t+4)
+    split_tf32(sc[n][3], ph[3], pl[3]);  // (g+8, key 2t+1) as a3
+    const float* vr = vt + (8 * n + 2 * t) * LD + g;  // V[key 8n+2t][d g]
+#pragma unroll
+    for (int dn = 0; dn < DV; ++dn) {
+      uint32_t b0h, b0l, b1h, b1l;
+      split_tf32(vr[8 * dn], b0h, b0l);       // key 2t   as b0 (t, g)
+      split_tf32(vr[LD + 8 * dn], b1h, b1l);  // key 2t+1 as b1 (t+4, g)
+      mma_3xtf32(acc[dn], ph, pl, b0h, b1h, b0l, b1l);
+    }
+  }
+}
+
+// O's rows row0 and row0 + 8 where below N, columns col0 + [0, 8 DV) below
+// D, each over its row sum
+template <int DV>
+__device__ __forceinline__ void store_o_f32(const float (&acc)[DV][4],
+                                            const float (&l_run)[2],
+                                            float* ob, long long sn, int row0,
+                                            int N, int col0, int D, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv_l = 1.f / l;
+    const int row = row0 + 8 * r;
+    if (row >= N) continue;
+    float* orow = ob + row * sn;
+#pragma unroll
+    for (int dn = 0; dn < DV; ++dn) {
+      const int col = col0 + 8 * dn + 2 * t;
+      const float v0 = acc[dn][2 * r] * inv_l;
+      const float v1 = acc[dn][2 * r + 1] * inv_l;
+      if (D % 2 == 0) {  // col even and < D: col + 1 < D, 8-byte aligned
+        if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < D) orow[col] = v0;
+        if (col + 1 < D) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
 // Fragments of mma m16n8k8 (TF32), lane = 4g + t:
 //   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
 //   B (8 x 8, k by n):     b0 (t, g), b1 (t+4, g)
@@ -671,19 +830,13 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 
   cp_async_wait<F_STAGES - 1>();  // group 0 (Q, K/V tile 0) has landed
   __syncthreads();
-  // Q's A fragment of k-step kk, pre-scaled, split
   const float* qr = q_t + (16 * warp + g) * LD + t;
-  const auto q_frag = [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
-    split_tf32(qr[8 * kk] * scale_log2, hi[0], lo[0]);
-    split_tf32(qr[8 * LD + 8 * kk] * scale_log2, hi[1], lo[1]);
-    split_tf32(qr[8 * kk + 4] * scale_log2, hi[2], lo[2]);
-    split_tf32(qr[8 * LD + 8 * kk + 4] * scale_log2, hi[3], lo[3]);
-  };
   // held in registers for the whole run where DK <= 8
   uint32_t qh[Q_IN_REGS ? DK : 1][4], ql[Q_IN_REGS ? DK : 1][4];
   if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) q_frag(kk, qh[kk], ql[kk]);
+    for (int kk = 0; kk < DK; ++kk)
+      q_frag_tf32<LD>(qr, kk, scale_log2, qh[kk], ql[kk]);
   }
 
   for (int j = 0; j < ntiles; ++j) {
@@ -716,7 +869,7 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     } else {
       for (int kk = 0; kk < DK; ++kk) {
         uint32_t ah[4], al[4];
-        q_frag(kk, ah, al);
+        q_frag_tf32<LD>(qr, kk, scale_log2, ah, al);
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const float* kr = kt + (8 * n + g) * LD + 8 * kk + t;
@@ -728,61 +881,8 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    if ((j + 1) * TILE > M) {  // ragged last tile: keys past M get -inf
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (j * TILE + 8 * n + 2 * t + e >= M)
-            sc[n][e] = sc[n][2 + e] = -INFINITY;
-    }
-
-    // online softmax in log2 units; rows g (r = 0) and g + 8 (r = 1) live
-    // in the 4 lanes of a quad. Every row's first tile holds key 0, so
-    // m_run is finite from the first tile on and alpha = exp2(-inf) = 0
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mt = fmaxf(mt, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m_run[r], mt);
-      alpha[r] = exp2_ftz(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[n][e] = exp2_ftz(sc[n][e] - m_run[e / 2]);
-        l_run[e / 2] += sc[n][e];
-      }
-#pragma unroll
-    for (int dn = 0; dn < DK; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
-
-    // O += P V, P in f32 split like the other operands
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t ph[4], pl[4];
-      split_tf32(sc[n][0], ph[0], pl[0]);  // (g, key 2t)    as a0 (g, t)
-      split_tf32(sc[n][2], ph[1], pl[1]);  // (g+8, key 2t)  as a1 (g+8, t)
-      split_tf32(sc[n][1], ph[2], pl[2]);  // (g, key 2t+1)  as a2 (g, t+4)
-      split_tf32(sc[n][3], ph[3], pl[3]);  // (g+8, key 2t+1) as a3
-      const float* vr = vt + (8 * n + 2 * t) * LD + g;  // V[key 8n+2t][d g]
-#pragma unroll
-      for (int dn = 0; dn < DK; ++dn) {
-        uint32_t b0h, b0l, b1h, b1l;
-        split_tf32(vr[8 * dn], b0h, b0l);       // key 2t   as b0 (t, g)
-        split_tf32(vr[LD + 8 * dn], b1h, b1l);  // key 2t+1 as b1 (t+4, g)
-        mma_3xtf32(acc[dn], ph, pl, b0h, b1h, b0l, b1l);
-      }
-    }
+    softmax_tile<DK>(sc, j, M, t, m_run, l_run, acc);
+    pv_tf32x3<DK, LD>(acc, sc, vt, g, t);
 
     __syncthreads();  // every warp is done with stage s: refill it
     if (j + F_STAGES < ntiles) {
@@ -794,29 +894,111 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();  // group j + F_STAGES (empty past the last tile)
   }
 
-  float* ob = o + b * ost.b + h * ost.h;
+  store_o_f32<DK>(acc, l_run, o + b * ost.b + h * ost.h, ost.n,
+                  n0 + 16 * warp + g, N, 0, D, t);
+}
+
+// Above D=256: Q (DK k-steps) in shared memory, K in chunks of KC_STEPS
+// k-steps, half of V's columns; grid z picks the half of O a block owns.
+constexpr int KC_STEPS = 8;  // 64 columns of K a chunk
+__host__ __device__ constexpr int f_wide_smem_bytes(int dk) {
+  return (f_tile_floats(dk) + f_tile_floats(KC_STEPS) + f_tile_floats(dk / 2)) *
+         4;
+}
+static_assert(f_wide_smem_bytes(64) <= 232448, "D=512 tiles above the block limit");
+
+template <int DK, bool VEC>
+__global__ void __launch_bounds__(F_THREADS)
+attn_fwd_tf32x3_wide(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H,
+                     int N, int M, int D, Strides qs, Strides kst, Strides vst,
+                     Strides ost, float scale_log2) {
+  constexpr int DV = DK / 2;  // PV n-tiles: this block's half of O's columns
+  constexpr int LDQ = f_ld(DK), LDK = f_ld(KC_STEPS), LDV = f_ld(DV);
+  extern __shared__ __align__(16) float fsm[];
+  float* q_t = fsm;
+  float* k_t = q_t + f_tile_floats(DK);
+  float* v_t = k_t + f_tile_floats(KC_STEPS);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int n0 = blockIdx.x * TILE;
+  const int ntiles = (M + TILE - 1) / TILE;
+  const int col0 = 8 * DV * blockIdx.z;  // this block's first column of O
+  const int chunks = (D + 8 * KC_STEPS - 1) / (8 * KC_STEPS);  // of K, below D
+  const float* kb = k + b * kst.b + h * kst.h;
+  const float* vb = v + b * vst.b + h * vst.h + col0;
+
+  load_tile_f32<DK, VEC>(smem_u32(q_t), q + b * qs.b + h * qs.h, qs.n, n0, N,
+                         D);  // waited on with the first K chunk
+
+  float acc[DV][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv_l = 1.f / l;
-    const int row = n0 + 16 * warp + g + 8 * r;
-    if (row >= N) continue;
-    float* orow = ob + row * ost.n;
+  for (int dn = 0; dn < DV; ++dn)
 #pragma unroll
-    for (int dn = 0; dn < DK; ++dn) {
-      const int col = 8 * dn + 2 * t;
-      const float v0 = acc[dn][2 * r] * inv_l;
-      const float v1 = acc[dn][2 * r + 1] * inv_l;
-      if (D % 2 == 0) {  // col even and < D: col + 1 < D, 8-byte aligned
-        if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
-      } else {
-        if (col < D) orow[col] = v0;
-        if (col + 1 < D) orow[col + 1] = v1;
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const float* qr = q_t + (16 * warp + g) * LDQ + t;
+
+  for (int j = 0; j < ntiles; ++j) {
+    // this block's half of V's tile, waited on with the first K chunk
+    load_tile_f32<DV, VEC>(smem_u32(v_t), vb, vst.n, j * TILE, M, D - col0);
+
+    // S = (Q scale_log2) K^T for 64 keys, K a chunk of 64 columns at a time
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = 8 * KC_STEPS * ch;
+      load_tile_f32<KC_STEPS, VEC>(smem_u32(k_t), kb + c0, kst.n, j * TILE, M,
+                                   D - c0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 2
+      for (int kc = 0; kc < KC_STEPS; ++kc) {
+        const int kk = KC_STEPS * ch + kc;  // k-step of the whole row
+        uint32_t ah[4], al[4];
+        q_frag_tf32<LDQ>(qr, kk, scale_log2, ah, al);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* kr = k_t + (8 * n + g) * LDK + 8 * kc + t;
+          uint32_t b0h, b0l, b1h, b1l;
+          split_tf32(kr[0], b0h, b0l);
+          split_tf32(kr[4], b1h, b1l);
+          mma_3xtf32(sc[n], ah, al, b0h, b1h, b0l, b1l);
+        }
       }
+      __syncthreads();  // every warp is done with the chunk: refill it
     }
+
+    softmax_tile<DV>(sc, j, M, t, m_run, l_run, acc);
+    pv_tf32x3<DV, LDV>(acc, sc, v_t, g, t);  // this block's columns
+    __syncthreads();  // every warp is done with V's tile: refill it
   }
+
+  store_o_f32<DV>(acc, l_run, o + b * ost.b + h * ost.h, ost.n,
+                  n0 + 16 * warp + g, N, col0, D, t);
+}
+
+template <int DK, bool VEC>
+int launch_tf32x3_wide(const float* q, const float* k, const float* v,
+                       float* o, int B, int H, int N, int M, int D, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale_log2,
+                       cudaStream_t st) {
+  constexpr int smem = f_wide_smem_bytes(DK);
+  const auto kernel = attn_fwd_tf32x3_wide<DK, VEC>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = allow_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + TILE - 1) / TILE, B * H, 2);
+  kernel<<<grid, F_THREADS, smem, st>>>(q, k, v, o, H, N, M, D, qs, ks, vs,
+                                        os, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DK, bool VEC>
@@ -860,8 +1042,13 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   F32_UP_TO(12)
   F32_UP_TO(16)
   F32_UP_TO(24)
-  return launch_tf32x3<32, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
-                                scale_log2, st);
+  F32_UP_TO(32)
+  // above D=256, DK rounded up to 48 or 64, O's columns in two halves
+  if (D <= 384)
+    return launch_tf32x3_wide<48, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs,
+                                       os, scale_log2, st);
+  return launch_tf32x3_wide<64, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
+                                     scale_log2, st);
 #undef F32_UP_TO
 #undef F32_CASE
 }
@@ -893,7 +1080,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
     }
     if (D <= 128) return launch_wgmma<2, 8>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
     if (D <= 192) return launch_wgmma<3, 12>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-    return launch_wgmma<4, 16>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    if (D <= 256) return launch_wgmma<4, 16>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    // above 256: two blocks a Q tile, each owning half of O's columns
+    if (D <= 384) return launch_wgmma<6, 24, 3>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    return launch_wgmma<8, 32, 4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -913,7 +1103,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
 // current device for the launch only when it differs) and returns
 // cudaGetLastError() (0 on success), or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -(1000 + CUresult) when a tensor map cannot be
-// encoded. The caller checks shapes and, for bf16, alignment: 1 <= D <= 256,
+// encoded. The caller checks shapes and, for bf16, alignment: 1 <= D <= 512,
 // N >= 1, M >= 1, B*H <= 65535; bf16 bases 16-byte aligned and b, n, h
 // strides multiples of 8 elements.
 extern "C" int dsdiff_flash_attention(

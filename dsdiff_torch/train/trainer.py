@@ -9,7 +9,11 @@ names: ``ds_diff_gaussian``, the cached-condition ``ds_diff_split``,
 ``ddpm`` (UNet), ``disc_diff`` (DiscUNet, one stream per input channel,
 with its com/dist loss) and ``dit`` (DiT, sized by ``ViT_config``); the
 gamma-conditioned ``palette`` pipeline (its own train and test schedules,
-the denoiser given ``gamma * 1000``, DDIM or ancestral sampling); the
+the denoiser given ``gamma * 1000``, DDIM or ancestral sampling) and the
+``latent`` pipeline (a UNet over the latents of a frozen KL-VAE restored
+from ``vae_checkpoint``, a directory ``train.vae_loop.VaeTrainer`` wrote:
+``fit`` encodes each batch, ``validate``, ``predict`` and
+``progressive_denoise`` encode the conditions and decode the sample); the
 cosine learning rate over
 ``len(train_loader)`` steps an epoch, AdamW, the EMA, the schedule sampler,
 the train step, ``fit`` (shannon curriculum, logging, validation and
@@ -61,7 +65,8 @@ from .step import (
     run_sampler_loop,
 )
 
-__all__ = ["Trainer", "FEATURE_KINDS", "OPENAI_SCHEDULE_MODES", "model_params"]
+__all__ = ["Trainer", "FEATURE_KINDS", "OPENAI_SCHEDULE_MODES", "model_params",
+           "io_channels"]
 
 # net_mode -> (model registry key, feature kind)
 FEATURE_KINDS = {
@@ -95,19 +100,30 @@ _DROPPED_MODEL_KEYS = (
 )
 
 
+def io_channels(cfg: Config, n_cond: int) -> tuple[int, int]:
+    """The denoiser's input channels (noise + ``n_cond`` conditions) and its
+    output channels before ``learn_sigma`` doubles them: one image channel
+    each and ``output_ch`` out, or for ``latent`` the first stage's
+    ``embed_dim`` latent channels each, in and out."""
+    if cfg.get("net_mode") != "latent":
+        return 1 + n_cond, int(cfg.get("output_ch", 1))
+    z = int((cfg.get_path("first_stage.params", {}) or {}).get("embed_dim", 4))
+    return z * (1 + n_cond), z
+
+
 def model_params(cfg: Config, model_name: str, n_cond: int,
                  use_edge=False) -> dict:
     """``build_model``'s keyword arguments for a run config: the input
-    channels (noise + ``n_cond`` conditions), the output channels (doubled
-    by ``learn_sigma``), the compute dtype (bf16 over f32 master parameters
-    unless ``bf16: false``; norms in f32) and, by model, as the JAX trainer
-    builds it: for ``dit`` the ``ViT_config`` sizes; for the U-Nets the
-    ``unet_config`` parameters that describe this package's module and
-    ``remat``, except ``disc_unet``, which takes one stream per input
-    channel and no ``remat``."""
-    in_ch = 1 + n_cond
-    out_ch = int(cfg.get("output_ch", 1)) * (
-        2 if bool(cfg.get("learn_sigma", False)) else 1)
+    channels (noise + ``n_cond`` conditions; for ``latent``, z latent
+    channels each), the output channels (``output_ch``, or z for
+    ``latent``, doubled by ``learn_sigma``), the compute dtype (bf16 over
+    f32 master parameters unless ``bf16: false``; norms in f32) and, by
+    model, as the JAX trainer builds it: for ``dit`` the ``ViT_config``
+    sizes; for the U-Nets the ``unet_config`` parameters that describe this
+    package's module and ``remat``, except ``disc_unet``, which takes one
+    stream per input channel and no ``remat``."""
+    in_ch, out_ch = io_channels(cfg, n_cond)
+    out_ch *= 2 if bool(cfg.get("learn_sigma", False)) else 1
     dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
     if model_name == "dit":
         vit = dict(cfg.get_path("ViT_config.params", {}) or {})
@@ -160,6 +176,11 @@ class Trainer:
       ``palette`` owns its sampler: DDIM-``sample_steps`` with ``ddim_eta``
       over the test gamma schedule for 'ddim', the ancestral loop over all
       its steps for any other name.
+      For ``latent`` its conditions and samples are latents, and
+      ``first_stage`` (a ``LatentAdapter``) encodes and decodes them.
+    - ``sample_images(cond, generator=None, ...)``: a request in image
+      space (``sample_fn`` itself but for ``latent``, whose conditions it
+      encodes and whose sample it decodes).
     - ``progressive_denoise(cond, generator=None, x_T=None)``: DDIM with
       every step's x0 prediction kept (not for ``ds_diff_split`` and
       ``palette``).
@@ -180,10 +201,6 @@ class Trainer:
 
         net_mode = cfg.get("net_mode", "ds_diff_gaussian")
         model_name, feature_kind = FEATURE_KINDS.get(net_mode, (net_mode, None))
-        if net_mode == "latent":
-            raise NotImplementedError(
-                f"net_mode '{net_mode}' is not ported yet (ROADMAP A17b)"
-            )
         self.keys = list(cfg.get("train_keys",
                                  ["F_Data1", "F_Data2", "S_Data1", "S_Data2"]))
         self.use_edge = cfg.get("use_edge", False) or False
@@ -239,17 +256,20 @@ class Trainer:
             ),
         )
 
-        # ---- model
-        self.base_out = int(cfg.get("output_ch", 1))
-        in_ch = 1 + n_cond
-        params = model_params(cfg, model_name, n_cond, self.use_edge)
+        # ---- first stage (latent pipeline)
         seed = int(cfg.get("seed", 2024))
+        self.first_stage = None
+        if net_mode == "latent":
+            self.first_stage = self._build_first_stage()
+
+        # ---- model
+        self.in_ch, self.base_out = io_channels(cfg, n_cond)
+        params = model_params(cfg, model_name, n_cond, self.use_edge)
         # modules initialise on the CPU from its default generator: seed it
         # for this build only
         with torch.random.fork_rng(devices=[]):
             torch.default_generator.manual_seed(seed)
             self.model = build_model(model_name, device=self.device, **params)
-        self.in_ch = in_ch
         self.n_cond = n_cond
         self.model_name = model_name
         self.n_params = sum(p.numel() for p in self.model.parameters())
@@ -315,6 +335,32 @@ class Trainer:
             )
         self.best_ssim = -1.0
         self._fit_calls = 0  # keys each fit call's step draws
+
+    def _build_first_stage(self):
+        """The frozen ``AutoencoderKL`` of ``first_stage.params`` behind a
+        ``LatentAdapter``: weights from the config's seed, or the raw (not
+        EMA) parameters of the latest checkpoint under ``vae_checkpoint``,
+        a directory ``VaeTrainer`` wrote (its ``checkpoint/``). A file there
+        (an SD VAE checkpoint) is refused."""
+        from .latent import LatentAdapter
+        from .vae_loop import build_vae
+
+        cfg = self.cfg
+        vae = build_vae(cfg, self.device)
+        ckpt_path = cfg.get("vae_checkpoint")
+        if ckpt_path:
+            if Path(ckpt_path).is_file():
+                raise NotImplementedError(
+                    "an SD VAE checkpoint file as vae_checkpoint is not "
+                    "ported yet (ROADMAP A18, utils/torch_io.load_sd_vae)")
+            vcm = CheckpointManager(ckpt_path, keep_best=False)
+            vae.load_state_dict(vcm.restore_params(vae, ema=False))
+            if self.workdir is not None:
+                journal(self.workdir, f"vae restored from {ckpt_path} "
+                                      f"(step {vcm.latest_step()})")
+        return LatentAdapter(
+            vae, scale_factor=float(cfg.get("scale_factor", 0.18215)),
+            scale_by_std=bool(cfg.get("scale_by_std", False)))
 
     # ------------------------------------------------------------------ data
     def _setup_data(self, data_root) -> None:
@@ -423,6 +469,8 @@ class Trainer:
                 dev_batch = {k: self._to_device(batch[k])
                              for k in ("image", "target")}
                 gen.manual_seed(_step_seed(seed, fit_call, step))
+                if self.first_stage is not None:
+                    dev_batch = self.first_stage.encode_batch(dev_batch, gen)
                 metrics = self.train_step(dev_batch, gen)
                 step += 1
                 if step % log_every == 0:
@@ -617,18 +665,40 @@ class Trainer:
         self._refresh_sample_model()
         return self._sample(cond, generator, x_T, noise)
 
+    def sample_images(self, cond: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      cond_noise=None, **draws) -> torch.Tensor:
+        """A request in image space, [B, H, W, n_cond] conditions ->
+        [B, H, W, output_ch] samples: ``sample_fn`` (``draws``: its
+        ``x_T`` and ``noise``), and for ``latent`` the conditions encoded
+        first (posterior draws ``cond_noise``, one per condition, or from
+        ``generator``) and the sampled latents decoded after."""
+        if self.first_stage is not None:
+            cond = self.first_stage.encode_cond(cond, generator, cond_noise)
+        out = self.sample_fn(cond, generator, **draws)
+        if self.first_stage is not None:
+            return self.first_stage.decode_batch(out)
+        return out
+
     def progressive_denoise(self, cond: torch.Tensor,
                             generator: torch.Generator | None = None,
-                            x_T: torch.Tensor | None = None):
+                            x_T: torch.Tensor | None = None, cond_noise=None):
         """Sample by DDIM (eta 0) with the intermediate x0 predictions
         collected along the chain. Returns (final [B,H,W,C], intermediates
-        [T,B,H,W,C]); the final is the last intermediate."""
+        [T,B,H,W,C]); the final is the last intermediate. For ``latent``
+        the conditions are encoded first (draws ``cond_noise`` or from
+        ``generator``), the intermediates stay latents and the final is
+        decoded."""
         if self._row_fn is None:
             raise RuntimeError(
                 "progressive denoising is unavailable for this net_mode"
             )
         self._refresh_sample_model()
+        if self.first_stage is not None:
+            cond = self.first_stage.encode_cond(cond, generator, cond_noise)
         frames = self._row_fn(cond, generator, x_T)
+        if self.first_stage is not None:
+            return self.first_stage.decode_batch(frames[-1]), frames
         return frames[-1], frames
 
     # ------------------------------------------------------------------- val
@@ -648,7 +718,7 @@ class Trainer:
         for i, batch in enumerate(self.val_loader.epoch(0)):
             if i >= max_batches:
                 break
-            pred = self.sample_fn(self._to_device(batch["image"]), gen)
+            pred = self.sample_images(self._to_device(batch["image"]), gen)
             m = self.val_metrics(pred, self._to_device(batch["target"]),
                                  self._to_device(batch["valid"]))
             for k in tot:
@@ -683,6 +753,9 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(2)
             _, frames = self.progressive_denoise(
                 self._to_device(batch["image"]), gen)
+            if self.first_stage is not None:
+                frames = torch.stack([self.first_stage.decode_batch(f)
+                                      for f in frames])
             V.denoise_row(frames.float().cpu().numpy(),
                           out_dir / "denoise_row.png")
         if self.task.feature_kind == "ds":
@@ -695,7 +768,9 @@ class Trainer:
         """One noised forward of the EMA weights at t = T/2 (noise seeded
         3) for the DSUNet feature dict of the heatmap dump
         (trainer_use_gaussian_diff.py:472-475); None for a model without
-        one."""
+        one, and for ``latent``."""
+        if self.first_stage is not None:
+            return None
         self._refresh_sample_model()
         target = self._to_device(batch["target"])
         cond = self._to_device(batch["image"])
@@ -737,7 +812,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(
             int(cfg.get("seed", 2024)))
         for batch in loader.epoch(0):
-            pred = self.sample_fn(self._to_device(batch["image"]), gen)
+            pred = self.sample_images(self._to_device(batch["image"]), gen)
             asm.add_batch(batch["case"], batch["slice"],
                           pred.float().cpu().numpy(), batch["valid"])
         gt_file = gt_name or f"{self.keys[-1]}.nii.gz"

@@ -15,6 +15,13 @@ level included). Leaves translate as:
   ``cond_encoders``) every leaf keeps its leading stream axis, and the
   target parameter's rank says which layout a kernel has.
 
+The same rules carry the latent pipeline's networks: the KL-VAE
+(``models.vae``: its bottleneck attention's separate ``q``, ``k``, ``v``
+and ``proj_out`` Denses, ``quant_conv`` and ``post_quant_conv``), the
+``PatchDiscriminator`` (whose GroupNorms are bare ``nn.GroupNorm``
+modules: ``norm_1/scale`` -> ``norm_1.weight``) and the perceptual loss's
+random-feature pyramid and VGG16 trunk (``eval.perceptual``).
+
 ``train_state_from_flax`` maps a whole JAX training state (params, EMA,
 AdamW moments and counts) onto the model's keys, for ``TrainState.load``,
 so that a run trained with the JAX package continues in the port.

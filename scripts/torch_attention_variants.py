@@ -66,9 +66,11 @@ VARIANTS = {
     "stages_4": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
                    "constexpr int wg_stages(int na) { return na == 1 ? 4 : 1; }")],
                  True, BF16),
-    # two stages above D=64 too: 121 KB at D=192, one block an SM
+    # two stages above D=64 too, up to D=256: 121 KB at D=192, one block an
+    # SM (at D=512 two stages would pass the block's shared memory)
     "wide_stages_2": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
-                        "constexpr int wg_stages(int na) { return 2; }")], True, BF16),
+                        "constexpr int wg_stages(int na) { return na <= 4 ? 2 : 1; }")],
+                      True, BF16),
     # f32: one TF32 pass (hi * hi only), which prices the two extra passes;
     # its error shows why the route needs them
     "f32_one_pass": ([("  mma_tf32(d, a_lo, b0_hi, b1_hi);\n"

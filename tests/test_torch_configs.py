@@ -126,3 +126,86 @@ def test_smoke_families_are_the_config_files_and_their_attention_calls():
         assert blocks == sum(c for *_, c in shapes) == want[net_mode]
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "kernels,nothing"])
+
+
+def test_latent_pipeline_models_match_the_jax_parameter_count():
+    """The latent pipeline's three models as their configs build them: the
+    KL-VAE of configs/autoencoder_kl.yaml (``first_stage.params``), its
+    PatchDiscriminator at the VAE trainer's defaults, and the latent UNet
+    of configs/train_config.yaml + latent.yaml (z = 4 latent channels for
+    the target and each of the 3 conditions, on 32² latents)."""
+    from dsdiff_tpu.models import AutoencoderKL as JVae
+    from dsdiff_tpu.models import PatchDiscriminator as JDisc
+    from dsdiff_torch.models import AutoencoderKL, PatchDiscriminator
+
+    def jax_count(module, *args):
+        shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+        return sum(s.size for s in jax.tree.leaves(shapes))
+
+    def port_count(make):
+        with torch.device("meta"):
+            model = make()
+        assert all(p.is_meta for p in model.parameters())
+        return sum(p.numel() for p in model.parameters())
+
+    vcfg = load_run_config(CONFIGS / "autoencoder_kl.yaml")
+    fs = dict(vcfg.get_path("first_stage.params"))
+    x = jnp.zeros((1, 256, 256, 1), jnp.float32)
+    n_vae = port_count(lambda: build_model("autoencoder_kl", device="meta",
+                                           **fs))
+    assert n_vae == jax_count(JVae(**fs), x, jax.random.PRNGKey(1))
+    assert round(n_vae / 1e6, 2) == 83.65
+    n_disc = port_count(PatchDiscriminator)
+    assert n_disc == jax_count(JDisc(), x)
+    assert round(n_disc / 1e6, 2) == 2.76
+    with torch.device("meta"):
+        vae = AutoencoderKL(**fs)
+    # the bottleneck attention: one head over 512 channels, 32² at 256²
+    assert vae.encoder.mid_attn.q.in_features == 512 and vae.downsample == 8
+
+    cfg = load_run_config(CONFIGS / "train_config.yaml",
+                          CONFIGS / "latent.yaml")
+    assert cfg.get("net_mode") == "latent"
+    params = model_params(cfg, "unet", len(cfg.get("train_keys")) - 1)
+    assert params["in_channels"] == 16 and params["out_channels"] == 4
+    n_unet = port_count(lambda: build_model("unet", device="meta", **params))
+    jm = jax_build_model("unet", **dict(params, dtype=jnp.bfloat16))
+    assert n_unet == jax_count(jm, jnp.zeros((1, 32, 32, 16), jnp.float32),
+                               jnp.zeros((1,), jnp.float32))
+    assert round(n_unet / 1e6, 2) == 151.38
+
+
+def test_smoke_latent_configs_are_the_config_files_but_their_cuts(tmp_path):
+    """chip_smoke's latent phase runs configs/autoencoder_kl.yaml and
+    configs/train_config.yaml + latent.yaml as a user would, changed only
+    by its printed cuts and the data it makes, and its expected attention
+    calls are the attention blocks of the models built from them."""
+    import chip_smoke
+
+    from dsdiff_torch.models.attention import AttentionBlock
+
+    vae, latent = chip_smoke.latent_configs(tmp_path / "data", tmp_path)
+    data = {"h5_2d_img_dir", "data_store", "train_keys", "seed"}
+    for got, files, cuts, extra in (
+            (vae, ["autoencoder_kl.yaml"], chip_smoke.VAE_CUTS,
+             {"result_path"}),
+            (latent, ["train_config.yaml", "latent.yaml"],
+             chip_smoke.LATENT_CUTS, {"vae_checkpoint"})):
+        want = load_run_config(*[CONFIGS / f for f in files])
+        changed = {k for k in set(got) | set(want) if got.get(k) != want.get(k)}
+        assert changed <= set(cuts) | data | extra, changed
+        # a key the files leave out takes the trainer's default, `full`
+        for key, (full, cut) in cuts.items():
+            assert want.get(key, full) == full and got[key] == cut, key
+    assert latent["vae_checkpoint"] == str(tmp_path / "vae" / "checkpoint")
+    with torch.device("meta"):
+        unet = build_model("unet", device="meta", **model_params(
+            latent, "unet", chip_smoke.LATENT_N_COND))
+    blocks = [m for m in unet.modules() if isinstance(m, AttentionBlock)]
+    assert len(blocks) == chip_smoke.LATENT_CALLS_PER_FORWARD == 16
+    heads = sorted({(m.heads, m.qkv.in_features // m.heads) for m in blocks})
+    assert heads == sorted({(H, D) for _, H, D, _ in
+                            chip_smoke.LATENT_ATTENTION_CALLS})
+    assert chip_smoke.LATENT_REQUEST_CALLS == 20 * 16 + 3 + 1
+    fs = dict(vae.get_path("first_stage.params"))
+    assert fs["ch"] * fs["ch_mult"][-1] == chip_smoke.VAE_ATTENTION[2] == 512

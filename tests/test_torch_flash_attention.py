@@ -116,7 +116,7 @@ def _bf16_misaligned():
     "make, err, match",
     [
         (lambda: [torch.zeros(1, 8, 2, 8)] * 3, ValueError, "CUDA"),
-        (lambda: [torch.zeros(1, 8, 2, 264)] * 3, ValueError, "head dim"),
+        (lambda: [torch.zeros(1, 8, 2, 513)] * 3, ValueError, "head dim"),
         (lambda: [torch.zeros(1, 8, 2, 8, dtype=torch.float16)] * 3, TypeError,
          None),
         (lambda: [torch.zeros(8, 2, 8)] * 3, ValueError, None),  # rank
@@ -151,14 +151,29 @@ def test_wrapper_takes_head_dims_up_to_256(shape):
     """The head dims of the TPU kernel's gate (up to 256; 192 in the
     disc_diff and palette U-Nets, 64 in DiT-B, 72 in DiT-XL) pass every
     check of both routes, as strided qkv thirds, and fail only for want of
-    a CUDA device; 264 is refused."""
+    a CUDA device; 513 is refused."""
     B, N, H, D = shape
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.zeros(B, N, 3, H, D, dtype=dtype)
         with pytest.raises(ValueError, match="CUDA device"):
             PF._check(*qkv.unbind(2))
-    with pytest.raises(ValueError, match="outside 1..256"):
-        PF._check(*[torch.zeros(B, N, H, 264)] * 3)
+    with pytest.raises(ValueError, match="outside 1..512"):
+        PF._check(*[torch.zeros(B, N, H, 513)] * 3)
+
+
+@pytest.mark.parametrize("D", [264, 320, 384, 512])
+def test_wrapper_takes_head_dims_up_to_512(D):
+    """Above the TPU kernel's 256: the KL-VAE's single head of 512 channels
+    (separate q, k, v projections, so each is its own contiguous
+    [B, N, 1, 512] view) and the widths between pass every check of both
+    routes and fail only for want of a CUDA device; 513 does not."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.zeros(2, 1024, D, dtype=dtype)[:, :, None, :]
+                   for _ in range(3))
+        with pytest.raises(ValueError, match="CUDA device"):
+            PF._check(q, k, v)
+        with pytest.raises(ValueError, match="head dim 513 is outside"):
+            PF._check(*[torch.zeros(2, 64, 1, 513, dtype=dtype)] * 3)
 
 
 GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
@@ -226,7 +241,37 @@ def test_cuda_kernel_takes_head_dims_up_to_256(B, N, M, H, D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [7, 12, 20, 100, 250])
+@pytest.mark.parametrize(
+    "B, N, M, H, D",
+    [(2, 1024, 1024, 1, 512), (1, 1024, 1024, 1, 384), (1, 130, 200, 2, 320),
+     (1, 77, 300, 2, 264), (2, 100, 1, 1, 512), (1, 65, 129, 1, 296)],
+)
+def test_cuda_kernel_takes_head_dims_up_to_512(B, N, M, H, D, dtype):
+    """Head dims past the TPU kernel's 256, on both routes, as strided
+    thirds: two blocks a Q tile, each owning half of the output's columns
+    (bf16: Q and K in 6 or 8 atoms, atoms wholly past D zeroed; f32: D
+    rounded up to 384 or 512, K streamed in 64-column chunks); the VAE's
+    [B, 1024, 1, 512] first, ragged N and M tails after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(N * 5 + M + D)
+    q = torch.randn(B, N, 3, H, D, generator=g, device="cuda",
+                    dtype=dtype).unbind(2)[0]
+    _, k, v = torch.randn(B, M, 3, H, D, generator=g, device="cuda",
+                          dtype=dtype).unbind(2)
+    before = PF.LAUNCHES
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (B, N, H, D) and err <= GPU_TOL[dtype], (D, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 12, 20, 100, 250, 300])
 def test_cuda_kernel_takes_head_dims_that_are_not_multiples_of_8(D, dtype):
     """q, k, v cut from a buffer whose head width is padded to a multiple
     of 8, so the bf16 stride rule holds while D itself does not."""
@@ -272,7 +317,7 @@ def test_cuda_kernel_gradient_matches_plain_version(dtype, atol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [48, 192])
+@pytest.mark.parametrize("D", [48, 192, 512])
 def test_cuda_kernel_with_one_hot_v_returns_p(dtype, D):
     """v[m] = e_(m mod D), so out[n, d] sums P[n, m] over keys m = d mod D:
     a key that the second product took in another order than the first

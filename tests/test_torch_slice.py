@@ -160,8 +160,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         Trainer(dict(tiny_cfg(), device_data_cache=True), tmp_path,
                 device="cpu").fit()
-    with pytest.raises(NotImplementedError, match="A17b"):
-        Trainer(dict(tiny_cfg(), net_mode="latent"), device="cpu")
+    # net_mode latent is ported; an SD VAE file as its first stage is not
+    sd_vae = tmp_path / "sd_vae.safetensors"
+    sd_vae.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="A18"):
+        Trainer(dict(tiny_cfg(), net_mode="latent", vae_checkpoint=str(sd_vae),
+                     first_stage={"params": {"ch": 8, "ch_mult": [1, 2]}}),
+                device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         Trainer(dict(tiny_cfg(), net_mode="medseg_v1"), device="cpu")
 
