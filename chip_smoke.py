@@ -32,6 +32,18 @@ then drives the main path in both directions:
   validation, a checkpoint), a second ``Trainer`` on the same workdir that
   restores the checkpoint bit for bit and resumes ``fit`` at epoch 1, then
   ``predict`` writing one NIfTI volume per test case and the metric report;
+- the flagship's other run modes: ``int8`` (the int8 convolution's int32
+  sums exact against an f64 conv at every eligible conv shape of the
+  forward, the four heaviest timed against the bf16 cuDNN conv, DDIM-20
+  requests with ``set_sampler(int8=True)`` and ``'static'``, calibrated on
+  the synthetic store's val split, each running every eligible conv in
+  int8, ``int8=False`` restoring the bf16 request bit for bit, and an int8
+  request on the cached ``ds_diff_split`` sampler), ``cache`` (``fit`` at
+  batch 32 with ``device_data_cache: true`` beside the host loader's, no
+  batch copied from the host in the steady state by ``torch.profiler``'s
+  trace, the cache's batch against its plain gather + augment) and
+  ``dist`` (``fit`` through the mesh path on one NCCL rank against the
+  mesh-less ``fit`` from the same seed);
 - the other denoisers the run config names and palette (``families``):
   ``ddpm`` (UNet), ``disc_diff`` (DiscUNet, attention at head dim 192),
   ``palette`` (the gamma-conditioned UNet) and ``dit`` (DiT-B/8), each at
@@ -48,9 +60,10 @@ then drives the main path in both directions:
   dsdiff_torch.cli.train_vae``, then the latent ``Trainer``
   (configs/train_config.yaml + latent.yaml at batch 8) on that checkpoint:
   ``fit``, one DDIM-20 request decoded to 256² and
-  ``progressive_denoise``.
+  ``progressive_denoise``, then ``predict`` and ``python -m
+  dsdiff_torch.cli.sample`` on a split of one test case.
 
-``python3 chip_smoke.py --phases kernels,families`` runs only the named
+``python3 chip_smoke.py --phases int8,cache,dist`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
 Each main-path run checks that every call of its kernels went through them.
 Weights are random, from a seed. Exits non-zero, before printing any
@@ -60,6 +73,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import shutil
@@ -87,6 +101,7 @@ from dsdiff_torch.models.attention import AttentionBlock
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
 from dsdiff_torch.ops import fused_norm as fn
+from dsdiff_torch.ops import quant
 from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.step import TaskConfig, train_loss
 from dsdiff_torch.train.surgery import convert_stream_layout
@@ -314,6 +329,18 @@ GRAD_NOISE_FLOOR = 1e-3
 # the EMA after the first update is 0.1 p0 + 0.9 p1 (decay min(0.9999, 1/10))
 # up to f32 rounding of the two products and the sum
 EMA_RTOL = 1e-6
+
+
+# the int8, cache and dist phases (PR 9): the int8 convs timed, the H100
+# SXM's dense int8 tensor-core peak at 700 W, the fit steps after the first,
+# and the cache's batch against its plain version: the same grid_sample per
+# sample, so f32 rounding at most
+INT8_HEAVIEST = 4
+INT8_PEAK_OPS = 1979e12
+CACHE_STEPS = 3
+DIST_STEPS = 5
+CACHE_TOL = 1e-5
+_STORE: dict = {}
 
 
 def fail(msg: str):
@@ -1804,7 +1831,67 @@ def _latent_trainer(latent_cfg, workdir: Path, smi: str) -> dict:
                                    IMAGE // 8, 4), f"frames {frames.shape}")
             check(frames.abs().max().item() <= 1.0,
                   "latent x0 frames outside [-1, 1]")
+    launches["latent_predict"] = _latent_predict(trainer, latent_cfg, workdir,
+                                                 run, smi)
     return launches
+
+
+def _latent_predict(trainer, latent_cfg, workdir: Path, run: Path,
+                    smi: str) -> int:
+    """The latent ``Trainer.predict`` and ``python -m dsdiff_torch.cli.sample``
+    (no ``--device``) on the run's checkpoint, each on a split of one test
+    case: one NIfTI volume each. Returns predict's attention launches."""
+    root = Path(latent_cfg.get("h5_2d_img_dir"))
+    split = f"images_ts_{IMAGE}"
+    case = sorted(p.name for p in (root / split).iterdir())[0]
+    (root / "images_ts_one").mkdir()
+    (root / "images_ts_one" / case).symlink_to(root / split / case)
+    vbs = int(latent_cfg.get("val_batch_size"))
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    out_dir, _ = trainer.predict(out_dir=workdir / "latent_pred",
+                                 split="images_ts_one")
+    wall = time.perf_counter() - t0
+    launched = fa.LAUNCHES - before
+    vols = sorted(out_dir.glob("*_pred.nii.gz"))
+    print(f"[latent] predict: one case of {FIT_SLICES} slices in batches of "
+          f"{vbs}, {len(vols)} volume in {wall:.2f} s, {launched} attention "
+          f"launches [{smi}]")
+    check(len(vols) == 1, f"latent predict wrote {len(vols)} volumes")
+    vol = read_nifti(vols[0]).data
+    check(vol.shape == (IMAGE, IMAGE, FIT_SLICES) and np.isfinite(vol).all(),
+          f"latent predicted volume {vol.shape}")
+    check(launched == -(-FIT_SLICES // vbs) * LATENT_REQUEST_CALLS,
+          f"latent predict: {launched} attention launches")
+
+    # the CLI on a store of the train split and that one test case; the
+    # merged config as JSON, which YAML reads as written (config_opt named
+    # the model file it merged already)
+    one = workdir / "one"
+    (one / split).mkdir(parents=True)
+    (one / f"images_tr_{IMAGE}").symlink_to(root / f"images_tr_{IMAGE}")
+    (one / split / case).symlink_to(root / split / case)
+    cfg_path = workdir / "latent_smoke.yaml"
+    cli_cfg = dict(latent_cfg.to_dict(), h5_2d_img_dir=str(one),
+                   filepath_img="")
+    cli_cfg.pop("config_opt", None)
+    cfg_path.write_text(json.dumps(cli_cfg))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "dsdiff_torch.cli.sample", "--config_file",
+         str(cfg_path), "--workdir", str(run), "--out_dir",
+         str(workdir / "latent_cli_pred")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    vols = sorted((workdir / "latent_cli_pred").glob("*_pred.nii.gz"))
+    print(f"[latent] python -m dsdiff_torch.cli.sample (net_mode latent): "
+          f"exit {out.returncode} in {wall:.1f} s, {len(vols)} volume, "
+          f"'{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ''}'"
+          f" [{smi}]")
+    check(out.returncode == 0, f"latent sample CLI failed: {out.stderr[-2000:]}")
+    check(len(vols) == 1, f"latent sample CLI wrote {len(vols)} volumes")
+    return launched
 
 
 def phase_latent(smi: str):
@@ -1837,6 +1924,376 @@ def phase_latent(smi: str):
     print(f"[latent] done in {time.perf_counter() - t_phase:.1f} s")
     return rows, launches
 
+
+
+# ------------------------------------------------ int8, cache, dist (PR 9)
+def shared_store() -> Path:
+    """One synthetic npy store (FIT_CASES x FIT_SLICES at 256²) for the
+    int8, cache and dist phases, made at first use; ``main`` removes it."""
+    if "root" not in _STORE:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+        synthetic.make_structured_dataset(tmp / "data", n_cases=FIT_CASES,
+                                          n_slices=FIT_SLICES, hw=IMAGE,
+                                          seed=SEED, store="npy")
+        _STORE.update(tmp=tmp, root=tmp / "data")
+    return _STORE["root"]
+
+
+def _eligible_calls(model, n_in: int) -> list:
+    """(name, input shape, channels-last, weight shape, stride, padding) of
+    each int8-eligible conv call in one forward of ``model`` at batch
+    SERVE_BATCH, 256², convs as they are."""
+    calls = []
+
+    def record(name):
+        def hook(mod, args):
+            x = args[0]
+            calls.append((name, tuple(x.shape),
+                          x.is_contiguous(memory_format=torch.channels_last),
+                          tuple(mod.weight.shape), tuple(mod.stride),
+                          tuple(mod.padding)))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(n))
+             for n, m in model.named_modules()
+             if hasattr(m, "int8") and quant.eligible(m)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    try:
+        with torch.inference_mode(), quant.suspended(model):
+            model(torch.randn(SERVE_BATCH, IMAGE, IMAGE, n_in, generator=gen,
+                              device="cuda"),
+                  torch.full((SERVE_BATCH,), 500.0, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _conv_ops(shape, w, stride) -> int:
+    B, _, H, W = shape
+    O, I, kh, kw = w
+    return 2 * B * (H // stride[0]) * (W // stride[1]) * O * I * kh * kw
+
+
+def _int8_exact(calls) -> int:
+    """int8_sums against an f64 conv of the same int8 operands at every
+    distinct eligible shape: equal, exactly. Returns the shapes held."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    distinct = sorted({c[1:2] + c[3:] for c in calls})
+    for shape, w, stride, pad in distinct:
+        x = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        wi = torch.randint(-127, 128, w, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        got = quant.int8_sums(x, quant.pack_weight(wi), w[2:], w[0], stride,
+                              pad)
+        want = F.conv2d(x.double(), wi.double(), stride=stride, padding=pad)
+        check(torch.equal(got.double(), want.permute(0, 2, 3, 1)),
+              f"int8 sums differ from the f64 conv at {shape}, {w}, {stride}")
+        del x, wi, got, want
+    return len(distinct)
+
+
+def _int8_rows(calls, smi: str) -> list:
+    """The int8 conv (quantise, im2col, ``torch._int_mm``, dequantise)
+    against the bf16 cuDNN conv, event-timed on rotated inputs, at the
+    INT8_HEAVIEST shapes with the most operations in a forward."""
+    counts = collections.Counter(c[1:] for c in calls)
+    heaviest = sorted(counts, key=lambda k: -_conv_ops(k[0], k[2], k[3])
+                      * counts[k])[:INT8_HEAVIEST]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows = []
+    for key in heaviest:
+        shape, channels_last, w, stride, pad = key
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        weight = torch.randn(w, generator=gen, device="cuda") * 0.05
+        bias = torch.randn(w[0], generator=gen, device="cuda") * 0.1
+        w_i8, w_scale = quant.quantize_weight(weight)
+        packed = quant.pack_weight(w_i8)
+        wb, bb = weight.bfloat16(), bias.bfloat16()
+        inputs = rotated((x,), x.numel() * 2)
+        int8_ms = time_ms_cycling(
+            lambda a: quant.int8_conv(a, w_i8, w_scale, bias, stride, pad,
+                                      packed=packed), inputs, 40)
+        bf16_ms = time_ms_cycling(
+            lambda a: F.conv2d(a, wb, bb, stride, pad), inputs, 40)
+        B, C, H, W = shape
+        out_elems = B * w[0] * (H // stride[0]) * (W // stride[1])
+        ops = _conv_ops(shape, w, stride)
+        t_bytes = (x.numel() * 2 + w_i8.numel() + out_elems * 2) / PEAK_BYTES_PER_S
+        t_ops = ops / INT8_PEAK_OPS
+        rows.append(dict(
+            shape=list(shape), weight=list(w), stride=list(stride),
+            per_forward=counts[key], int8_ms=int8_ms, bf16_cudnn_ms=bf16_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            gops=ops / 1e9))
+        print(f"[int8] conv {w[1]}->{w[0]} {w[2]}x{w[3]} stride {stride[0]} "
+              f"on {list(shape)}: {counts[key]} a forward; int8 {int8_ms:.5f} "
+              f"ms, bf16 cuDNN {bf16_ms:.5f} ms, bound {rows[-1]['bound_ms']:.5f}"
+              f" ms ({rows[-1]['bound_by']}) [{smi}]")
+        del x, inputs
+    return rows
+
+
+def _timed_request(trainer, cond, x_T):
+    """(sample, wall s, peak GiB, attention launches, int8 convs) of one
+    request through ``trainer.sample_fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_before, q_before = fa.LAUNCHES, quant.LAUNCHES
+    t0 = time.perf_counter()
+    out = trainer.sample_fn(cond, None, x_T)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30,
+            fa.LAUNCHES - fa_before, quant.LAUNCHES - q_before)
+
+
+def phase_int8(smi: str):
+    """The flagship at full width served with int8 convolutions: the sums
+    exact at every eligible shape, the four heaviest timed against cuDNN,
+    DDIM-20 requests with ``set_sampler(int8=True)`` and ``'static'``
+    (calibrated on the synthetic store's val split), the bf16 request
+    restored bit for bit by ``int8=False``, and an int8 request on the
+    cached ``ds_diff_split`` sampler. Returns (conv rows, attention
+    launches by path, int8 conv launches)."""
+    torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    trainer = Trainer(_fit_config(shared_store()), device="cuda")
+    random_params(trainer.model, SEED)
+    trainer.reset_state()
+    trainer._refresh_sample_model()
+    calls = _eligible_calls(trainer.sample_model, trainer.in_ch)
+    per_forward = len(calls)
+    check(per_forward == len({c[0] for c in calls}) > 0,
+          "an eligible conv ran twice in a forward")
+    held = _int8_exact(calls)
+    print(f"[int8] {per_forward} eligible convs a forward (of "
+          f"{sum(hasattr(m, 'int8') for m in trainer.sample_model.modules())}"
+          f"), {held} distinct shapes: int32 sums equal the f64 conv's, "
+          f"exactly")
+    rows = _int8_rows(calls, smi)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
+                       generator=gen, device="cuda")
+    x_T = torch.randn(SERVE_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                      device="cuda")
+    per_request = CALLS_PER_FORWARD * DDIM_STEPS
+    bf16, wall, peak, n_attn, _ = _timed_request(trainer, cond, x_T)
+    print(f"[int8] bf16 request: {wall:.4f} s, {SERVE_BATCH / wall:.3f} "
+          f"slices/s, peak {peak:.3f} GiB [{smi}]")
+    fa.LAUNCHES = quant.LAUNCHES = 0  # count only the main path from here
+    launches = {}
+    for mode in (True, "static"):
+        t0 = time.perf_counter()
+        trainer.set_sampler(int8=mode)
+        setup = time.perf_counter() - t0
+        out, wall, peak, n_attn, n_q = _timed_request(trainer, cond, x_T)
+        name = "int8_dynamic" if mode is True else "int8_static"
+        launches[name] = n_attn
+        diff = (out - bf16).abs().max().item()
+        print(f"[int8] {name} request: {wall:.4f} s, {SERVE_BATCH / wall:.3f} "
+              f"slices/s, peak {peak:.3f} GiB, {n_q} int8 convs "
+              f"({n_q / DDIM_STEPS:g} a forward), {n_attn} attention launches"
+              f"; max |int8 - bf16| {diff:.4f}; set_sampler {setup:.2f} s"
+              + (f" (calibration: {len(trainer._act_scales)} scales)"
+                 if mode == "static" else "") + f" [{smi}]")
+        _check_sample(out, SERVE_BATCH, IMAGE, True, name)
+        check(n_q == per_forward * DDIM_STEPS,
+              f"{name}: {n_q} int8 convs, not {per_forward} x {DDIM_STEPS}")
+        check(n_attn == per_request, f"{name}: {n_attn} attention launches")
+        check(diff > 0, f"{name}: the request equals the bf16 one")
+    trainer.set_sampler(int8=False)
+    again, wall, _, n_attn, n_q = _timed_request(trainer, cond, x_T)
+    launches["int8_restored"] = n_attn
+    print(f"[int8] set_sampler(int8=False): {wall:.4f} s, {n_q} int8 convs, "
+          f"the bf16 request bit for bit: {torch.equal(again, bf16)}")
+    check(torch.equal(again, bf16) and n_q == 0,
+          "int8=False does not restore the bf16 request")
+    q_full = quant.LAUNCHES
+    del trainer, bf16, again, out
+
+    cached = _serving_trainer(SPLIT_CONFIG)
+    cached.set_sampler(int8=True)
+    counted = []
+    hooks = [m.register_forward_pre_hook(lambda *a: counted.append(1))
+             for m in cached.sample_model.modules()
+             if hasattr(m, "int8") and quant.eligible(m)]
+    out, wall, peak, n_attn, n_q = _timed_request(cached, cond, x_T)
+    for h in hooks:
+        h.remove()
+    launches["int8_cached"] = n_attn
+    print(f"[int8] cached (ds_diff_split) int8 request: {wall:.4f} s, "
+          f"{SERVE_BATCH / wall:.3f} slices/s, peak {peak:.3f} GiB, {n_q} "
+          f"int8 convs of {len(counted)} eligible calls, {n_attn} attention "
+          f"launches [{smi}]")
+    _check_sample(out, SERVE_BATCH, IMAGE, True, "int8 cached")
+    check(n_q == len(counted) > 0, f"cached: {n_q} int8 convs of "
+          f"{len(counted)} eligible calls")
+    check(n_attn == CACHED_REQUEST_CALLS, f"cached: {n_attn} attention launches")
+    print(f"[int8] done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, q_full + n_q
+
+
+def _h2d_copies(trace: Path, batch_bytes: int):
+    """(every host-to-device copy, those of at least a batch's bytes) in a
+    ``torch.profiler`` chrome trace: (count, bytes) each."""
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    sizes = [int((e.get("args") or {}).get("bytes", 0)) for e in events
+             if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    big = [s for s in sizes if s >= batch_bytes]
+    return (len(sizes), sum(sizes)), (len(big), sum(big))
+
+
+def phase_cache(smi: str):
+    """``fit`` at the config's batch 32 with ``device_data_cache: true``
+    against the host loader's ``fit`` at the same batch; the steady state's
+    host-to-device copies from ``torch.profiler``; the cache's batch
+    against ``DeviceCache.plain_batch`` on the same draws."""
+    torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    root = shared_store()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cache_"))
+    try:
+        host = Trainer(_fit_config(root), tmp / "host", device="cuda")
+        meter = _Meter(host)
+        host.fit(num_epochs=3, max_steps=1 + CACHE_STEPS, log_every=1,
+                 val_on_done=False)
+        host_ms = statistics.median(w for w, _ in meter.steps[1:]) * 1e3
+        del host, meter
+        cfg = dict(_fit_config(root), device_data_cache=True)
+        trainer = Trainer(cfg, tmp / "cache", device="cuda")
+        t0 = time.perf_counter()
+        trainer.fit(max_steps=1, log_every=1, val_on_done=False)
+        first_s = time.perf_counter() - t0
+        cache = trainer.device_cache
+        copies = []
+        to_device = trainer._to_device
+        trainer._to_device = lambda a: copies.append(1) or to_device(a)
+        meter = _Meter(trainer)
+        trainer.fit(num_epochs=3, max_steps=1 + CACHE_STEPS, log_every=1,
+                    val_on_done=False)
+        walls = [w for w, _ in meter.steps]
+        cache_ms = statistics.median(walls) * 1e3
+        meter = _Meter(trainer)
+        fa.LAUNCHES = 0  # count only the main path from here
+        trace = tmp / "cache_trace.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step = trainer.fit(num_epochs=3, max_steps=1 + 2 * CACHE_STEPS,
+                               log_every=1, val_on_done=False)
+        prof.export_chrome_trace(str(trace))
+        launches = fa.LAUNCHES
+        batch_bytes = FIT_BATCH * IMAGE * IMAGE * 2  # a batch's bf16 image
+        (n_all, b_all), (n_big, b_big) = _h2d_copies(trace, batch_bytes)
+        profiled = [w for w, _ in meter.steps]
+        print(f"[cache] split on the card: {cache.n} slices "
+              f"{list(cache.images.shape[1:])} + target, {cache.images.dtype}"
+              f", {(cache.images.numel() + cache.targets.numel()) * 2 / 2**20:.1f}"
+              f" MiB; first fit call (upload + 1 step) {first_s:.2f} s")
+        print(f"[cache] fit steps 2-{1 + CACHE_STEPS} at batch {FIT_BATCH}: "
+              + ", ".join(f"{w * 1e3:.2f} ms" for w in walls)
+              + f" (median {cache_ms:.2f} ms); the host loader's median of "
+              f"steps 2-{1 + CACHE_STEPS} {host_ms:.2f} ms [{smi}]")
+        print(f"[cache] the same steps again under torch.profiler ("
+              + ", ".join(f"{w * 1e3:.2f} ms" for w in profiled)
+              + f"): host-to-device copies {n_all} ({b_all} bytes), {n_big} "
+              f"of a batch or more; batch copies through the loader path: "
+              f"{len(copies)}")
+        check(step == 1 + 2 * CACHE_STEPS,
+              f"the cached fit ended at step {step}")
+        check(n_big == 0 and not copies,
+              f"{n_big} batch-sized host-to-device copies in the cached fit")
+        check(all(n == CALLS_PER_FORWARD for _, n in meter.steps)
+              and launches == CACHE_STEPS * CALLS_PER_FORWARD,
+              f"cached fit attention launches {meter.steps}")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        draws = cache.draw(FIT_BATCH, gen, float(cfg["augmentation_prob"]))
+        got = cache.batch(draws)
+        plain = cache.plain_batch(draws)
+        err = max((got[k] - plain[k]).abs().max().item()
+                  for k in ("image", "target"))
+        print(f"[cache] a batch of {FIT_BATCH}: {int(draws.do_rot.sum())} "
+              f"rotated, {int(draws.flip_h.sum())} / {int(draws.flip_w.sum())}"
+              f" flipped; max |batch - plain gather + augment| {err:.3e} "
+              f"(tol {CACHE_TOL:.0e})")
+        check(err <= CACHE_TOL, f"the cache's batch differs by {err}")
+        print(f"[cache] done in {time.perf_counter() - t_phase:.1f} s")
+        return {"cache_fit": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dist(smi: str):
+    """One NCCL rank (world 1, a file store): the flagship ``fit`` through
+    the mesh path (data 1, fsdp 1) for DIST_STEPS steps at batch 32 against
+    the mesh-less ``fit`` from the same seed, cuDNN deterministic in both;
+    the parameters bit for bit (else within the spread of two mesh-less
+    runs)."""
+    import torch.distributed as tdist
+
+    from dsdiff_torch.parallel import dist as pdist
+    from dsdiff_torch.parallel import mesh as pmesh
+
+    torch.backends.cudnn.allow_tf32 = True
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    cfg = _fit_config(shared_store())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+
+    def run(name, mesh=None):
+        trainer = Trainer(cfg, tmp / name, device="cuda", mesh=mesh)
+        meter = _Meter(trainer)
+        step = trainer.fit(num_epochs=3, max_steps=DIST_STEPS, log_every=1,
+                           val_on_done=False)
+        check(step == DIST_STEPS, f"{name} fit ended at step {step}")
+        params = [p.detach().clone() for p in trainer.state.params]
+        return params, [w for w, _ in meter.steps], sum(
+            n for _, n in meter.steps)
+
+    try:
+        plain, plain_walls, _ = run("plain")
+        pdist.initialize(f"file://{tmp / 'store'}", 1, 0, backend="nccl")
+        check(tdist.get_backend() == "nccl" and pdist.process_count() == 1,
+              "not one NCCL rank")
+        fa.LAUNCHES = 0  # count only the main path from here
+        meshed, mesh_walls, launches = run("mesh", pmesh.make_mesh(1, 1))
+        diff = max((a - b).abs().max().item() for a, b in zip(meshed, plain))
+        same = all(torch.equal(a, b) for a, b in zip(meshed, plain))
+        floor = None
+        if not same:  # cuDNN or a kernel not deterministic: its own spread
+            again, _, _ = run("plain_again")
+            floor = max((a - b).abs().max().item()
+                        for a, b in zip(again, plain))
+        print(f"[dist] one NCCL rank, mesh data 1 x fsdp 1, fit {DIST_STEPS} "
+              f"steps at batch {FIT_BATCH}: " + ", ".join(
+                  f"{w * 1e3:.2f} ms" for w in mesh_walls)
+              + "; mesh-less: " + ", ".join(f"{w * 1e3:.2f} ms"
+                                            for w in plain_walls)
+              + f"; median of steps 2-{DIST_STEPS} "
+              f"{statistics.median(mesh_walls[1:]) * 1e3:.2f} vs "
+              f"{statistics.median(plain_walls[1:]) * 1e3:.2f} ms; parameters "
+              + ("bit for bit" if same else
+                 f"max |mesh - mesh-less| {diff:.3e} (two mesh-less runs: "
+                 f"{floor:.3e})") + f" [{smi}]")
+        check(same or diff <= floor,
+              f"the mesh path's parameters differ by {diff} (floor {floor})")
+        check(launches == DIST_STEPS * CALLS_PER_FORWARD,
+              f"{launches} attention launches in the mesh fit")
+        print(f"[dist] done in {time.perf_counter() - t_phase:.1f} s")
+        return {"dist_fit": launches}
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _per_forward(rows, key):
@@ -1928,8 +2385,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
     }]}
 
 
-PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "families",
-          "latent")
+PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
+          "cache", "dist", "families", "latent")
 
 
 def main(argv=None) -> None:
@@ -1967,6 +2424,19 @@ def main(argv=None) -> None:
         attn_launches["train"], attn_launches["serve_ema"] = phase_train(smi)
     if "fit" in phases:
         attn_launches.update(phase_fit(smi))
+    try:
+        if "int8" in phases:
+            int8_rows, int8_launches, int8_convs = phase_int8(smi)
+            attn_launches.update(int8_launches)
+            print("[int8] conv rows " + json.dumps(
+                {"int8_conv_launches": int8_convs, "rows": int8_rows}))
+        if "cache" in phases:
+            attn_launches.update(phase_cache(smi))
+        if "dist" in phases:
+            attn_launches.update(phase_dist(smi))
+    finally:
+        if "tmp" in _STORE:
+            shutil.rmtree(_STORE.pop("tmp"), ignore_errors=True)
     if "families" in phases:
         attn_launches.update(phase_families(smi))
     if "latent" in phases:

@@ -10,7 +10,9 @@ predict, metric report):
 restores the latest checkpoint under ``<workdir>/checkpoint``, samples the
 test split from the EMA weights and writes ``*_pred.nii.gz`` volumes and,
 given a ground-truth root, ``metrics.csv``. It runs on the card unless
-``--device cpu``. int8 serving is not ported yet (ROADMAP A16).
+``--device cpu``. ``--int8`` serves the denoiser's convolutions in int8
+with dynamic activation scales, ``--int8 static`` with scales calibrated
+on the val split (``Trainer.set_sampler``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ def main(argv=None):
     ap.add_argument("--sampler", default=None,
                     help="override sampler (ddim|dpm++|ancestral|...)")
     ap.add_argument("--sample_steps", type=int, default=None)
+    ap.add_argument("--int8", nargs="?", const="dynamic",
+                    choices=("dynamic", "static"), default=None,
+                    help="serve the convolutions in int8 (ops/quant.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to sample on (default cuda)")
     args = ap.parse_args(argv)
@@ -51,6 +56,8 @@ def main(argv=None):
     trainer.state, trainer.sampler_state = trainer.ckpt.restore(
         trainer.state, trainer.sampler_state
     )
+    if args.int8:
+        trainer.set_sampler(int8="static" if args.int8 == "static" else True)
     out_dir, rows = trainer.predict(
         out_dir=args.out_dir,
         template_root=cfg.get("filepath_img"),

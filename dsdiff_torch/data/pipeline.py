@@ -28,6 +28,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..parallel import dist as pdist
 from . import h5store, transforms
 
 __all__ = ["SliceDataset", "BatchLoader"]
@@ -108,7 +109,8 @@ class BatchLoader:
     computes the identical global index order but materializes only its
     contiguous ``batch_size/process_count`` rows (from ``process_index``) of
     each batch, the reference's DistributedSampler
-    (trainers/trainer_ds_diff.py:268-311). One process by default.
+    (trainers/trainer_ds_diff.py:268-311). Both default to the process
+    group's (``parallel.dist``): one process and index 0 without one.
     """
 
     def __init__(
@@ -119,8 +121,8 @@ class BatchLoader:
         shuffle: bool = True,
         drop_last: bool = True,
         prefetch: int = 2,
-        process_count: int = 1,
-        process_index: int = 0,
+        process_count: int | None = None,
+        process_index: int | None = None,
     ):
         self.ds = dataset
         self.batch_size = batch_size
@@ -128,6 +130,10 @@ class BatchLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
+        if process_count is None:
+            process_count = pdist.process_count()
+        if process_index is None:
+            process_index = pdist.process_index()
         self.process_count = int(process_count)
         self.process_index = int(process_index)
         if batch_size % self.process_count:

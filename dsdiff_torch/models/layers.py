@@ -81,13 +81,17 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` with f32 parameters that computes in ``dtype``."""
+    """``nn.Conv2d`` with f32 parameters that computes in ``dtype``; with an
+    ``int8`` attached (``ops.quant.quantize_model``) it runs that instead."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = dtype
+        self.int8 = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8 is not None:
+            return self.int8(x, self.weight)
         cd = self.compute_dtype
         return self._conv_forward(x.to(cd), self.weight.to(cd),
                                   _cast(self.bias, cd))

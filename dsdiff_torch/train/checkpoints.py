@@ -17,6 +17,12 @@ directory named by a step number is whole. Files are read with
 anchor. A checkpoint written by the other encoder stream layout (stacked
 ``encoders`` vs sequential ``encoder_{i}``) is converted through
 ``train.surgery.convert_stream_layout`` on restore.
+
+In a process group (a trainer under a mesh), every rank calls ``save``,
+which gathers a sharded state whole; rank 0 writes the step and prunes,
+then every rank waits for it. ``restore`` on every rank reads the same
+files and ``TrainState.load`` keeps the rank's shards, so a checkpoint
+written by any number of ranks restores in any other number.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
 from . import schedule_sampler as ss
 from .state import TrainState
 from .surgery import convert_stream_layout
@@ -112,11 +119,15 @@ class CheckpointManager:
              sampler_state: ss.SamplerState | None = None,
              metrics: dict | None = None) -> Path:
         final = self.directory / str(int(step))
+        full = state.state_dict()  # every rank: gathers a sharded state
+        if not pdist.is_main():
+            pdist.sync_hosts()
+            return final
         tmp = self.directory / f"{int(step)}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
         payload = {}
-        for key, value in state.state_dict().items():
+        for key, value in full.items():
             payload[key] = ({n: t.detach().cpu() for n, t in value.items()}
                             if isinstance(value, dict) else value)
         torch.save(payload, tmp / "state.pt")
@@ -130,6 +141,7 @@ class CheckpointManager:
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
         self._prune()
+        pdist.sync_hosts()
         return final
 
     def _prune(self) -> None:

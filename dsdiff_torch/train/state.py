@@ -18,6 +18,14 @@ each in device memory.
   micro-gradients, then one clip-and-AdamW update on every k-th call and
   none on the others. As in the JAX package's ``TrainState``, the EMA
   update and ``step`` run on every call.
+- Under a mesh (``parallel.mesh``) with a sharding plan, a split leaf's f32
+  master copy, EMA, moments and accumulator hold only this rank's shard
+  (its part of the leaf's split axis over the ``fsdp`` ranks); the
+  optimizer updates the shard from the same part of the summed gradient,
+  the global-norm clip sums the shards' squares over the ``fsdp`` ranks,
+  and the model's parameter is gathered whole again from the shards.
+  ``state_dict`` and ``ema_state_dict`` gather whole leaves; ``load``
+  takes whole leaves and keeps this rank's shards.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["TrainState", "AdamW", "make_optimizer", "cosine_lr", "ema_decay_at"]
@@ -72,6 +81,9 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # updates applied
         self.accum_steps = int(accum_steps)
+        # the clip's norm of a list of gradients (a sharded state's sums
+        # its shards over the ranks)
+        self.norm_fn = global_norm
         # MultiSteps' accumulator and its position in the cycle
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.accum_steps > 1 else [])
@@ -99,7 +111,7 @@ class AdamW:
 
     def _update(self, grads: list) -> None:
         if self.grad_clip:
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
             # optax: g where norm < max_norm, else g / norm * max_norm
             factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                  self.grad_clip / norm)
@@ -156,27 +168,79 @@ class TrainState:
 
     ``step`` counts ``apply_gradients`` calls (applied updates, unless
     accumulating); ``version`` changes whenever the parameters or the EMA
-    change, so a serving copy knows when to refresh.
+    change, so a serving copy knows when to refresh. With a ``mesh`` and a
+    ``plan`` ({name: axis or None}, ``parallel.mesh.param_sharding``) the
+    leaves the plan splits are held as shards (``master``).
     """
 
     def __init__(self, model: nn.Module, tx_factory: Callable[[list], AdamW],
-                 ema_decay: float = 0.9999):
+                 ema_decay: float = 0.9999, mesh=None,
+                 plan: dict | None = None):
         self.model = model
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
         self.tx_factory = tx_factory
         self.ema_decay = ema_decay
+        self.mesh = mesh
+        plan = plan or {}
+        self.axes = [plan.get(n) if mesh is not None and mesh.n_fsdp > 1
+                     else None for n in self.names]
         self.version = 0
         self.reset()
+
+    def _shard(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf ``i`` (a view; the tensor itself
+        for a leaf that is not split)."""
+        ax = self.axes[i]
+        if ax is None:
+            return t
+        size = t.shape[ax] // self.mesh.n_fsdp
+        return t.narrow(ax, self.mesh.fsdp_index * size, size)
+
+    def _whole(self, i: int, shard: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` gathered whole from every ``fsdp`` rank's shard."""
+        ax = self.axes[i]
+        if ax is None:
+            return shard
+        shard = shard.contiguous()
+        parts = [torch.empty_like(shard) for _ in range(self.mesh.n_fsdp)]
+        dist.all_gather(parts, shard, group=self.mesh.fsdp_group)
+        return torch.cat(parts, dim=ax)
+
+    def _norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Global norm of gradients given as this rank's shards: the split
+        leaves' sums of squares are summed over the ``fsdp`` ranks."""
+        split = [g.float() for g, ax in zip(grads, self.axes) if ax is not None]
+        whole = [g.float() for g, ax in zip(grads, self.axes) if ax is None]
+        zero = torch.zeros((), device=grads[0].device)
+        sq_split = sum(((g * g).sum() for g in split), zero)
+        dist.all_reduce(sq_split, group=self.mesh.fsdp_group)
+        return torch.sqrt(sq_split + sum(((g * g).sum() for g in whole), zero))
+
+    @property
+    def sharded(self) -> bool:
+        return any(ax is not None for ax in self.axes)
 
     @torch.no_grad()
     def reset(self) -> None:
         """Start over from the model's current parameters: step 0, zero
         moments, EMA = parameters (the JAX ``TrainState.create``)."""
         self.step = 0
-        self.tx = self.tx_factory(self.params)
-        self.ema = [p.detach().float().clone() for p in self.params]
+        # f32 master parameters: the model's own, or this rank's shards
+        self.master = [p if ax is None else self._shard(i, p.detach()).clone()
+                       for i, (p, ax) in enumerate(zip(self.params, self.axes))]
+        self.tx = self.tx_factory(self.master)
+        if self.sharded:
+            self.tx.norm_fn = self._norm
+        self.ema = [m.detach().float().clone() for m in self.master]
         self.version += 1
+
+    def local_nbytes(self) -> int:
+        """Bytes of the state this rank holds: master parameters, EMA and
+        both moments (shards of split leaves, whole leaves otherwise)."""
+        return sum(t.numel() * t.element_size()
+                   for group in (self.master, self.ema, self.tx.mu, self.tx.nu)
+                   for t in group)
 
     @torch.no_grad()
     def load(self, params: dict, ema: dict, mu: dict, nu: dict, count: int,
@@ -189,38 +253,54 @@ class TrainState:
         pairs = [(ema, self.ema), (mu, self.tx.mu), (nu, self.tx.nu)]
         if self.tx.accum_steps > 1 and acc is not None:
             pairs.append((acc, self.tx.acc))
+        if self.sharded:
+            pairs.append((params, self.master))
         for values, dst in pairs:
-            for name, d in zip(self.names, dst):
-                d.copy_(values[name])
+            for i, (name, d) in enumerate(zip(self.names, dst)):
+                if d is not self.params[i]:
+                    d.copy_(self._shard(i, values[name].to(d.device)))
         self.tx.count = int(count)
         self.tx.mini_step = int(mini_step)
         self.step = int(step)
         self.version += 1
 
+    def _gathered(self, shards: Sequence[torch.Tensor]) -> dict:
+        return {n: self._whole(i, t)
+                for i, (n, t) in enumerate(zip(self.names, shards))}
+
+    @torch.no_grad()
     def state_dict(self) -> dict:
-        """Everything ``load`` takes, as tensors on their device."""
-        names = self.names
+        """Everything ``load`` takes, as whole tensors on their device (a
+        collective over the ``fsdp`` ranks when the state is sharded)."""
         out = {
-            "params": dict(zip(names, (p.detach() for p in self.params))),
-            "ema": dict(zip(names, self.ema)),
-            "mu": dict(zip(names, self.tx.mu)),
-            "nu": dict(zip(names, self.tx.nu)),
+            "params": dict(zip(self.names, (p.detach() for p in self.params))),
+            "ema": self._gathered(self.ema),
+            "mu": self._gathered(self.tx.mu),
+            "nu": self._gathered(self.tx.nu),
             "count": self.tx.count,
             "step": self.step,
             "mini_step": self.tx.mini_step,
         }
         if self.tx.accum_steps > 1:
-            out["acc"] = dict(zip(names, self.tx.acc))
+            out["acc"] = self._gathered(self.tx.acc)
         return out
 
     @torch.no_grad()
     def apply_gradients(self, grads: Sequence[torch.Tensor]) -> None:
-        self.tx.step(grads)
+        """One update from whole gradients (summed over the ranks under a
+        mesh): each shard takes its part."""
+        updated = self.tx.step([self._shard(i, g) for i, g in enumerate(grads)])
+        if updated and self.sharded:
+            for i, (p, m) in enumerate(zip(self.params, self.master)):
+                if m is not p:
+                    p.copy_(self._whole(i, m))
         decay = ema_decay_at(self.step, self.ema_decay)
         torch._foreach_mul_(self.ema, decay)
-        torch._foreach_add_(self.ema, self.params, alpha=1.0 - decay)
+        torch._foreach_add_(self.ema, self.master, alpha=1.0 - decay)
         self.step += 1
         self.version += 1
 
+    @torch.no_grad()
     def ema_state_dict(self) -> dict[str, torch.Tensor]:
-        return dict(zip(self.names, self.ema))
+        """The whole EMA by parameter name (gathered when sharded)."""
+        return self._gathered(self.ema)

@@ -15,6 +15,20 @@ package. Random draws come from an explicit ``torch.Generator``; ``t`` and
 ``noise`` may be given instead, so that a test can replay another
 framework's draws. The ResBlocks' dropout masks come from the same
 generator (``models.layers.dropout_generator``).
+
+Under a mesh (``parallel.mesh``) a step computes what one process computes
+on the global batch: each rank holds its rows of it (``batch``), takes its
+rows of one draw of t, noise and condition dropout for the global batch
+(given ``t`` and ``noise`` are global), and its objective is its part of
+the global one, so that the gradients summed over the ranks are the global
+gradients: its rows' weighted loss over the global batch size, plus the
+disentangle losses on the feature views gathered from every rank
+(``parallel.dist.gather_rows``, whose backward sums the ranks' gradients)
+over the number of ranks. Those losses mix samples (a ratio of sums over
+every pair of views, labels tied across the batch), so a mean of per-rank
+losses would be another loss. The schedule sampler is updated from the
+gathered per-sample losses; metrics are the global ones. A rank's dropout
+masks come from its own generator, seeded from the step's and its rank.
 """
 from __future__ import annotations
 
@@ -22,7 +36,9 @@ import dataclasses
 import inspect
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core import losses as L
@@ -30,6 +46,7 @@ from ..core import dpm_solver, palette, process, sampling
 from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
 from ..models.layers import dropout_generator
+from ..parallel import dist as pdist
 from . import schedule_sampler as ss
 from .state import TrainState, global_norm
 
@@ -71,13 +88,26 @@ def _denoiser(model: nn.Module, cond: torch.Tensor | None):
     return fn
 
 
+# the feature views each disentangle loss reads, stream-major [n, B, ...]
+_FEATURE_VIEWS = {"ds": ("content", "style", "anatomy", "lesion"),
+                  "disc": ("common", "distinct")}
+
+
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
 def train_loss(task: TaskConfig, sched: DiffusionSchedule, model: nn.Module,
                x0: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
-               noise: torch.Tensor, weights: torch.Tensor):
+               noise: torch.Tensor, weights: torch.Tensor, mesh=None):
     """The train step's objective: ``mean(weights * training_losses)`` plus
     ``disen_lambda * (C-S + S-A-L)`` for 'ds' features or ``disen_lambda *
     com/dist`` for 'disc' features. Returns (loss, per-element loss [B],
-    metrics dict of 0-d tensors)."""
+    metrics dict of 0-d tensors). Under a distributed ``mesh`` the inputs
+    are this rank's rows and the loss is its part of the global objective
+    (the module docstring); the metrics are global."""
+    ranks = mesh.world if _distributed(mesh) else 1
+    n_total = x0.shape[0] * ranks
     terms, feats = process.training_losses(
         sched, _denoiser(model, cond), x0, t, noise,
         parameterization=task.parameterization,
@@ -86,35 +116,51 @@ def train_loss(task: TaskConfig, sched: DiffusionSchedule, model: nn.Module,
         vlb_weight=task.vlb_weight,
         elbo_weight=task.elbo_lambda,
     )
-    loss = (weights * terms["loss"]).mean()
-    metrics = {"loss_simple": terms["mse"].mean()}
+    loss = (weights * terms["loss"]).sum() / n_total
+    sums = {"loss_simple": terms["mse"].sum() / n_total}
     if "vb" in terms:
-        metrics["loss_vlb"] = terms["vb"].mean()
-    if task.feature_kind == "ds" and feats is not None:
-        cs, sal, _ = L.ds_disentangle_losses(
-            feats, task.disentangle_mode, task.disen_temperature
-        )
-        loss = loss + task.disen_lambda * (cs + sal)
-        metrics["loss_disen_cs"] = cs
-        metrics["loss_disen_sal"] = sal
-    elif task.feature_kind == "disc" and feats is not None:
-        disen = L.disc_disentangle_loss(feats)
-        loss = loss + task.disen_lambda * disen
-        metrics["loss_disen"] = disen
-    metrics["loss"] = loss
+        sums["loss_vlb"] = terms["vb"].sum() / n_total
+    if ranks > 1:  # the global means: every rank's part summed
+        parts = torch.stack([loss] + list(sums.values())).detach()
+        dist.all_reduce(parts)
+        main = parts[0]
+        metrics = dict(zip(sums, parts[1:]))
+    else:
+        main = loss
+        metrics = sums
+    if task.feature_kind in _FEATURE_VIEWS and feats is not None:
+        if _distributed(mesh):
+            feats = {k: pdist.gather_rows(feats[k], 1)
+                     for k in _FEATURE_VIEWS[task.feature_kind]}
+        if task.feature_kind == "ds":
+            cs, sal, _ = L.ds_disentangle_losses(
+                feats, task.disentangle_mode, task.disen_temperature
+            )
+            disen = cs + sal
+            metrics["loss_disen_cs"] = cs
+            metrics["loss_disen_sal"] = sal
+        else:
+            disen = L.disc_disentangle_loss(feats)
+            metrics["loss_disen"] = disen
+        # the same global value on every rank, whose gradients the ranks sum
+        loss = loss + task.disen_lambda * disen / ranks
+        main = main + task.disen_lambda * disen
+    metrics["loss"] = main
     return loss, terms["loss"], metrics
 
 
-def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
+def make_train_step(task: TaskConfig, sched: DiffusionSchedule,
+                    mesh=None) -> Callable:
     """Returns ``step(state, sampler_state, batch, generator=None, t=None,
     noise=None) -> (state, sampler_state, metrics)``.
 
     ``batch`` holds NHWC ``target`` [B, H, W, C] and ``image`` (the
-    condition). ``state`` is updated in place and returned; ``metrics`` are
-    0-d f32 tensors: loss, loss_simple, loss_vlb (learned sigma),
-    loss_disen_cs and loss_disen_sal ('ds' features), loss_disen ('disc'
-    features), and grad_norm, the global norm of the gradients before any
-    clipping.
+    condition): under a distributed ``mesh``, this rank's rows of the global
+    batch, whose ``t`` and ``noise`` (drawn or given) are global. ``state``
+    is updated in place and returned; ``metrics`` are 0-d f32 tensors:
+    loss, loss_simple, loss_vlb (learned sigma), loss_disen_cs and
+    loss_disen_sal ('ds' features), loss_disen ('disc' features), and
+    grad_norm, the global norm of the gradients before any clipping.
     """
     if task.feature_kind not in (None, "ds", "disc"):
         raise ValueError(f"unknown feature kind '{task.feature_kind}'")
@@ -126,39 +172,67 @@ def make_train_step(task: TaskConfig, sched: DiffusionSchedule) -> Callable:
         x0 = batch["target"]
         cond = batch["image"]
         B = x0.shape[0]
-        t, weights = ss.sample_t(sampler_state, B, generator, t)
+        lo, hi, n_total = 0, B, B
+        if _distributed(mesh):
+            n_total = B * mesh.world
+            lo, hi = mesh.local_rows(n_total)
+        t, weights = ss.sample_t(sampler_state, n_total, generator, t)
         t, weights = t.to(x0.device), weights.to(x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
-                                device=x0.device)
+            noise = torch.randn((n_total,) + x0.shape[1:], generator=generator,
+                                dtype=x0.dtype, device=x0.device)
+        noise = noise.to(x0.device)
         if task.cond_dropout > 0:
-            keep = torch.rand((B, 1, 1, 1), generator=generator,
+            keep = torch.rand((n_total, 1, 1, 1), generator=generator,
                               device=cond.device) >= task.cond_dropout
-            cond = cond * keep.to(cond.dtype)
+            cond = cond * keep[lo:hi].to(cond.dtype)
 
         metrics, per_elem = _optimizer_step(
-            state, lambda model: train_loss(task, sched, model, x0, cond, t,
-                                            noise, weights), generator)
-        sampler_state = ss.update_state(sampler_state, t, per_elem.detach())
+            state, lambda model: train_loss(
+                task, sched, model, x0, cond, t[lo:hi], noise[lo:hi],
+                weights[lo:hi], mesh), generator, mesh)
+        per_elem = per_elem.detach()
+        if _distributed(mesh) and sampler_state.kind != "uniform":
+            per_elem = pdist.all_gather_rows(per_elem)
+        sampler_state = ss.update_state(sampler_state, t, per_elem)
         return state, sampler_state, metrics
 
     return step
 
 
+def _rank_generator(generator: torch.Generator | None, mesh):
+    """The generator of this rank's dropout draws: the step's own for one
+    process, else one seeded from the step's seed and the rank."""
+    if generator is None or not _distributed(mesh) or mesh.world == 1:
+        return generator
+    words = np.random.SeedSequence([generator.initial_seed(), mesh.rank]
+                                   ).generate_state(2)
+    return torch.Generator(device=generator.device).manual_seed(
+        int(words[0]) << 32 | int(words[1]))
+
+
 def _optimizer_step(state: TrainState, objective: Callable,
-                    generator: torch.Generator | None) -> tuple[dict, object]:
+                    generator: torch.Generator | None,
+                    mesh=None) -> tuple[dict, object]:
     """One optimizer step on ``objective(model) -> (loss, aux, metrics)``:
     the model in training mode with its dropout draws bound to
-    ``generator``, backward, grad_norm, then the optimizer and EMA update of
-    ``state``. Returns (the metrics, detached f32; aux)."""
+    ``generator``, backward, the gradients summed over the ranks of a
+    distributed ``mesh`` (one all-reduce of them all), grad_norm, then the
+    optimizer and EMA update of ``state``. Returns (the metrics, detached
+    f32; aux)."""
     model = state.model
     model.train()
     model.zero_grad(set_to_none=True)
-    with dropout_generator(model, generator):
+    with dropout_generator(model, _rank_generator(generator, mesh)):
         loss, aux, metrics = objective(model)
         loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in state.params]
+    if _distributed(mesh):
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat)
+        grads = list(torch._utils._unflatten_dense_tensors(flat, grads))
+        del flat
     metrics["grad_norm"] = global_norm(grads)
     state.apply_gradients(grads)
     del grads

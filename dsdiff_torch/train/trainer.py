@@ -23,6 +23,18 @@ image dumps, ``progressive_denoise`` and ``predict`` (test slices -> NIfTI
 volumes -> metric report). The data store is the H5 slice store
 (``data_store: h5``, the default) or the npy case store (``npy``).
 
+Under a mesh (``Trainer(cfg, workdir, mesh=parallel.mesh.make_mesh(...))``,
+every rank of the process group building its own trainer) each rank trains
+on its rows of every global batch (the loader's ``process_index`` /
+``process_count`` are its rank and the world; the device cache draws the
+global batch and makes its rows), the train state follows the JAX ZeRO plan
+(``fsdp_min_size``, default 2**18 elements) and a step equals one process's
+on the global batch (``train.step``). ``validate`` and ``predict`` run the
+whole of each batch on every rank, which gives every rank one process's
+result; logs, the journal, image dumps, checkpoints and predicted volumes
+are written by rank 0 alone, and every rank restores its shards from a
+checkpoint.
+
 Random numbers: ``fit`` seeds a generator on the trainer's device for each
 step from (seed, number of earlier ``fit`` calls of this trainer, step), so
 a run resumed at step k in a new process repeats the draws of the run that
@@ -47,6 +59,9 @@ from ..data.pipeline import BatchLoader, SliceDataset
 from ..eval.assemble import VolumeAssembler, evaluate_predictions
 from ..models import build_model, make_cached_denoiser
 from ..models.layers import hold_in_compute_dtype
+from ..ops import quant
+from ..parallel import dist as pdist
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import flax_to_state_dict, train_state_from_flax
 from ..utils.logging import KVLogger, journal
@@ -147,16 +162,20 @@ def model_params(cfg: Config, model_name: str, n_cond: int,
                 remat=bool(cfg.get("remat", False)))
 
 
-def _step_seed(seed: int, fit_call: int, step: int) -> int:
+def _step_seed(seed: int, fit_call: int, step: int, *stream: int) -> int:
     """The generator seed of train step ``step`` in ``fit`` call
-    ``fit_call``."""
-    words = np.random.SeedSequence([seed, fit_call, step]).generate_state(2)
+    ``fit_call`` (and of another ``stream`` of that step's draws: 1, the
+    device data cache's)."""
+    words = np.random.SeedSequence([seed, fit_call, step, *stream]
+                                   ).generate_state(2)
     return int(words[0]) << 32 | int(words[1])
 
 
 class Trainer:
     """Builds the data, schedule, model, train state and samplers from a run
-    config. ``device`` defaults to ``"cuda"``. ``workdir`` (needed by
+    config. ``device`` defaults to ``"cuda"``; ``mesh`` (a
+    ``parallel.mesh.Mesh``) trains data-parallel with a ZeRO-sharded state
+    (the module docstring). ``workdir`` (needed by
     ``fit``, ``validate`` and ``predict``) receives ``logs/`` (metrics as
     text, JSONL and CSV; the run journal ``log_txt.txt`` at its root),
     ``checkpoint/<step>/``, ``images/`` and ``predictions/``.
@@ -189,15 +208,20 @@ class Trainer:
       ``CheckpointManager``): as the JAX package's.
     """
 
-    def __init__(self, cfg: Mapping, workdir=None, device=None):
+    def __init__(self, cfg: Mapping, workdir=None, device=None, mesh=None):
         cfg = Config.wrap(dict(cfg))
         self.cfg = cfg
         self.device = resolve_device(device or "cuda")
+        self.mesh = mesh
+        self.ranks = mesh.world if mesh is not None and mesh.distributed else 1
+        self.rank = mesh.rank if self.ranks > 1 else 0
+        self.is_main = pdist.is_main()
         self.workdir = self.logger = self.ckpt = None
         if workdir is not None:
             self.workdir = Path(workdir)
             self.workdir.mkdir(parents=True, exist_ok=True)
-            self.logger = KVLogger(self.workdir / "logs")
+            self.logger = (KVLogger(self.workdir / "logs") if self.is_main
+                           else KVLogger(None, formats=()))
 
         net_mode = cfg.get("net_mode", "ds_diff_gaussian")
         model_name, feature_kind = FEATURE_KINDS.get(net_mode, (net_mode, None))
@@ -274,8 +298,8 @@ class Trainer:
         self.model_name = model_name
         self.n_params = sum(p.numel() for p in self.model.parameters())
         if self.workdir is not None:
-            journal(self.workdir,
-                    f"model {model_name}: {self.n_params / 1e6:.2f}M params")
+            self._journal(
+                f"model {model_name}: {self.n_params / 1e6:.2f}M params")
 
         # ---- optimizer, EMA, schedule sampler; 1000 steps an epoch without
         # a loader, as the JAX trainer assumes
@@ -294,9 +318,14 @@ class Trainer:
             grad_clip=float(grad_clip) if grad_clip else None,
             accum_steps=int(cfg.get("accum_steps", 1)),
         )
+        plan = None
+        if mesh is not None:
+            plan = pmesh.param_sharding(
+                mesh, self.model, int(cfg.get("fsdp_min_size", 2**18)))
         self.state = TrainState(
             self.model, lambda params: make_optimizer(params, lr, **opt),
-            ema_decay=float(cfg.get("ema_rate", 0.9999)),
+            ema_decay=float(cfg.get("ema_rate", 0.9999)), mesh=mesh,
+            plan=plan,
         )
         self.sampler_state = ss.make_schedule_sampler(
             cfg.get("schedule_sampler", "uniform"), T, device=self.device
@@ -308,10 +337,13 @@ class Trainer:
         self.eta = float(samp.get("ddim_eta", 0.0))
         self.palette = net_mode in ("palette", "diffusion")
         if self.palette:
+            if self.ranks > 1:
+                raise NotImplementedError(
+                    "palette training under a mesh is not ported yet")
             self._setup_palette_schedules()
             self._train_step = make_palette_train_step(self.gs_train)
         else:
-            self._train_step = make_train_step(self.task, self.sched)
+            self._train_step = make_train_step(self.task, self.sched, mesh)
 
         # ---- samplers over the EMA weights
         # the serving copy: compute-dtype weights, filled from the EMA
@@ -319,6 +351,11 @@ class Trainer:
             copy.deepcopy(self.model).requires_grad_(False)
         ).eval()
         self._sample_version = None
+        # int8 serving (set_sampler): False, True (dynamic) or 'static'; the
+        # static activation scales; the state version quantised last
+        self.sample_int8: bool | str = False
+        self._act_scales = None
+        self._int8_version = None
         if bool(samp.get("ddim_use_original_steps", False)):
             self.rsched = self.sched
         else:
@@ -335,6 +372,7 @@ class Trainer:
             )
         self.best_ssim = -1.0
         self._fit_calls = 0  # keys each fit call's step draws
+        self.device_cache = None  # the train split on the card, once used
 
     def _build_first_stage(self):
         """The frozen ``AutoencoderKL`` of ``first_stage.params`` behind a
@@ -356,8 +394,8 @@ class Trainer:
             vcm = CheckpointManager(ckpt_path, keep_best=False)
             vae.load_state_dict(vcm.restore_params(vae, ema=False))
             if self.workdir is not None:
-                journal(self.workdir, f"vae restored from {ckpt_path} "
-                                      f"(step {vcm.latest_step()})")
+                self._journal(f"vae restored from {ckpt_path} "
+                              f"(step {vcm.latest_step()})")
         return LatentAdapter(
             vae, scale_factor=float(cfg.get("scale_factor", 0.18215)),
             scale_by_std=bool(cfg.get("scale_by_std", False)))
@@ -395,14 +433,24 @@ class Trainer:
                                            **common)
         bs = int(cfg.get("train_batch_size", 8))
         vbs = int(cfg.get("val_batch_size", bs))
+        if self.mesh is not None:
+            n_data = self.mesh.shape["data"]
+            if bs % n_data or vbs % n_data:
+                raise ValueError(
+                    f"batch sizes ({bs}, {vbs}) must be divisible by the mesh "
+                    f"'data' axis ({n_data})")
         seed = int(cfg.get("seed", 2024))
+        # each rank loads its rows of a train batch, and every val batch
+        # whole
         self.train_loader = BatchLoader(self.train_ds, bs, seed=seed,
-                                        shuffle=True, drop_last=True)
+                                        shuffle=True, drop_last=True,
+                                        process_count=self.ranks,
+                                        process_index=self.rank)
         self.val_loader = BatchLoader(self.val_ds, vbs, seed=seed,
-                                      shuffle=False, drop_last=False)
+                                      shuffle=False, drop_last=False,
+                                      process_count=1, process_index=0)
         if self.workdir is not None:
-            journal(
-                self.workdir,
+            self._journal(
                 f"data: {len(train_cases)} train / {len(val_cases)} val "
                 f"cases, {len(self.train_ds)} / {len(self.val_ds)} slices",
             )
@@ -414,6 +462,11 @@ class Trainer:
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _journal(self, message: str) -> None:
+        """A line in the run journal (rank 0 writes it)."""
+        if self.is_main:
+            journal(self.workdir, message)
 
     def _need_workdir(self, what: str) -> None:
         if self.workdir is None:
@@ -428,11 +481,11 @@ class Trainer:
         ``val_every_epochs`` epochs (default ``val_step``) and, with
         ``val_on_done``, when ``max_steps`` ends the run. Returns the step.
         Batches reach the card through pinned memory while the loader's
-        thread builds the next ones."""
+        thread builds the next ones; with ``device_data_cache`` the split is
+        held on the card (``data.device_cache``) and each step's batch is
+        drawn, gathered and augmented there, an epoch being a window of
+        ``len(train_loader)`` steps."""
         cfg = self.cfg
-        if bool(cfg.get("device_data_cache", False)):
-            raise NotImplementedError(
-                "device_data_cache is not ported yet (ROADMAP A14)")
         self._need_workdir("fit")
         if self.train_loader is None:
             raise ValueError("no dataset configured (h5_2d_img_dir)")
@@ -455,19 +508,40 @@ class Trainer:
 
             curriculum = EntropyCurriculum(self.train_ds, seed=seed)
             self._np_rng = np.random.default_rng(seed)
+        cache_fn = None
+        if bool(cfg.get("device_data_cache", False)):
+            if curriculum is not None:
+                raise ValueError(
+                    "device_data_cache is incompatible with the shannon "
+                    "curriculum (host-side entropy buckets)")
+            cache_fn = self._cache_batch_fn()
+            cache_gen = torch.Generator(device=self.device)
+            rows = (None if self.ranks == 1 else
+                    self.mesh.local_rows(self.train_loader.batch_size))
         gen = torch.Generator(device=self.device)
         t_rate = time.time()
         steps_at_rate = step
+
+        def epoch_batches(epoch):
+            if cache_fn is None:
+                yield from self.train_loader.epoch(epoch)
+            else:  # the batch is made on the card below
+                yield from [None] * len(self.train_loader)
+
         for epoch in range(epoch0, num_epochs):
             t_ep = time.time()
-            for batch in self.train_loader.epoch(epoch):
+            for batch in epoch_batches(epoch):
                 if curriculum is not None and step < warmup_steps:
                     batch = curriculum.batch(
                         self.train_loader.batch_size, step, warmup_steps,
                         self._np_rng,
                     )
-                dev_batch = {k: self._to_device(batch[k])
-                             for k in ("image", "target")}
+                if batch is None:
+                    cache_gen.manual_seed(_step_seed(seed, fit_call, step, 1))
+                    dev_batch = cache_fn(cache_gen, rows)
+                else:
+                    dev_batch = {k: self._to_device(batch[k])
+                                 for k in ("image", "target")}
                 gen.manual_seed(_step_seed(seed, fit_call, step))
                 if self.first_stage is not None:
                     dev_batch = self.first_stage.encode_batch(dev_batch, gen)
@@ -478,7 +552,7 @@ class Trainer:
                     dt = time.time() - t_rate
                     if dt > 0 and step > steps_at_rate:
                         m["steps_per_sec_per_chip"] = (
-                            (step - steps_at_rate) / dt)
+                            (step - steps_at_rate) / dt / self.ranks)
                     t_rate = time.time()
                     steps_at_rate = step
                     m["step"] = step
@@ -491,9 +565,8 @@ class Trainer:
                 if max_steps and step >= max_steps:
                     done = True
                     break
-            journal(self.workdir,
-                    f"epoch {epoch} done in {time.time() - t_ep:.1f}s "
-                    f"(step {step})")
+            self._journal(f"epoch {epoch} done in {time.time() - t_ep:.1f}s "
+                          f"(step {step})")
             if (epoch + 1) % val_every == 0 or (done and val_on_done):
                 vm = self.validate(max_batches=int(
                     cfg.get("limit_val_batches", 8)))
@@ -503,6 +576,25 @@ class Trainer:
             if done:
                 break
         return step
+
+    def _cache_batch_fn(self):
+        """The batch function, at the train batch size, of the device data
+        cache of the train split (bf16 unless ``bf16: false``), uploaded at
+        the first ``fit`` call and kept for the next ones."""
+        from ..data.device_cache import DeviceCache
+
+        cfg = self.cfg
+        cache = self.device_cache
+        if cache is None:
+            cache = self.device_cache = DeviceCache.from_dataset(
+                self.train_ds, device=self.device,
+                dtype=torch.bfloat16 if cfg.get("bf16", True)
+                else torch.float32)
+            self._journal(f"device data cache: {cache.n} slices, "
+                          f"{cache.images.dtype}")
+        return cache.make_batch_fn(
+            self.train_loader.batch_size, augment=bool(self.train_ds.augment),
+            aug_prob=float(cfg.get("augmentation_prob", 0.4)))
 
     def _respaced(self) -> schedules.DiffusionSchedule:
         return schedules.respace(
@@ -570,13 +662,23 @@ class Trainer:
         their value; ``cached`` defaults to the model's own kind (cached
         for ``ds_diff_split``). ``solver_options`` (order, method,
         skip_type, algorithm_type, ...) go to the DPM-Solver family on top
-        of ``sampler_setting``'s."""
-        if int8 is not None:
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP A16)"
-            )
+        of ``sampler_setting``'s.
+
+        ``int8=True`` serves every eligible denoiser conv in int8
+        (``ops.quant``: int8 weights per output channel, a dynamic int8
+        activation scale per call); ``int8='static'`` first calibrates one
+        activation scale per conv (``_calibrate_int8_scales``, on val
+        batches) and uses it instead, except on the cached-condition
+        sampler, which stays dynamic as in the JAX package; ``int8=False``
+        serves in the compute dtype again. The weights are quantised from
+        the f32 EMA when a request finds them moved, never per step."""
         if self.palette:
             raise ValueError("palette owns its own sampler")
+        if int8 is not None:
+            if int8 not in (True, False, "static"):
+                raise ValueError(f"int8 must be True, False or 'static', "
+                                 f"not {int8!r}")
+            self.sample_int8 = "static" if int8 == "static" else bool(int8)
         if sampler is not None:
             self.sampler_name = sampler
         if sample_steps is not None:
@@ -587,7 +689,46 @@ class Trainer:
         # only the split model has a cache to serve from
         use_cached = self.model_name == "dsunet_split" and (
             cached is None or bool(cached))
+        quant.dequantize_model(self.sample_model)
+        self._act_scales = None
+        if self.sample_int8 == "static" and not use_cached:
+            self._act_scales = self._calibrate_int8_scales()
+        self._int8_version = None  # quantised again at the next request
         self._build_sampler(use_cached, solver_options)
+
+    @torch.no_grad()
+    def _calibrate_int8_scales(self, n_batches: int = 2,
+                               t_points=(25, 250, 500, 750, 975),
+                               generator: torch.Generator | None = None,
+                               noise=None) -> dict:
+        """Static int8 calibration: each eligible conv's input max-abs over
+        denoiser forwards of the EMA weights on the first ``n_batches`` val
+        batches, noised to each of ``t_points``; returns ``{conv name:
+        scale}`` for ``quant.quantize_model``. The noise comes from
+        ``generator`` (default: seeded 17 on the trainer's device), one
+        draw per (batch, t) in that order, or from the list ``noise``."""
+        if self.val_loader is None:
+            raise ValueError("int8 calibration needs val data (h5_2d_img_dir)")
+        self._refresh_sample_model()
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(17)
+        T = len(self.betas)
+        draws = iter(noise) if noise is not None else None
+        inputs = []
+        for i, batch in enumerate(self.val_loader.epoch(0)):
+            if i >= n_batches:
+                break
+            cond = self._to_device(batch["image"])
+            x0 = self._to_device(batch["target"])
+            for t in t_points:
+                tt = torch.full((x0.shape[0],), min(int(t), T - 1),
+                                dtype=torch.long, device=self.device)
+                eps = (next(draws).to(self.device) if draws is not None
+                       else torch.randn(x0.shape, generator=generator,
+                                        device=self.device))
+                x_t = process.q_sample(self.sched, x0, tt, eps)
+                inputs.append((torch.cat([x_t, cond], dim=-1), tt.float()))
+        return quant.calibrate_act_scales(self.sample_model, inputs)
 
     def _make_cached_sample_fn(self, rsched):
         """DSUNetSplit: the condition encoders run once per sample call
@@ -647,13 +788,18 @@ class Trainer:
         return fn
 
     def _refresh_sample_model(self) -> None:
-        """Bring the serving copy up to the EMA weights if they moved."""
+        """Bring the serving copy up to the EMA weights if they moved, and
+        under int8 serving its int8 weights too."""
         if self._sample_version != self.state.version:
             with torch.no_grad():
                 ema = self.state.ema_state_dict()
                 for name, p in self.sample_model.named_parameters():
                     p.copy_(ema[name])
             self._sample_version = self.state.version
+        if self.sample_int8 and self._int8_version != self.state.version:
+            quant.quantize_model(self.sample_model, self.state.ema_state_dict(),
+                                 act_scales=self._act_scales)
+            self._int8_version = self.state.version
 
     def sample_fn(self, cond: torch.Tensor,
                   generator: torch.Generator | None = None,
@@ -696,7 +842,8 @@ class Trainer:
         self._refresh_sample_model()
         if self.first_stage is not None:
             cond = self.first_stage.encode_cond(cond, generator, cond_noise)
-        frames = self._row_fn(cond, generator, x_T)
+        with quant.suspended(self.sample_model):
+            frames = self._row_fn(cond, generator, x_T)
         if self.first_stage is not None:
             return self.first_stage.decode_batch(frames[-1]), frames
         return frames[-1], frames
@@ -730,14 +877,14 @@ class Trainer:
         for k, v in out.items():
             self.logger.logkv(f"val_{k}", v)
         self.logger.dumpkvs()
-        journal(self.workdir,
-                f"val ssim {out['ssim']:.4f} mae {out['mae']:.4f} "
-                f"psnr {out['psnr']:.2f}")
-        if first is not None and self.cfg.get("log_images", True):
+        self._journal(f"val ssim {out['ssim']:.4f} mae {out['mae']:.4f} "
+                      f"psnr {out['psnr']:.2f}")
+        if (first is not None and self.is_main
+                and self.cfg.get("log_images", True)):
             try:
                 self._log_images(*first)
             except Exception as e:  # image dumps never stop training
-                journal(self.workdir, f"image logging failed: {e!r}")
+                self._journal(f"image logging failed: {e!r}")
         return out
 
     def _log_images(self, batch: dict, pred: np.ndarray) -> None:
@@ -779,8 +926,9 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(3)
         noise = torch.randn(target.shape, generator=gen, device=self.device)
         xt = process.q_sample(self.sched, target, t, noise)
-        out = self.sample_model(torch.cat([xt, cond], dim=-1),
-                                process.model_timestep(self.sched, t))
+        with quant.suspended(self.sample_model):
+            out = self.sample_model(torch.cat([xt, cond], dim=-1),
+                                    process.model_timestep(self.sched, t))
         if isinstance(out, tuple) and isinstance(out[1], dict):
             return out[1]
         return None
@@ -807,7 +955,8 @@ class Trainer:
             use_edge=self.use_edge, augment=False,
         )
         loader = BatchLoader(test_ds, int(cfg.get("val_batch_size", 8)),
-                             shuffle=False, drop_last=False)
+                             shuffle=False, drop_last=False, process_count=1,
+                             process_index=0)
         asm = VolumeAssembler(out_dir, task_id=str(cfg.get("Task_id", "task")))
         gen = torch.Generator(device=self.device).manual_seed(
             int(cfg.get("seed", 2024)))
@@ -816,6 +965,9 @@ class Trainer:
             asm.add_batch(batch["case"], batch["slice"],
                           pred.float().cpu().numpy(), batch["valid"])
         gt_file = gt_name or f"{self.keys[-1]}.nii.gz"
+        if not self.is_main:  # rank 0 writes the volumes and the report
+            pdist.sync_hosts()
+            return out_dir, []
         for case in asm.cases():
             template = None
             if template_root:
@@ -827,6 +979,7 @@ class Trainer:
         if gt_root:
             rows = evaluate_predictions(out_dir, gt_root, gt_file,
                                         report_path=out_dir / "metrics.csv")
+        pdist.sync_hosts()
         return out_dir, rows
 
     def train_step(self, batch: Mapping[str, torch.Tensor],

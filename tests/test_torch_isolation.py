@@ -8,7 +8,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import dsdiff_torch
+from dsdiff_torch.ops import quant
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dsdiff_torch"
@@ -57,6 +61,12 @@ LATENT_MODULES = (
     "dsdiff_torch.cli.train_vae",
 )
 
+# int8 serving, the device data cache and data-parallel training
+RUN_MODE_MODULES = (
+    "dsdiff_torch.ops.quant", "dsdiff_torch.data.device_cache",
+    "dsdiff_torch.parallel.dist", "dsdiff_torch.parallel.mesh",
+)
+
 
 def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     out = subprocess.run(
@@ -69,7 +79,7 @@ def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     *names, count = out.stdout.split()
     assert int(count) == n_modules >= 35
     assert (set(SERVING_MODULES) | set(FIT_MODULES) | set(LATENT_MODULES)
-            <= set(names))
+            | set(RUN_MODE_MODULES) <= set(names))
 
 
 def test_no_port_file_mentions_the_reference_package_or_jax():
@@ -85,3 +95,36 @@ def test_no_port_file_mentions_the_reference_package_or_jax():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert imports.search(smoke) is None
     assert "import jax" not in smoke and "import yaml" not in smoke
+
+
+@pytest.mark.gpu
+def test_int8_conv_sums_are_exact_on_the_card():
+    """``torch._int_mm`` on the card (cuBLASLt's int8 GEMM) gives the exact
+    int32 sums of an f64 conv of the same int8 operands, rows, K and N
+    padded where it needs them; the dequantised output is the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(0)
+    for B, C, O, hw, k, stride, groups in [
+            (4, 96, 96, 32, 3, 1, 1), (2, 192, 288, 16, 3, 2, 1),
+            (1, 36, 40, 3, 3, 1, 1), (2, 96, 192, 8, 1, 1, 1),
+            (2, 32, 32, 16, 3, 1, 4)]:
+        x = torch.randint(-127, 128, (B, C, hw, hw), generator=g,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (O, C // groups, k, k), generator=g,
+                          dtype=torch.int8)
+        got = quant.int8_sums(x.cuda(), quant.pack_weight(w.cuda(), groups),
+                              (k, k), O, stride, k // 2, groups)
+        want = torch.nn.functional.conv2d(x.double(), w.double(),
+                                          stride=stride, padding=k // 2,
+                                          groups=groups)
+        assert torch.equal(got.cpu().double(), want.permute(0, 2, 3, 1)), (
+            B, C, O, hw, k, stride, groups)
+        xf = torch.randn(B, C, hw, hw, generator=g)
+        scale = torch.rand(O, generator=g) * 1e-3 + 1e-4
+        bias = torch.randn(O, generator=g)
+        on_card = quant.int8_conv(xf.cuda(), w.cuda(), scale.cuda(),
+                                  bias.cuda(), stride, k // 2, groups)
+        on_cpu = quant.int8_conv(xf, w, scale, bias, stride, k // 2, groups)
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-6,
+                                   atol=1e-6 * float(on_cpu.abs().max()))

@@ -14,6 +14,7 @@ from dsdiff_tpu.core import sampling as JS
 from dsdiff_tpu.core import schedules as JSch
 from dsdiff_tpu.models.dsunet import DSUNet as JDSUNet
 from dsdiff_torch.core import sampling as PS
+from dsdiff_torch.parallel.mesh import Mesh
 from dsdiff_torch.train.config import load_run_config
 from dsdiff_torch.train.trainer import Trainer
 from torch_parity_utils import (TINY, one_thread, random_flax_params,
@@ -155,11 +156,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A17"):
         Trainer(dict(tiny_cfg(), split_input_params={"ks": (8, 8)}),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        Trainer(tiny_cfg(), device="cpu").set_sampler(int8=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(dict(tiny_cfg(), device_data_cache=True), tmp_path,
-                device="cpu").fit()
+    # int8 serving and the device data cache are ported; palette training
+    # under a mesh of more than one rank is not
+    with pytest.raises(NotImplementedError, match="palette"):
+        Trainer(dict(tiny_cfg(), net_mode="palette"), device="cpu",
+                mesh=Mesh(2, 1, distributed=True))
     # net_mode latent is ported; an SD VAE file as its first stage is not
     sd_vae = tmp_path / "sd_vae.safetensors"
     sd_vae.write_bytes(b"")
