@@ -63,6 +63,19 @@ then drives the main path in both directions:
   ``progressive_denoise``, then ``predict`` and ``python -m
   dsdiff_torch.cli.sample`` on a split of one test case.
 
+- the transformer conditioning path: the attention kernel at its shapes
+  (the crossattn fusion's [4, 64, 8, 36] self- and cross-attention, M =
+  256, whose 72-byte head stride the bf16 route loads through its threads;
+  the patched tiles'; the guidance classifier's), then the flagship with
+  ``fusion: crossattn``, with ``use_spatial_transformer: true`` and with
+  ``use_fft_attention`` as well (``transformer``: full-width forward
+  parity kernel vs plain, a DDIM-20 request, three bf16 train steps), a
+  split-input request (``patched``: ``split_input_params`` 128² tiles at
+  stride 64, one model call over 36 tiles a step, held to plain attention,
+  its wall against the unpatched request's) and a classifier-guided
+  request (``guided``: the ddpm UNet and an EncoderUNet's gradient through
+  the kernel's autograd.Function, held to plain attention).
+
 ``python3 chip_smoke.py --phases int8,cache,dist`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
 Each main-path run checks that every call of its kernels went through them.
@@ -90,7 +103,7 @@ import torch
 import torch.nn.functional as F
 
 from dsdiff_torch import ops
-from dsdiff_torch.core import schedules
+from dsdiff_torch.core import sampling, schedules
 from dsdiff_torch.data import synthetic
 from dsdiff_torch.data.nifti import Nifti, read_nifti, write_nifti
 from dsdiff_torch.models import attention as attention_module
@@ -98,11 +111,13 @@ from dsdiff_torch.models import build_model
 from dsdiff_torch.models import dit as dit_module
 from dsdiff_torch.models import vae as vae_module
 from dsdiff_torch.models.attention import AttentionBlock
+from dsdiff_torch.models.dsunet import FUSION_DEPTH
+from dsdiff_torch.models.encoder_unet import EncoderUNet, classifier_gradient
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
 from dsdiff_torch.ops import fused_norm as fn
 from dsdiff_torch.ops import quant
-from dsdiff_torch.train.config import load_run_config
+from dsdiff_torch.train.config import Config, load_run_config
 from dsdiff_torch.train.step import TaskConfig, train_loss
 from dsdiff_torch.train.surgery import convert_stream_layout
 from dsdiff_torch.train.trainer import FEATURE_KINDS, Trainer, model_params
@@ -331,6 +346,42 @@ GRAD_NOISE_FLOOR = 1e-3
 EMA_RTOL = 1e-6
 
 
+# the transformer conditioning path: the flagship with these
+# unet_config.params overrides, each with its attention calls of one
+# forward at 256². crossattn: the flagship's 34, and the fusion's depth-4
+# SpatialTransformer over the 8² bottleneck (conv_ch 288 in max(num_heads,
+# 1) = 8 heads of 36): a self- and a cross-attention a block. Spatial
+# transformer: every AttentionBlock becomes a depth-1 transformer whose two
+# attentions (its second without a context) both run the kernel; with FFT
+# attention none does.
+TRANSFORMER_RUNS = [
+    ("crossattn", {"fusion": "crossattn"},
+     CALLS_PER_FORWARD + 2 * FUSION_DEPTH),                        # 42
+    ("spatial_transformer", {"use_spatial_transformer": True},
+     2 * CALLS_PER_FORWARD),                                       # 68
+    ("fft", {"use_spatial_transformer": True, "use_fft_attention": True}, 0),
+]
+# the fusion's two shapes: (N, heads, D, M keys, calls of one forward); the
+# context is the four 8² feature maps, 256 tokens
+FUSION_ATTENTION = [(64, 8, 36, 64, FUSION_DEPTH),
+                    (64, 8, 36, 256, FUSION_DEPTH)]
+# split-input sampling on the plain flagship: 128² tiles at stride 64 over
+# 256², 3 x 3 = 9 a slice, one model call over all of a request's tiles;
+# the flagship's attention at 128²: (N, heads, D, calls of one forward)
+PATCH = {"ks": [128, 128], "stride": [64, 64]}
+PATCH_TILES = 9
+PATCH_ATTENTION = [(256, 4, 48, 11), (64, 6, 48, 11), (16, 6, 48, 12)]
+# classifier guidance: configs/ddpm.yaml's UNet guided by an EncoderUNet at
+# the JAX package's defaults at 256² (C = 64, channel_mult (1, 2, 4, 8),
+# attention at rate 8: 32² tokens, 512 channels in 4 heads of 128, after
+# the last level's two res blocks and in the middle), random weights
+GUIDE_CLASSES = 2
+CLASSIFIER_ATTENTION = [(1024, 4, 128, 3)]
+CLASSIFIER_CALLS = sum(c for *_, c in CLASSIFIER_ATTENTION)        # 3
+GUIDE_SCALE = 10.0
+DDPM_CALLS = sum(c for *_, c in FAMILIES[0][2])                    # 16
+
+
 # the int8, cache and dist phases (PR 9): the int8 convs timed, the H100
 # SXM's dense int8 tensor-core peak at 700 W, the fit steps after the first,
 # and the cache's batch against its plain version: the same grid_sample per
@@ -404,14 +455,15 @@ def rotated(tensors, nbytes: int) -> list:
                                for _ in range(copies - 1)]
 
 
-def attention_bound(B, N, H, D, dtype):
+def attention_bound(B, N, H, D, dtype, M=None):
     """(ms, 'bytes' | 'operations'): q, k, v, o moved once at the memory
-    rate, or 4*B*H*N*N*D operations at the tensor cores' rate: bf16's, or
-    for f32 three TF32 passes (the least an f32-accurate product costs on
-    this card's tensor cores)."""
+    rate, or 4*B*H*N*M*D operations (M keys, N by default) at the tensor
+    cores' rate: bf16's, or for f32 three TF32 passes (the least an
+    f32-accurate product costs on this card's tensor cores)."""
+    M = N if M is None else M
     elem = torch.finfo(dtype).bits // 8
-    t_bytes = 4 * B * N * H * D * elem / PEAK_BYTES_PER_S
-    flops = 4 * B * H * N * N * D
+    t_bytes = 2 * B * (N + M) * H * D * elem / PEAK_BYTES_PER_S
+    flops = 4 * B * H * N * M * D
     t_ops = (flops / PEAK_FLOPS[dtype] if dtype == torch.bfloat16
              else 3 * flops / TF32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
@@ -445,39 +497,71 @@ def phase_build():
                 print(f"[build] {line.strip()}")
 
 
-def _attention_row(gen, batch, N, H, D, dtype, calls, card: str) -> dict:
-    """Kernel vs plain at one shape, the kernel, the plain version and SDPA
-    timed (events and CUDA graph); fails on an error over KERNEL_TOL."""
-    qkv = torch.randn(batch, N, 3, H, D, generator=gen, device="cuda",
-                      dtype=dtype)
-    q, k, v = qkv.unbind(2)  # strided thirds, as the model's
-    got = fa.flash_attention(q, k, v)
+def _attention_inputs(gen, batch, N, H, D, dtype, M=None,
+                      layout="thirds"):
+    """(buffers, views): q, k, v on the card as a model hands them to the
+    kernel, ``views(*buffers)``: ``thirds``, strided thirds of one fused
+    qkv buffer (``AttentionBlock``: M = N); ``dense``, each its own
+    Dense(H*D) output viewed as heads, k and v over M tokens
+    (``CrossAttention``)."""
+    if layout == "thirds":
+        qkv = torch.randn(batch, N, 3, H, D, generator=gen, device="cuda",
+                          dtype=dtype)
+        return (qkv,), lambda x: x.unbind(2)
+    M = N if M is None else M
+    bufs = tuple(torch.randn(batch, rows, H * D, generator=gen,
+                             device="cuda", dtype=dtype)
+                 for rows in (N, M, M))
+    return bufs, lambda *b: tuple(t.view(batch, t.shape[1], H, D) for t in b)
+
+
+def _load(q, k, v) -> str:
+    """How the kernel loads these inputs: the bf16 route's TMA or its
+    threads' copies; the f32 route's cp.async."""
+    return fa.bf16_load(q, k, v) if q.dtype == torch.bfloat16 else "cp.async"
+
+
+def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
+                   layout="thirds") -> dict:
+    """Kernel vs plain at one shape (M keys, N by default; q, k, v in the
+    model's ``layout``, ``_attention_inputs``), the kernel, the plain
+    version and SDPA timed (events and CUDA graph); fails on an error over
+    KERNEL_TOL. The row names the kernel's load for the layout."""
+    M = N if M is None else M
+    bufs, views = _attention_inputs(gen, batch, N, H, D, dtype, M, layout)
+    qkv = views(*bufs)
+    load = _load(*qkv)
+    got = fa.flash_attention(*qkv)
     torch.cuda.synchronize()
-    want = fa.reference_attention(q, k, v)
+    want = fa.reference_attention(*qkv)
     err = (got.float() - want.float()).abs().max().item()
-    del got, want
+    del got, want, qkv
     tol = KERNEL_TOL[dtype]
-    qkvs = rotated([qkv], qkv.numel() * qkv.element_size())
-    sdpa_in = [tuple(t.transpose(1, 2).contiguous()
-                     for t in x.unbind(2)) for (x,) in qkvs]
-    iters = 50 if N >= 1024 else 200
-    kernel = lambda x: fa.flash_attention(*x.unbind(2))  # noqa: E731
+    # copies of the buffers, each call's views cut from its own
+    qkvs = rotated(bufs, sum(t.numel() * t.element_size() for t in bufs))
+    sdpa_in = [tuple(t.transpose(1, 2).contiguous() for t in views(*x))
+               for x in qkvs]
+    iters = 50 if max(N, M) >= 1024 else 200
+    kernel = lambda *x: fa.flash_attention(*views(*x))  # noqa: E731
+    plain = lambda *x: fa.reference_attention(*views(*x))  # noqa: E731
     ms = time_ms_cycling(kernel, qkvs, iters)
     graph_ms = time_ms_graph(kernel, qkvs)
-    plain_ms = time_ms_cycling(
-        lambda x: fa.reference_attention(*x.unbind(2)), qkvs, iters)
+    plain_ms = time_ms_cycling(plain, qkvs, iters)
     lib_ms = time_ms_cycling(F.scaled_dot_product_attention, sdpa_in, iters)
     lib_graph_ms = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
     del qkvs, sdpa_in
-    bound_ms, bound_by = attention_bound(batch, N, H, D, dtype)
-    row = dict(shape=[batch, N, H, D], dtype=str(dtype).split(".")[1],
+    bound_ms, bound_by = attention_bound(batch, N, H, D, dtype, M)
+    row = dict(shape=[batch, N, H, D], keys=M, layout=layout, load=load,
+               dtype=str(dtype).split(".")[1],
                route=fa.ROUTES[dtype], calls_per_forward=calls,
                max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms,
                plain_ms=plain_ms, library_ms=lib_ms,
                library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / graph_ms)
-    print(f"[kernel] flash_attention {row['shape']} {row['dtype']} "
-          f"({row['route']}): max_abs_err {err:.3e} (tol {tol:.0e}), "
+    keys = f" x M={M}" if M != N else ""
+    print(f"[kernel] flash_attention {row['shape']}{keys} {row['dtype']} "
+          f"({row['route']}, {layout}, {load}): max_abs_err {err:.3e} "
+          f"(tol {tol:.0e}), "
           f"kernel {ms:.5f} ms (graph {graph_ms:.5f}), plain "
           f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (graph "
           f"{lib_graph_ms:.5f}), bound {bound_ms:.5f} ms "
@@ -1318,7 +1402,7 @@ def family_config(net_mode: str, model_yaml: str):
                            overrides={"net_mode": net_mode})
 
 
-def _family_parity(cfg, calls: int) -> None:
+def _family_parity(cfg, calls: int, tag: str = "families") -> None:
     """A family's model at full width, batch PARITY_BATCH at 256², with the
     attention kernel against plain attention: f32 with TF32 off, then bf16,
     each within its tolerance of the output's largest magnitude, and
@@ -1352,7 +1436,7 @@ def _family_parity(cfg, calls: int) -> None:
         scale = out_plain.abs().max().item()
         tol = rtol * max(1.0, scale)
         dname = str(dtype).split(".")[1]
-        print(f"[families] {net_mode} {type(model).__name__} {IMAGE}² batch "
+        print(f"[{tag}] {net_mode} {type(model).__name__} {IMAGE}² batch "
               f"{PARITY_BATCH} {dname} ({fa.ROUTES[dtype]} route): "
               f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| "
               f"{scale:.3f}), {launched} kernel launches")
@@ -1364,7 +1448,8 @@ def _family_parity(cfg, calls: int) -> None:
         del model, out_kernel, out_plain
 
 
-def _family_request(trainer, calls: int, smi: str) -> int:
+def _family_request(trainer, calls: int, smi: str,
+                    tag: str = "families") -> int:
     """One request of batch SERVE_BATCH at 256² through
     ``trainer.sample_fn``: shape, finite values, ``calls`` launches a model
     call, and (for the samplers that end on a clipped x0) the range [-1, 1].
@@ -1391,7 +1476,7 @@ def _family_request(trainer, calls: int, smi: str) -> int:
     sampler = (f"palette DDIM-{trainer.sample_steps} eta {trainer.eta}"
                if trainer.palette else
                f"{trainer.sampler_name.upper()}-{trainer.rsched.num_timesteps}")
-    print(f"[families] {net_mode} request, {sampler}, batch {SERVE_BATCH}, "
+    print(f"[{tag}] {net_mode} request, {sampler}, batch {SERVE_BATCH}, "
           f"{IMAGE}²: {wall:.4f} s, {SERVE_BATCH / wall:.3f} slices/s, peak "
           f"{peak:.3f} GiB, {len(model_calls)} model calls, {launched} "
           f"attention launches, max |x| {out.abs().max().item():.4f} [{smi}]")
@@ -1407,7 +1492,8 @@ def _family_request(trainer, calls: int, smi: str) -> int:
     return launched
 
 
-def _family_train(trainer, calls: int, smi: str) -> int:
+def _family_train(trainer, calls: int, smi: str,
+                  tag: str = "families") -> int:
     """FAMILY_TRAIN_STEPS bf16 train steps at batch TRAIN_BATCH, 256²,
     through ``trainer.train_step`` from random weights: finite metrics (the
     com/dist loss for disc_diff), ``calls`` launches a step, the EMA after
@@ -1434,7 +1520,7 @@ def _family_train(trainer, calls: int, smi: str) -> int:
         times.append(time.perf_counter() - t0)
         launched = fa.LAUNCHES - before
         vals = {k: v.item() for k, v in metrics.items()}
-        print(f"[families] {net_mode} train step {i + 1}: "
+        print(f"[{tag}] {net_mode} train step {i + 1}: "
               f"{times[-1] * 1e3:.2f} ms, "
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
               + f", {launched} attention launches")
@@ -1454,7 +1540,7 @@ def _family_train(trainer, calls: int, smi: str) -> int:
                 if scale > 0:
                     worst = max(worst,
                                 (ema - want).abs().max().item() / scale)
-            print(f"[families] {net_mode} EMA after step 1: max error "
+            print(f"[{tag}] {net_mode} EMA after step 1: max error "
                   f"{worst:.3e} of each tensor's max |0.1 p0 + 0.9 p1| (tol "
                   f"{EMA_RTOL:.0e})")
             check(worst <= EMA_RTOL, f"{net_mode} EMA after step 1: {worst}")
@@ -1462,7 +1548,7 @@ def _family_train(trainer, calls: int, smi: str) -> int:
     moved = sum(not torch.equal(a, p)
                 for a, p in zip(start, trainer.state.params))
     step_ms = statistics.median(times[1:]) * 1e3
-    print(f"[families] {net_mode} train step {step_ms:.2f} ms (median of "
+    print(f"[{tag}] {net_mode} train step {step_ms:.2f} ms (median of "
           f"steps 2-{FAMILY_TRAIN_STEPS}), {TRAIN_BATCH / step_ms * 1e3:.3f} "
           f"slices/s, peak {peak:.3f} GiB, {moved}/{len(start)} parameter "
           f"tensors moved [{smi}]")
@@ -2296,6 +2382,265 @@ def phase_dist(smi: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_transformer_kernels(card: str) -> list:
+    """The attention kernel at the transformer conditioning path's shapes,
+    both dtypes, timed: the crossattn fusion's self [4, 64, 8, 36] and
+    cross (M = 256) attention as its Dense outputs give them (a 72-byte head
+    stride: the bf16 route's threads load the tiles, no TMA map describes
+    them), the patched request's tiles (36 of 128², qkv thirds) and the
+    guidance classifier's [4, 1024, 4, 128]. Returns the rows, each with
+    its ``path``."""
+    disable_tf32()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for N, H, D, M, calls in FUSION_ATTENTION:
+            row = _attention_row(gen, SERVE_BATCH, N, H, D, dtype, calls,
+                                 card, M=M, layout="dense")
+            rows.append(dict(row, path="crossattn fusion"))
+            if dtype == torch.bfloat16:
+                check(row["load"] != "tma", f"fusion {row['shape']}: a TMA "
+                      f"map cannot take a {2 * D}-byte head stride")
+        for N, H, D, calls in PATCH_ATTENTION:
+            row = _attention_row(gen, SERVE_BATCH * PATCH_TILES, N, H, D,
+                                 dtype, calls, card)
+            rows.append(dict(row, path="patched tiles"))
+        for N, H, D, calls in CLASSIFIER_ATTENTION:
+            row = _attention_row(gen, SERVE_BATCH, N, H, D, dtype, calls,
+                                 card)
+            rows.append(dict(row, path="guidance classifier"))
+    return rows
+
+
+def transformer_config(overrides: dict) -> dict:
+    """The flagship run config with ``overrides`` in its
+    ``unet_config.params``, as a user sets them."""
+    params = dict(FLAGSHIP_CONFIG["unet_config"]["params"], **overrides)
+    return Config.wrap(dict(FLAGSHIP_CONFIG, unet_config={"params": params}))
+
+
+def phase_transformer(smi: str) -> dict:
+    """The flagship with each TRANSFORMER_RUNS override, through
+    ``Trainer``: full-width forward parity with the kernel against plain
+    attention (f32 and bf16), one DDIM-20 request at batch 4, three bf16
+    train steps at batch 8, each with its attention launches. Returns the
+    launches by path."""
+    launches = {}
+    for name, overrides, calls in TRANSFORMER_RUNS:
+        t0 = time.perf_counter()
+        cfg = transformer_config(overrides)
+        print(f"[transformer] {name}: unet_config.params + {overrides}, "
+              f"{calls} attention launches a forward")
+        _family_parity(cfg, calls, "transformer")
+        trainer = _serving_trainer(cfg)
+        print(f"[transformer] {name}: {type(trainer.model).__name__} "
+              f"{trainer.n_params / 1e6:.2f} M params, bf16")
+        launches[f"{name}_serve"] = _family_request(trainer, calls, smi,
+                                                    "transformer")
+        launches[f"{name}_train"] = _family_train(trainer, calls, smi,
+                                                  "transformer")
+        del trainer
+        torch.cuda.empty_cache()
+        print(f"[transformer] {name} done in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _timed(fn):
+    """(fn(), host wall in s up to a synchronised device)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _hold_request(what: str, got, want) -> float:
+    """A request with the kernel within the bf16 forward tolerance of the
+    same request with plain attention; returns the error."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = MODEL_BF16_RTOL * max(1.0, want.float().abs().max().item())
+    print(f"[{what}] kernel vs plain-attention request: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})")
+    check(err <= tol, f"{what}: request error {err} over {tol}")
+    return err
+
+
+def phase_patched(smi: str) -> dict:
+    """One patched DDIM-20 request (batch 4, 256², ``split_input_params``
+    PATCH) on the flagship through ``Trainer.sample_fn``: every model call
+    one call over the 36 tiles, 34 kernel launches each; held to the same
+    request with plain attention; its wall against the unpatched request's
+    on the same trainer (each timed after one warm-up request)."""
+    trainer = _serving_trainer(dict(FLAGSHIP_CONFIG,
+                                    split_input_params=PATCH))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
+                       generator=gen, device="cuda")
+    x_T = torch.randn(SERVE_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                      device="cuda")
+    batches = []
+    hook = trainer.sample_model.register_forward_hook(
+        lambda m, args, out: batches.append(args[0].shape[0]))
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    try:
+        out, wall = _timed(lambda: trainer.sample_fn(cond, gen, x_T))
+    finally:
+        hook.remove()
+    launched = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tiles = SERVE_BATCH * PATCH_TILES
+    per_call = CALLS_PER_FORWARD
+    print(f"[patched] DDIM-{DDIM_STEPS} request, batch {SERVE_BATCH}, "
+          f"{IMAGE}², ks {PATCH['ks']} stride {PATCH['stride']}: {wall:.4f} "
+          f"s (first), peak {peak:.3f} GiB, {len(batches)} model calls of "
+          f"{sorted(set(batches))} tiles, {launched} attention launches "
+          f"[{smi}]")
+    _check_sample(out, SERVE_BATCH, IMAGE, True, "patched request")
+    check(batches == [tiles] * DDIM_STEPS,
+          f"patched: model calls over {batches}, not {DDIM_STEPS} of {tiles}")
+    check(launched == per_call * DDIM_STEPS,
+          f"patched: {launched} launches, not {per_call * DDIM_STEPS}")
+    plain = _with_plain_attention(lambda: trainer.sample_fn(cond, gen, x_T))
+    _hold_request("patched", out, plain)
+    _, patched_wall = _timed(lambda: trainer.sample_fn(cond, gen, x_T))
+    trainer.cfg["split_input_params"] = None
+    trainer.set_sampler("ddim")
+    trainer.sample_fn(cond, gen, x_T)  # warm-up at the whole-slice shapes
+    whole, whole_wall = _timed(lambda: trainer.sample_fn(cond, gen, x_T))
+    seam = (whole - out).abs().max().item()
+    print(f"[patched] request wall {patched_wall:.4f} s "
+          f"({SERVE_BATCH / patched_wall:.3f} slices/s) against the unpatched "
+          f"request's {whole_wall:.4f} s ({SERVE_BATCH / whole_wall:.3f} "
+          f"slices/s), {patched_wall / whole_wall:.3f}x; max |patched - "
+          f"unpatched| {seam:.3e} [{smi}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"patched_serve": launched}
+
+
+def _guided_setup(dtype):
+    """The ddpm trainer (configs/train_config.yaml + ddpm.yaml; bf16, or
+    f32 with ``bf16: false``) and an EncoderUNet in ``dtype``, both with
+    the weights of SEED, and ``request(guided, plain)``: one DDIM-20
+    request of batch 4 at 256² from the trainer's serving UNet through
+    ``core.sampling.ddim_sample_loop``, its ``guidance_fn`` the classifier's
+    gradient (scale GUIDE_SCALE) where ``guided``, with plain attention in
+    both models where ``plain``. The inputs come from one seed, so every
+    dtype serves the same request."""
+    cfg = family_config("ddpm", "ddpm.yaml")
+    trainer = _serving_trainer(dict(cfg, bf16=dtype == torch.bfloat16))
+    trainer._refresh_sample_model()
+    model, task = trainer.sample_model, trainer.task
+    clf = EncoderUNet(in_channels=1, num_classes=GUIDE_CLASSES,
+                      image_size=IMAGE, dtype=dtype)
+    clf = random_params(clf.to("cuda"), SEED).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, trainer.n_cond,
+                       generator=gen, device="cuda")
+    x_T = torch.randn(SERVE_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                      device="cuda")
+    y = torch.arange(SERVE_BATCH, device="cuda") % GUIDE_CLASSES
+
+    def guide(x, t):
+        return classifier_gradient(clf, x, t, y, GUIDE_SCALE)
+
+    def request(guided=True, plain=False):
+        def run():
+            with torch.inference_mode():
+                return sampling.ddim_sample_loop(
+                    trainer.rsched,
+                    lambda x, t: model(torch.cat([x, cond], dim=-1), t), x_T,
+                    parameterization=task.parameterization,
+                    learn_sigma=task.learn_sigma, clip_denoised=True,
+                    guidance_fn=guide if guided else None)
+        return _with_plain_attention(run) if plain else run()
+
+    return clf, x_T, y, request
+
+
+def phase_guided(smi: str) -> dict:
+    """Classifier-guided DDIM-20 requests (batch 4, 256²): the ddpm
+    trainer's serving UNet (configs/train_config.yaml + ddpm.yaml) with
+    ``guidance_fn`` the gradient of an EncoderUNet (random weights) through
+    the kernel's autograd.Function.
+
+    bf16, the serving dtype: the classifier's forward launches (3 a call)
+    and backward launches (0: the backward is the plain math's VJP)
+    counted, the gradient non-zero, one request's wall and launches
+    (20 x (16 + 3)); its gap to the same request with plain attention is
+    printed beside the unguided request's gap, not held: an eps-param chain
+    turns the kernel's one-ulp bf16 differences into gaps of the order of
+    0.1 (x0 = (x - sqrt(1 - acp) eps) / sqrt(acp) magnifies eps ~1/sqrt(acp)
+    at the chain's first steps), guided or not. f32 with TF32 off (the
+    kernel's tf32x3 route): the same request held to plain attention within
+    MODEL_RTOL of max(1, max |out|)."""
+    clf, x_T, y, request = _guided_setup(torch.bfloat16)
+    t_model = torch.full((SERVE_BATCH,), 999.0, device="cuda")
+    x_in = x_T.clone().requires_grad_(True)
+    before = fa.LAUNCHES
+    logits = clf(x_in, t_model)
+    fwd = fa.LAUNCHES - before
+    logp = torch.log_softmax(logits, -1).gather(1, y[:, None]).sum()
+    (grad,) = torch.autograd.grad(logp, x_in)
+    torch.cuda.synchronize()
+    bwd = fa.LAUNCHES - before - fwd
+    gmax = grad.abs().max().item()
+    print(f"[guided] EncoderUNet "
+          f"{sum(p.numel() for p in clf.parameters()) / 1e6:.2f} M params, "
+          f"bf16, pool adaptive: {fwd} kernel launches a forward, {bwd} a "
+          f"backward, max |grad log p(y|x)| {gmax:.3e}")
+    check(fwd == CLASSIFIER_CALLS and bwd == 0,
+          f"guided: classifier launches {fwd} forward, {bwd} backward")
+    check(math.isfinite(gmax) and gmax > 0, f"guided: gradient {gmax}")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    out, wall = _timed(request)
+    launched = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = DDIM_STEPS * (DDPM_CALLS + CLASSIFIER_CALLS)
+    print(f"[guided] DDIM-{DDIM_STEPS} request, batch {SERVE_BATCH}, "
+          f"{IMAGE}², bf16, scale {GUIDE_SCALE}: {wall:.4f} s, "
+          f"{SERVE_BATCH / wall:.3f} slices/s, peak {peak:.3f} GiB, "
+          f"{launched} attention launches ({DDIM_STEPS} x ({DDPM_CALLS} UNet "
+          f"+ {CLASSIFIER_CALLS} classifier)) [{smi}]")
+    _check_sample(out, SERVE_BATCH, IMAGE, True, "guided request")
+    check(launched == want, f"guided: {launched} launches, not {want}")
+    unguided, unguided_wall = _timed(lambda: request(guided=False))
+    gaps = [(a - b).abs().max().item() for a, b in (
+        (out, request(plain=True)),
+        (unguided, request(guided=False, plain=True)))]
+    moved = (out - unguided).abs().max().item()
+    print(f"[guided] bf16 kernel vs plain-attention request: max_abs_err "
+          f"{gaps[0]:.3e} guided, {gaps[1]:.3e} unguided (not held, see the "
+          f"phase's doc); unguided wall {unguided_wall:.4f} s; max |guided - "
+          f"unguided| {moved:.3e}")
+    check(moved > 0, "guided: the guidance did not move the sample")
+    del clf, request
+    torch.cuda.empty_cache()
+
+    disable_tf32()
+    _, _, _, request = _guided_setup(torch.float32)
+    before = fa.LAUNCHES
+    out32, wall32 = _timed(request)
+    launched32 = fa.LAUNCHES - before
+    print(f"[guided] f32 request (TF32 off): {wall32:.4f} s, {launched32} "
+          f"attention launches; max |bf16 - f32| {(out - out32).abs().max().item():.3e}")
+    check(launched32 == want, f"guided f32: {launched32} launches")
+    got, plain = out32.float(), request(plain=True).float()
+    err = (got - plain).abs().max().item()
+    tol = MODEL_RTOL * max(1.0, plain.abs().max().item())
+    print(f"[guided] f32 kernel vs plain-attention request: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})")
+    check(torch.isfinite(got).all().item(), "guided f32: non-finite sample")
+    check(err <= tol, f"guided f32: request error {err} over {tol}")
+    del request
+    torch.cuda.empty_cache()
+    return {"guided_serve": launched, "guided_serve_f32": launched32}
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
@@ -2321,12 +2666,13 @@ def _latent_request(rows, key):
 
 
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
-                 norm_launches: int, latent_rows) -> dict:
+                 norm_launches: int, latent_rows, transformer_rows) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
     (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
-    each dtype, and the same for one forward of each other family and for
-    one latent request. GroupNorm+SiLU: one call at each flagship norm
-    shape, batch SERVE_BATCH, bf16."""
+    each dtype, and the same for one forward of each other family, for one
+    latent request, and each transformer-path shape's row (with the load
+    its layout took). GroupNorm+SiLU: one call at each flagship norm shape,
+    batch SERVE_BATCH, bf16."""
     serve = [r for r in attn_rows if "families" not in r
              and r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
     ops_ms = sum(r["bound_ms"] * r["calls_per_forward"] for r in serve
@@ -2348,7 +2694,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in attn_rows + latent_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in attn_rows + latent_rows + transformer_rows),
         "ms": _per_forward(serve, "ms"),
         "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
@@ -2365,6 +2712,13 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
             per=f"DDIM-{DDIM_STEPS}, batch {SERVE_BATCH}, bf16: the latent "
                 f"UNet's {LATENT_CALLS_PER_FORWARD} calls a step and "
                 f"{LATENT_N_COND + 1} VAE calls at {list(VAE_ATTENTION)}"),
+        "transformer_path_rows": [
+            {k: r[k] for k in ("path", "shape", "keys", "dtype", "load",
+                               "calls_per_forward", "max_abs_err", "ms",
+                               "graph_ms", "plain_ms", "library_ms",
+                               "library_graph_ms", "bound_ms", "bound_by",
+                               "share_of_bound")}
+            for r in transformer_rows],
     }, {
         "name": "group_norm_silu",
         "route": "cuda",
@@ -2386,7 +2740,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
 
 
 PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
-          "cache", "dist", "families", "latent")
+          "cache", "dist", "families", "latent", "transformer_kernels",
+          "transformer", "patched", "guided")
 
 
 def main(argv=None) -> None:
@@ -2402,6 +2757,7 @@ def main(argv=None) -> None:
     name, count, smi = phase_device()
     phase_build()
     attn_rows = norm_rows = norm_launches = latent_rows = None
+    transformer_rows = None
     attn_launches = {}
     walls = peaks = ()
     if "kernels" in phases:
@@ -2442,12 +2798,21 @@ def main(argv=None) -> None:
     if "latent" in phases:
         latent_rows, latent_launches = phase_latent(smi)
         attn_launches.update(latent_launches)
+    if "transformer_kernels" in phases:
+        transformer_rows = phase_transformer_kernels(smi)
+    if "transformer" in phases:
+        attn_launches.update(phase_transformer(smi))
+    if "patched" in phases:
+        attn_launches.update(phase_patched(smi))
+    if "guided" in phases:
+        attn_launches.update(phase_guided(smi))
     print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
           f"passed in {time.perf_counter() - t0:.1f} s after the imports "
           f"[{smi}]")
     if len(set(phases)) == len(PHASES):
         print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
-                                      norm_launches, latent_rows)))
+                                      norm_launches, latent_rows,
+                                      transformer_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -153,12 +153,16 @@ def ddim_sample_loop(
     eta: float = 0.0,
     collect_x0: bool = False,
     noise: Sequence[torch.Tensor] | None = None,
+    guidance_fn: DenoiseFn | None = None,
 ):
     """DDIM (eq. 12) over a re-spaced schedule (``schedules.respace``).
 
     ``eta > 0`` adds per-step noise, drawn from ``generator`` or taken in
     order from ``noise`` (one tensor per step, for tests).
-    Classifier guidance (``guidance_fn``) comes with ROADMAP A17b.
+    ``guidance_fn(x, t_model) -> grad log p(y|x)`` applies classifier
+    guidance as the score: ``eps' = eps - sqrt(1 - acp_t) * grad``, with
+    pred_x0 re-derived from eps' (and clipped with ``clip_denoised``). Build
+    the gradient with ``models.encoder_unet.classifier_gradient``.
     Returns x_0, or ``(x_0, x0s)`` with ``collect_x0`` where x0s stacks the
     per-step pred_x0 as [T, ...].
     """
@@ -175,6 +179,13 @@ def ddim_sample_loop(
             sched, denoise_fn, x, tb, parameterization, learn_sigma,
             clip_denoised,
         )
+        if guidance_fn is not None:
+            grad = guidance_fn(x, process.model_timestep(sched, tb))
+            eps = pmv.eps - torch.sqrt(1.0 - sched.alphas_cumprod[t]) * grad
+            pred_x0 = process.predict_x0_from_eps(sched, x, tb, eps)
+            if clip_denoised:
+                pred_x0 = pred_x0.clamp(-1.0, 1.0)
+            pmv = pmv._replace(eps=eps, pred_x0=pred_x0)
         eps_used = pmv.eps
         if clip_denoised:
             # eps re-derived from the CLIPPED pred_x0, so the update stays

@@ -1,7 +1,12 @@
 """U-Net encoder / middle / decoder components.
 
-Port of the JAX package's ``models/backbone.py:31-176`` with the
-``AttentionBlock`` path (``SpatialTransformer`` comes with ROADMAP A17b).
+Port of the JAX package's ``models/backbone.py:31-176``. The attention
+after a res block is an ``AttentionBlock``, or with
+``use_spatial_transformer`` a ``SpatialTransformer`` of
+``transformer_depth`` blocks (``FFTAttention`` with ``use_fft_attention``;
+heads from ``num_heads``, or ``ch // num_head_channels``), which reads the
+``context`` the encoder, middle and decoder pass down (tokens of width
+``context_dim``; without one its second attention is self-attention too).
 With ``remat``, each ``ResBlock`` (and only it, as in the JAX package) runs
 under activation checkpointing while the module trains with grad enabled;
 serving and ``torch.inference_mode`` never checkpoint.
@@ -21,7 +26,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from .attention import AttentionBlock
+from .attention import AttentionBlock, SpatialTransformer
 from .layers import Conv, Downsample, GroupNorm32, ResBlock, Upsample, zero_init
 
 __all__ = ["UNetEncoder", "StackedUNetEncoder", "UNetMiddle", "UNetDecoder",
@@ -44,15 +49,11 @@ class _Common(nn.Module):
         use_spatial_transformer: bool = False,
         transformer_depth: int = 1,
         use_fft_attention: bool = False,
+        context_dim: int | None = None,
         remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if use_spatial_transformer or use_fft_attention:
-            raise NotImplementedError(
-                "SpatialTransformer / FFT attention are not ported yet "
-                "(ROADMAP A17b)"
-            )
         self.model_channels = model_channels
         self.num_res_blocks = num_res_blocks
         self.attention_resolutions = tuple(attention_resolutions)
@@ -63,11 +64,15 @@ class _Common(nn.Module):
         self.num_head_channels = num_head_channels
         self.use_scale_shift_norm = use_scale_shift_norm
         self.resblock_updown = resblock_updown
+        self.use_spatial_transformer = use_spatial_transformer
+        self.transformer_depth = transformer_depth
+        self.use_fft_attention = use_fft_attention
+        self.context_dim = context_dim
         self.remat = remat
         # the timestep embedding's width, as every U-Net family builds it
         self.emb_dim = 4 * model_channels
         self.dtype = dtype
-        # forward order: (name, kind) with kind in res | attn | resample
+        # forward order: (name, kind), kind res | attn | transformer | resample
         self.plan: list[tuple[str, str]] = []
         # True where the parameters carry a leading stream axis and a forward
         # runs on one stream's slices (``StackedUNetEncoder``)
@@ -85,12 +90,25 @@ class _Common(nn.Module):
         ))
 
     def _attn(self, name: str, ch: int) -> None:
-        self._add(name, "attn", AttentionBlock(
-            ch, self.num_heads, self.num_head_channels, dtype=self.dtype
+        if not self.use_spatial_transformer:
+            self._add(name, "attn", AttentionBlock(
+                ch, self.num_heads, self.num_head_channels, dtype=self.dtype
+            ))
+            return
+        heads = (self.num_heads if self.num_head_channels == -1
+                 else ch // self.num_head_channels)
+        self._add(name, "transformer", SpatialTransformer(
+            ch, depth=self.transformer_depth, heads=heads,
+            dim_head=ch // heads, dropout=self.dropout,
+            use_fft=self.use_fft_attention, context_dim=self.context_dim,
+            dtype=self.dtype,
         ))
 
-    def _run(self, name: str, kind: str, h: torch.Tensor, emb: torch.Tensor):
+    def _run(self, name: str, kind: str, h: torch.Tensor, emb: torch.Tensor,
+             context: torch.Tensor | None = None):
         block = getattr(self, name)
+        if kind == "transformer":
+            return block(h, context)
         if kind != "res":
             return block(h)
         # a dropout mask is drawn here, outside any checkpoint, so that the
@@ -139,11 +157,12 @@ class UNetEncoder(_Common):
                 ds *= 2
         self.out_channels = ch
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor):
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                context: torch.Tensor | None = None):
         h = self.in_conv(x)
         skips = [h]
         for name, kind in self.plan:
-            h = self._run(name, kind, h, emb)
+            h = self._run(name, kind, h, emb, context)
             if name in self.skip_after:
                 skips.append(h)
         return h, skips
@@ -171,7 +190,8 @@ class StackedUNetEncoder(UNetEncoder):
         self.stacked = True
 
     def encode_streams(self, streams: Sequence[torch.Tensor],
-                       emb: torch.Tensor):
+                       emb: torch.Tensor,
+                       context: torch.Tensor | None = None):
         """One (h, skips) per stream, in order."""
         if len(streams) != self.n_streams:
             raise ValueError(
@@ -180,7 +200,7 @@ class StackedUNetEncoder(UNetEncoder):
         params = dict(self.named_parameters())
         return [
             functional_call(self, {n: p[s] for n, p in params.items()},
-                            (x, emb))
+                            (x, emb, context))
             for s, x in enumerate(streams)
         ]
 
@@ -194,9 +214,10 @@ class UNetMiddle(_Common):
         self._attn("mid_attn", channels)
         self._res("mid_res2", channels, channels)
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor,
+                context: torch.Tensor | None = None) -> torch.Tensor:
         for name, kind in self.plan:
-            h = self._run(name, kind, h, emb)
+            h = self._run(name, kind, h, emb, context)
         return h
 
 
@@ -233,12 +254,13 @@ class UNetDecoder(_Common):
         self.out_channels = ch
 
     def forward(self, h: torch.Tensor, skips: Sequence[torch.Tensor],
-                emb: torch.Tensor) -> torch.Tensor:
+                emb: torch.Tensor,
+                context: torch.Tensor | None = None) -> torch.Tensor:
         skips = list(skips)
         for name, kind in self.plan:
             if name in self.takes_skip:
                 h = torch.cat([h, skips.pop().to(h.dtype)], dim=1)
-            h = self._run(name, kind, h, emb)
+            h = self._run(name, kind, h, emb, context)
         if skips:
             raise ValueError("skip stack should be empty")
         return h

@@ -1,7 +1,7 @@
 """DS-Diff: the 4-stream disentangled conditional diffusion U-Net.
 
-Port of the JAX package's ``models/dsunet.py`` with ``fusion='concat'``, in
-both stream layouts: ``stream_mode='sequential'`` (four dense per-stream
+Port of the JAX package's ``models/dsunet.py``, in both stream layouts:
+``stream_mode='sequential'`` (four dense per-stream
 encoders ``encoder_{s}``) and ``'vmap'`` (one ``encoders`` subtree whose
 parameters carry a leading [4] stream axis; it runs stream by stream on the
 slices, and under ``use_edge`` every stream is padded to the noise stem's
@@ -13,15 +13,24 @@ two channels):
   noise stream's stem only;
 - only the noise stream passes the middle block;
 - ``FeatureDisentangle`` heads run with their streams folded into the batch;
-- stream means through ``_SEProj``, concat + SiLU + ``all_proj`` 1x1 back
-  into the trunk; decoder skips are the mean over the four encoders' skips;
+- stream means through ``_SEProj``; ``fusion='concat'``: concat + SiLU +
+  ``all_proj`` 1x1 back into the trunk; ``fusion='crossattn'`` (the
+  reference's cross-attention variant): the four projected features as
+  [B, h*w, half] tokens, in the order share_content, style, anatomy,
+  lesion, joined on the token axis, are the context of a depth-4
+  ``SpatialTransformer`` ``fusion_attn`` over the noise stream's bottleneck
+  (heads ``max(num_heads, 1)`` of ``conv_ch // heads``: 8 of 36 at the
+  flagship's C = 96); decoder skips are the mean over the four encoders'
+  skips;
+- ``use_spatial_transformer`` / ``use_fft_attention``: the backbone's
+  attention blocks become transformers (``backbone.py``);
 - returns ``(prediction, features)``, both NHWC; each feature group is a
   stacked [k, B, h, w, c] tensor;
 - ``remat`` checkpoints every ``ResBlock`` of the encoders, middle and
   decoder while training.
 
-``fusion='crossattn'`` (ROADMAP A17b) is not ported yet. ``DSTrunk`` holds
-what ``DSUNetSplit`` (``dsunet_cached.py``) shares with this model.
+``DSTrunk`` holds what ``DSUNetSplit`` (``dsunet_cached.py``, concat
+fusion only, as in the JAX package) shares with this model.
 """
 from __future__ import annotations
 
@@ -38,11 +47,14 @@ from .backbone import (
     UNetEncoder,
     UNetMiddle,
 )
+from .attention import SpatialTransformer
 from .layers import Conv, GroupNorm32, SEBlock, TimeEmbed
 
-__all__ = ["DSUNet", "DSTrunk"]
+__all__ = ["DSUNet", "DSTrunk", "FUSIONS"]
 
 N_STREAMS = 4  # noise, anatomy, anatomy+lesion, lesion
+FUSIONS = ("concat", "crossattn")
+FUSION_DEPTH = 4  # the cross-attention fusion's transformer blocks
 
 
 class FeatureDisentangle(nn.Module):
@@ -79,6 +91,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-3, -1)
 
 
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, H*W, C], positions in row-major order."""
+    return x.flatten(2).transpose(1, 2)
+
+
 class DSTrunk(nn.Module):
     """What the DS-Diff models share after their encoders: the time
     embedding, the noise stream's middle block, the four disentangle heads,
@@ -90,7 +107,11 @@ class DSTrunk(nn.Module):
         return tuple(f"{name}." for name, child in self.named_children()
                      if isinstance(child, StackedUNetEncoder))
 
-    def _build_trunk(self, encoder: UNetEncoder, out_channels: int, kw: dict):
+    def _build_trunk(self, encoder: UNetEncoder, out_channels: int, kw: dict,
+                     fusion: str = "concat"):
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion '{fusion}' (have {FUSIONS})")
+        self.fusion = fusion
         dtype = kw["dtype"]
         ch0 = kw["model_channels"]
         conv_ch = encoder.out_channels
@@ -105,14 +126,21 @@ class DSTrunk(nn.Module):
         self.share_content_proj = _SEProj(half, dtype)
         self.anatomy_proj = _SEProj(half, dtype)
         self.lesion_proj = _SEProj(half, dtype)
-        self.all_proj = Conv(conv_ch + 4 * half, conv_ch, 1, dtype=dtype)
+        if fusion == "concat":
+            self.all_proj = Conv(conv_ch + 4 * half, conv_ch, 1, dtype=dtype)
+        else:
+            heads = max(kw["num_heads"], 1)
+            self.fusion_attn = SpatialTransformer(
+                conv_ch, depth=FUSION_DEPTH, heads=heads,
+                dim_head=conv_ch // heads, context_dim=half, dtype=dtype)
         self.decoder = UNetDecoder(conv_ch, encoder.skip_channels, **kw)
         self.out = OutHead(self.decoder.out_channels, out_channels, dtype)
 
-    def _fuse_and_decode(self, h_n, h_cond, skips, emb):
+    def _fuse_and_decode(self, h_n, h_cond, skips, emb, context=None):
         """h_n: the noise stream after the middle block; h_cond: the three
         condition streams' bottlenecks (a, al, l); skips: the decoder's skip
-        stack. Returns (out NHWC f32, features)."""
+        stack; context: the backbone transformers' (or None). Returns (out
+        NHWC f32, features)."""
         B = h_n.shape[0]
         h_a, h_al, h_l = h_cond
 
@@ -135,11 +163,16 @@ class DSTrunk(nn.Module):
         h_anatomy = self.anatomy_proj(anat2.mean(dim=0))
         h_lesion = self.lesion_proj(les2.mean(dim=0))
 
-        fused = torch.cat(
-            [h_n, h_share_content, h_style, h_anatomy, h_lesion], dim=1
-        )
-        h = self.all_proj(F.silu(fused))
-        h = self.decoder(h, skips, emb)
+        if self.fusion == "crossattn":
+            ctx = torch.cat([_tokens(f) for f in (h_share_content, h_style,
+                                                   h_anatomy, h_lesion)], dim=1)
+            h = self.fusion_attn(h_n, ctx)
+        else:
+            fused = torch.cat(
+                [h_n, h_share_content, h_style, h_anatomy, h_lesion], dim=1
+            )
+            h = self.all_proj(F.silu(fused))
+        h = self.decoder(h, skips, emb, context)
         out = self.out(h)
 
         features = {
@@ -181,10 +214,6 @@ class DSUNet(DSTrunk):
         super().__init__()
         if stream_mode not in ("sequential", "vmap"):
             raise ValueError(f"unknown stream_mode '{stream_mode}'")
-        if fusion != "concat":
-            raise NotImplementedError(
-                f"fusion='{fusion}' is not ported yet (ROADMAP A17b)"
-            )
         self.use_edge = use_edge
         self.stream_mode = stream_mode
         self.n_channels = in_channels - (1 if use_edge else 0)
@@ -224,7 +253,7 @@ class DSUNet(DSTrunk):
             # condition streams get a zero channel beside their own
             self.encoders = StackedUNetEncoder(N_STREAMS, noise_stem, **kw)
             encoder = self.encoders
-        self._build_trunk(encoder, out_channels, kw)
+        self._build_trunk(encoder, out_channels, kw, fusion)
 
     def _streams(self, x: torch.Tensor) -> list[torch.Tensor]:
         """NCHW input -> the four per-stream NCHW maps."""
@@ -245,21 +274,25 @@ class DSUNet(DSTrunk):
                                for s in streams[1:]]
         return streams
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor):
-        """x [B, H, W, C] NHWC, t [B] -> (out [B, H, W, out] f32, features)."""
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                context: torch.Tensor | None = None):
+        """x [B, H, W, C] NHWC, t [B] -> (out [B, H, W, out] f32, features).
+        ``context`` [B, M, C'] reaches the backbone's transformers, as in the
+        JAX package (without ``context_dim`` here, C' is each transformer's
+        own width)."""
         streams = self._streams(x.permute(0, 3, 1, 2))
         emb = self.time_embed(t)
         if self.stream_mode == "sequential":
             outs = [
-                getattr(self, f"encoder_{s}")(streams[s], emb)
+                getattr(self, f"encoder_{s}")(streams[s], emb, context)
                 for s in range(N_STREAMS)
             ]
         else:
-            outs = self.encoders.encode_streams(streams, emb)
-        h_n = self.middle(outs[0][0], emb)
+            outs = self.encoders.encode_streams(streams, emb, context)
+        h_n = self.middle(outs[0][0], emb, context)
         # decoder with mean-of-streams skips
         skips = [torch.stack(parts).mean(dim=0)
                  for parts in zip(*[o[1] for o in outs])]
         return self._fuse_and_decode(
-            h_n, [o[0] for o in outs[1:]], skips, emb
+            h_n, [o[0] for o in outs[1:]], skips, emb, context
         )

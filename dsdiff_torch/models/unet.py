@@ -5,9 +5,13 @@ middle and decoder of ``backbone.py``, with optional class (``num_classes``:
 a label embedding) or vector (``adm_in_channels``: ``adm_fc1`` -> SiLU ->
 ``adm_fc2``) conditioning added to the time embedding. ``learn_sigma`` is
 the caller doubling ``out_channels``; conditioning by concatenation is the
-caller stacking channels into ``x``. ``use_spatial_transformer`` and
-``use_fft_attention`` are refused (ROADMAP A17b); ``context`` is taken and,
-as in the JAX package without a spatial transformer, not read.
+caller stacking channels into ``x``. With ``use_spatial_transformer``
+(``use_fft_attention``: their FFT form) the attention blocks are
+``SpatialTransformer``s whose second attention reads ``context`` [B, M,
+``context_dim``] (the ``crossattn``, ``hybrid`` and ``crossattn-adm`` modes
+of ``wrapper.conditioned_call``); without a context it attends over the map
+itself. Without a spatial transformer ``context`` is taken and, as in the
+JAX package, not read.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ class UNet(nn.Module):
             use_spatial_transformer=use_spatial_transformer,
             transformer_depth=transformer_depth,
             use_fft_attention=use_fft_attention,
+            context_dim=context_dim,
             remat=remat,
             dtype=dtype,
         )
@@ -84,8 +89,9 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor | None = None,
                 y: torch.Tensor | None = None) -> torch.Tensor:
-        """x [B, H, W, C] NHWC, t [B] (y: class indices [B] or adm vectors
-        [B, adm_in_channels]) -> [B, H, W, out] f32."""
+        """x [B, H, W, C] NHWC, t [B], context [B, M, context_dim] or None
+        (y: class indices [B] or adm vectors [B, adm_in_channels]) ->
+        [B, H, W, out] f32."""
         emb = self.time_embed(t)
         if self.num_classes is not None:
             if y is None:
@@ -95,7 +101,7 @@ class UNet(nn.Module):
             if y is None:
                 raise ValueError("adm-conditional model needs vector y")
             emb = emb + self.adm_fc2(F.silu(self.adm_fc1(y)))
-        h, skips = self.encoder(x.permute(0, 3, 1, 2), emb)
-        h = self.middle(h, emb)
-        h = self.decoder(h, skips, emb)
+        h, skips = self.encoder(x.permute(0, 3, 1, 2), emb, context)
+        h = self.middle(h, emb, context)
+        h = self.decoder(h, skips, emb, context)
         return self.out(h).permute(0, 2, 3, 1)

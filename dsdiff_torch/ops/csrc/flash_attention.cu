@@ -55,10 +55,22 @@
 //   stage of Q (NA atoms), K (NA) and V (NV): 160 KB + 1 KB at D=512, one
 //   block an SM. Atoms of Q and K wholly past D (D=264 in 6 atoms) are never
 //   loaded by TMA: the block zeroes them once, so their k-steps add nothing.
-// It takes: D <= 512, 16-byte aligned bases, and batch, row and head strides
-// that are multiples of 8 elements (TMA's 16-byte stride rule); the Python
-// wrapper checks this. P enters the second product in bf16, as in
-// jax.nn.dot_product_attention (probabilities cast to the value dtype).
+// - Layouts a TMA tensor map cannot describe (a base not 16-byte aligned, or
+//   a batch, row or head stride that is not a multiple of 8 elements: the
+//   head stride of 72 bytes at D=36 in DSUNet's cross-attention fusion, the
+//   thirds of a fused qkv at such a D) take the same kernel with its tiles
+//   loaded by the threads instead (template TMA = false): every thread
+//   copies VEC elements at a time (8 or 4 bytes by cp.async, 2 bytes through
+//   a register where nothing wider is aligned) into the same 128-byte
+//   swizzled atoms TMA would write (16-byte chunk c of row r lands at chunk
+//   c ^ (r % 8)), zeros past D and past the ragged row tail. The ring, its
+//   stages and the products are those of the TMA route; a stage is waited
+//   on with cp.async.wait_group, a proxy fence and a block barrier instead
+//   of its mbarrier. The Python wrapper picks VEC (0 = TMA) from the bases,
+//   the strides and D; nothing is copied or padded outside the kernel.
+// It takes: D <= 512 and any strides with a contiguous last dimension.
+// P enters the second product in bf16, as in jax.nn.dot_product_attention
+// (probabilities cast to the value dtype).
 //
 // f32: three TF32 passes on the tensor cores (attn_fwd_tf32x3), mma.sync:
 // - 4 warps (128 threads) per 64-row Q tile, one 16-row slab per warp; grid
@@ -130,6 +142,12 @@ namespace {
 
 struct Strides {
   long long b, n, h;
+};
+
+// a bf16 operand [B, rows, H, D] as the thread-loaded route reads it
+struct Operand {
+  const __nv_bfloat16* p;
+  Strides s;
 };
 
 // ---------------------------------------------------------------------------
@@ -305,17 +323,78 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// returns once at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + 64) of operand x at (b, h), columns [col0, col0 + 64 *
+// atoms), into `atoms` 128-byte swizzled atoms at dst, the layout a TMA box
+// with 128-byte swizzle writes: element (r, c) of an atom at byte r * 128 +
+// ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2 (the tile 1024-aligned). Zeros past
+// `rows` and past D. VEC elements a copy, VEC dividing D, the strides and
+// the base's alignment in elements, so no copy straddles D or a 16-byte
+// chunk: 4 and 2 by cp.async (8 and 4 bytes; a source size of 0 writes
+// zeros), 1 through a register.
+template <int VEC>
+__device__ __forceinline__ void ld_tile_vec(uint32_t dst,
+                                            const __nv_bfloat16* base,
+                                            long long sn, int row0, int rows,
+                                            int col0, int atoms, int D) {
+  const int per_row = 64 * atoms / VEC;  // copies a tile row
+  for (int idx = threadIdx.x; idx < TILE * per_row; idx += WG) {
+    const int r = idx / per_row, c = VEC * (idx % per_row);
+    const int cc = c % 64;
+    const uint32_t addr = dst + (c / 64) * ATOM_BYTES + r * 128 +
+                          (((cc / 8) ^ (r % 8)) << 4) + (cc % 8) * 2;
+    const bool ok = row0 + r < rows && col0 + c < D;
+    const __nv_bfloat16* src = ok ? base + (row0 + r) * sn + col0 + c : base;
+    if constexpr (VEC == 4) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(addr),
+                   "l"(src), "r"(ok ? 8 : 0)
+                   : "memory");
+    } else if constexpr (VEC == 2) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(addr),
+                   "l"(src), "r"(ok ? 4 : 0)
+                   : "memory");
+    } else {
+      unsigned short val = 0;
+      if (ok) val = __ldg(reinterpret_cast<const unsigned short*>(src));
+      asm volatile("st.shared.u16 [%0], %1;" ::"r"(addr), "h"(val) : "memory");
+    }
+  }
+}
+
+// ld_tile_vec for the launch's VEC (uniform over the grid)
+__device__ __forceinline__ void ld_tile(uint32_t dst, const Operand& x,
+                                        int vec, int b, int h, int row0,
+                                        int rows, int col0, int atoms, int D) {
+  const __nv_bfloat16* base = x.p + b * x.s.b + h * x.s.h;
+  if (vec == 4)
+    ld_tile_vec<4>(dst, base, x.s.n, row0, rows, col0, atoms, D);
+  else if (vec == 2)
+    ld_tile_vec<2>(dst, base, x.s.n, row0, rows, col0, atoms, D);
+  else
+    ld_tile_vec<1>(dst, base, x.s.n, row0, rows, col0, atoms, D);
+}
+
 // Accumulator fragment of wgmma m64nN (f32), thread t of the warpgroup:
 // warp w = t / 32 owns rows 16w..16w+15; with g = (t % 32) / 4 and
 // c = 2 * (t % 4), element 4i + 2r + e is (row 16w + g + 8r, col 8i + c + e).
 // NA: 128-byte atoms a Q or K tile row spans; NV: atoms of O's columns this
 // block owns (NA, or NA / 2 above D=256, blockIdx.z picking the slice);
-// KSTEPS: k-steps of QK^T.
-template <int NA, int NV, int KSTEPS>
+// KSTEPS: k-steps of QK^T. TMA: tiles through the tensor maps tq, tk, tv;
+// otherwise loaded by the threads from xq, xk, xv, `vec` elements a copy.
+template <int NA, int NV, int KSTEPS, bool TMA>
 __global__ void __launch_bounds__(WG)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tv, Operand xq,
+               Operand xk, Operand xv, int vec,
                __nv_bfloat16* __restrict__ o, int H, int N, int M, int D,
                Strides ost, float scale_log2) {
   constexpr int STAGES = wg_stages(NA);
@@ -362,18 +441,30 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     // make the generic-proxy stores visible to wgmma's async proxy
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  if (tid == 0) {
-    for (int s = 0; s <= STAGES; ++s) mbar_init(bar(s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(q_bar, qk_bytes);
-    tma_load_tile(q_smem, &tq, q_bar, 0, qk_atoms, h, n0, b);
-    for (int s = 0; s < STAGES && s < ntiles; ++s) {
-      mbar_expect_tx(bar(s), kv_bytes);
-      tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, s * TILE, b);
-      tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, s * TILE, b);
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int s = 0; s <= STAGES; ++s) mbar_init(bar(s), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(q_bar, qk_bytes);
+      tma_load_tile(q_smem, &tq, q_bar, 0, qk_atoms, h, n0, b);
+      for (int s = 0; s < STAGES && s < ntiles; ++s) {
+        mbar_expect_tx(bar(s), kv_bytes);
+        tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, s * TILE, b);
+        tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, s * TILE, b);
+      }
+    }
+  } else {
+    // group s: K/V tile s (group 0 also Q); waited on in the loop
+    ld_tile(q_smem, xq, vec, b, h, n0, N, 0, qk_atoms, D);
+    for (int s = 0; s < STAGES; ++s) {
+      if (s < ntiles) {
+        ld_tile(k_smem(s), xk, vec, b, h, s * TILE, M, 0, qk_atoms, D);
+        ld_tile(v_smem(s), xv, vec, b, h, s * TILE, M, col0, v_atoms, D);
+      }
+      cp_async_commit();
     }
   }
 
@@ -395,11 +486,18 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   // moves 2048 bytes; each product covers one atom's 64 columns, so the LBO
   // is never stepped.
   const uint64_t q_desc = make_desc(q_smem, 16, 1024);
-  mbar_wait(q_bar, 0);
+  if constexpr (TMA) mbar_wait(q_bar, 0);
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % STAGES;
-    mbar_wait(bar(s), (j / STAGES) & 1);
+    if constexpr (TMA) {
+      mbar_wait(bar(s), (j / STAGES) & 1);
+    } else {
+      cp_async_wait<STAGES - 1>();  // groups 0..j have landed
+      // this thread's generic-proxy writes, visible to wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+    }
 
     const uint64_t k_desc = make_desc(k_smem(s), 16, 1024);
     fence_regs(sc);
@@ -474,11 +572,19 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int a = 0; a < NV; ++a) fence_regs(acc[a]);
 
     __syncthreads();  // every warp is done with stage s: refill it
-    if (tid == 0 && j + STAGES < ntiles) {
-      const int row = (j + STAGES) * TILE;
-      mbar_expect_tx(bar(s), kv_bytes);
-      tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, row, b);
-      tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, row, b);
+    const int row = (j + STAGES) * TILE;
+    if constexpr (TMA) {
+      if (tid == 0 && j + STAGES < ntiles) {
+        mbar_expect_tx(bar(s), kv_bytes);
+        tma_load_tile(k_smem(s), &tk, bar(s), 0, qk_atoms, h, row, b);
+        tma_load_tile(v_smem(s), &tv, bar(s), col0, v_atoms, h, row, b);
+      }
+    } else {
+      if (j + STAGES < ntiles) {
+        ld_tile(k_smem(s), xk, vec, b, h, row, M, 0, qk_atoms, D);
+        ld_tile(v_smem(s), xv, vec, b, h, row, M, col0, v_atoms, D);
+      }
+      cp_async_commit();  // group j + STAGES (empty past the last tile)
     }
   }
 
@@ -553,18 +659,37 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int NA, int KSTEPS, int NV = NA>
-int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
-                 const CUtensorMap& tv, __nv_bfloat16* o, int B, int H, int N,
-                 int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+// the bf16 route's inputs: tensor maps (TMA) or operands and vec (loaded by
+// the threads)
+struct WgmmaArgs {
+  CUtensorMap tq, tk, tv;
+  Operand q, k, v;
+  int vec;
+};
+
+template <int NA, int KSTEPS, int NV, bool TMA>
+int launch_wgmma_as(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H,
+                    int N, int M, int D, Strides os, float scale_log2,
+                    cudaStream_t st) {
   constexpr int smem = wg_smem_bytes(NA, NV);
-  const auto kernel = attn_fwd_wgmma<NA, NV, KSTEPS>;
+  const auto kernel = attn_fwd_wgmma<NA, NV, KSTEPS, TMA>;
   static uint64_t opted_in = 0;
   const cudaError_t err = allow_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B * H, NA / NV);
-  kernel<<<grid, WG, smem, st>>>(tq, tk, tv, o, H, N, M, D, os, scale_log2);
+  kernel<<<grid, WG, smem, st>>>(a.tq, a.tk, a.tv, a.q, a.k, a.v, a.vec, o, H,
+                                 N, M, D, os, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NA, int KSTEPS, int NV = NA>
+int launch_wgmma(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
+                 int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+  if (a.vec == 0)
+    return launch_wgmma_as<NA, KSTEPS, NV, true>(a, o, B, H, N, M, D, os,
+                                                 scale_log2, st);
+  return launch_wgmma_as<NA, KSTEPS, NV, false>(a, o, B, H, N, M, D, os,
+                                                scale_log2, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -634,15 +759,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                "l"(src), "r"(src_bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// returns once at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // Rows [r0, r0 + TILE) of a [rows, D] slab (row stride sn floats) into a
 // [TILE][f_ld(DK)] tile at dst, zeros past the ragged row tail and in the
 // padding columns D..8*DK-1. VEC: 16-byte copies (the base is 16-byte
@@ -1061,29 +1177,36 @@ bool rows_aligned16(const void* p, Strides s) {
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
-           int B, int H, int N, int M, int D, Strides qs, Strides ks,
+           int vec, int B, int H, int N, int M, int D, Strides qs, Strides ks,
            Strides vs, Strides os, float scale_log2, cudaStream_t st) {
   if (is_bf16) {
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return -1;
-    CUtensorMap tq, tk, tv;
-    CUresult res = encode(fn, &tq, q, B, N, H, D, qs);
-    if (res == CUDA_SUCCESS) res = encode(fn, &tk, k, B, M, H, D, ks);
-    if (res == CUDA_SUCCESS) res = encode(fn, &tv, v, B, M, H, D, vs);
-    if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
-    switch ((D + 15) / 16) {  // k-steps of QK^T; above 64, one atom more
-      case 1: return launch_wgmma<1, 1>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      case 2: return launch_wgmma<1, 2>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      case 3: return launch_wgmma<1, 3>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-      case 4: return launch_wgmma<1, 4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    using bf16 = __nv_bfloat16;
+    WgmmaArgs a = {};  // tensor maps left zero when the threads load
+    a.q = Operand{static_cast<const bf16*>(q), qs};
+    a.k = Operand{static_cast<const bf16*>(k), ks};
+    a.v = Operand{static_cast<const bf16*>(v), vs};
+    a.vec = vec;
+    if (vec == 0) {
+      const EncodeTiled fn = encode_tiled();
+      if (fn == nullptr) return -1;
+      CUresult res = encode(fn, &a.tq, q, B, N, H, D, qs);
+      if (res == CUDA_SUCCESS) res = encode(fn, &a.tk, k, B, M, H, D, ks);
+      if (res == CUDA_SUCCESS) res = encode(fn, &a.tv, v, B, M, H, D, vs);
+      if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
     }
-    if (D <= 128) return launch_wgmma<2, 8>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-    if (D <= 192) return launch_wgmma<3, 12>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-    if (D <= 256) return launch_wgmma<4, 16>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    bf16* ob = static_cast<bf16*>(o);
+    switch ((D + 15) / 16) {  // k-steps of QK^T; above 64, one atom more
+      case 1: return launch_wgmma<1, 1>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 2: return launch_wgmma<1, 2>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 3: return launch_wgmma<1, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 4: return launch_wgmma<1, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    }
+    if (D <= 128) return launch_wgmma<2, 8>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    if (D <= 192) return launch_wgmma<3, 12>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    if (D <= 256) return launch_wgmma<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
     // above 256: two blocks a Q tile, each owning half of O's columns
-    if (D <= 384) return launch_wgmma<6, 24, 3>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
-    return launch_wgmma<8, 32, 4>(tq, tk, tv, ob, B, H, N, M, D, os, scale_log2, st);
+    if (D <= 384) return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -1103,12 +1226,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
 // current device for the launch only when it differs) and returns
 // cudaGetLastError() (0 on success), or -1 when the driver has no
 // cuTensorMapEncodeTiled, or -(1000 + CUresult) when a tensor map cannot be
-// encoded. The caller checks shapes and, for bf16, alignment: 1 <= D <= 512,
-// N >= 1, M >= 1, B*H <= 65535; bf16 bases 16-byte aligned and b, n, h
-// strides multiples of 8 elements.
+// encoded. The caller checks shapes: 1 <= D <= 512, N >= 1, M >= 1,
+// B*H <= 65535. bf16 `vec`: 0 reads q, k, v through TMA (bases 16-byte
+// aligned, b, n, h strides multiples of 8 elements); 4, 2 or 1 has the
+// threads load them that many elements a copy (vec divides D, the strides
+// and each base's alignment in elements). f32 ignores it.
 extern "C" int dsdiff_flash_attention(
     const void* q, const void* k, const void* v, void* o, int is_bf16,
-    int device, int B, int H, int N, int M, int D, long long q_sb,
+    int vec, int device, int B, int H, int N, int M, int D, long long q_sb,
     long long q_sn, long long q_sh, long long k_sb, long long k_sn,
     long long k_sh, long long v_sb, long long v_sn, long long v_sh,
     long long o_sb, long long o_sn, long long o_sh, float scale_log2,
@@ -1117,7 +1242,7 @@ extern "C" int dsdiff_flash_attention(
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch(q, k, v, o, is_bf16, B, H, N, M, D,
+  const int rc = launch(q, k, v, o, is_bf16, vec, B, H, N, M, D,
                         Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
                         Strides{v_sb, v_sn, v_sh}, Strides{o_sb, o_sn, o_sh},
                         scale_log2, static_cast<cudaStream_t>(stream));

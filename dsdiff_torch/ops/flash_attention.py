@@ -14,11 +14,14 @@ columns (both compute the full scores).
 The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
 bf16 through ``wgmma`` with K/V fed by TMA, f32 through ``mma.sync`` in three
 TF32 passes (``tf32x3``: each operand split into a TF32 high and low part,
-which keeps the products f32-accurate) with K/V fed by ``cp.async``. The
-bf16 route reads q, k and v through TMA tensor maps, which need 16-byte
-aligned bases and batch, row and head strides that are multiples of 8
-elements; the f32 route takes any strides (16-byte copies where the layout
-allows them, 4-byte copies otherwise).
+which keeps the products f32-accurate) with K/V fed by ``cp.async``. Both
+take any strides with a contiguous last dimension. The bf16 route reads q,
+k and v through TMA tensor maps where they can describe the layout
+(16-byte aligned bases, batch, row and head strides that are multiples of 8
+elements); otherwise (a head of D = 36 has a 72-byte head stride) the
+kernel's threads load the same swizzled tiles themselves, 8, 4 or 2 bytes a
+copy (``bf16_load`` says which). The f32 route copies 16 bytes where the
+layout allows it and 4 otherwise.
 
 The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
 an ``autograd.Function`` whose forward is the kernel and whose backward is
@@ -37,7 +40,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "reference_attention", "FlashAttention",
-           "LAUNCHES", "MAX_HEAD_DIM", "ROUTES"]
+           "bf16_load", "LAUNCHES", "MAX_HEAD_DIM", "ROUTES", "BF16_LOADS"]
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -47,6 +50,9 @@ LAUNCHES = 0
 MAX_HEAD_DIM = 512
 # the kernel's route for each dtype it takes
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+# how the bf16 route loads its tiles, by the kernel's `vec` argument: TMA,
+# or its threads this many elements a copy
+BF16_LOADS = {0: "tma", 4: "cp.async 8 B", 2: "cp.async 4 B", 1: "ld 2 B"}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
@@ -86,14 +92,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     strides = (q.stride(), k.stride(), v.stride())
     if strides[0][3] != 1 or strides[1][3] != 1 or strides[2][3] != 1:
         raise ValueError("the last dimension of q, k and v must be contiguous")
-    if dtype == torch.bfloat16:  # what a TMA tensor map can describe
-        for name, x, st in zip("qkv", (q, k, v), strides):
-            if x.data_ptr() % 16:
-                raise ValueError(f"bf16 {name} must start 16-byte aligned")
-            if st[0] % 8 or st[1] % 8 or st[2] % 8:
-                raise ValueError(
-                    f"bf16 {name}'s batch, row and head strides must be "
-                    f"multiples of 8 elements, got {st}")
     device = q.device
     if device.type != "cuda" or k.device != device or v.device != device:
         raise ValueError(
@@ -103,6 +101,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return strides
 
 
+def _vec(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, strides) -> int:
+    """The bf16 kernel's ``vec``: 0 where TMA tensor maps describe q, k and
+    v (16-byte aligned bases, batch, row and head strides multiples of 8
+    elements), else the widest copy of 4, 2 or 1 elements that divides D,
+    every stride and every base's alignment in elements."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    for vec in (8, 4, 2):
+        if (all(p % (2 * vec) == 0 for p in ptrs)
+                and all(st[i] % vec == 0 for st in strides for i in range(3))
+                and (vec == 8 or q.shape[3] % vec == 0)):
+            return 0 if vec == 8 else vec
+    return 1
+
+
+def bf16_load(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """How the bf16 route loads these q, k and v (``BF16_LOADS``): "tma",
+    or its threads' copies where a tensor map cannot describe the layout."""
+    return BF16_LOADS[_vec(q, k, v, (q.stride(), k.stride(), v.stride()))]
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -110,7 +128,7 @@ def _library():
         fn = lib.dsdiff_flash_attention
         fn.argtypes = (
             [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -128,9 +146,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     fn = _library().dsdiff_flash_attention
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     index = q.device.index
+    is_bf16 = _DTYPES[q.dtype]
+    vec = _vec(q, k, v, (qs, ks, vs)) if is_bf16 else 0
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], index, B, H, N, k.shape[1], D,
+        is_bf16, vec, index, B, H, N, k.shape[1], D,
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
         N * H * D, H * D, D,  # o is contiguous
         # the current stream's raw handle: torch.cuda.current_stream()

@@ -2,10 +2,11 @@
 
 Port of the JAX package's ``train/step.py``: ``TaskConfig``, ``_denoiser``,
 ``make_train_step`` (with the 'ds' and 'disc' disentangle losses),
-``make_sample_fn`` with every sampler and ``make_val_metrics``; and the
-Palette pipeline's train step and sampler (``make_palette_train_step``,
+``make_sample_fn`` with every sampler (and split-input sampling: the
+denoiser applied to overlapping tiles in one batched call,
+``core.patching``) and ``make_val_metrics``; and the Palette pipeline's
+train step and sampler (``make_palette_train_step``,
 ``make_palette_sample_fn``, the JAX trainer's ``_setup_palette_steps``).
-Split-input (patched) sampling comes with ROADMAP A17b.
 
 The train step is eager: one forward through ``training_losses`` and the
 disentangle losses, one backward, then the optimizer and EMA update in
@@ -42,7 +43,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core import losses as L
-from ..core import dpm_solver, palette, process, sampling
+from ..core import dpm_solver, palette, patching, process, sampling
 from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
 from ..models.layers import dropout_generator
@@ -326,6 +327,11 @@ def run_sampler_loop(loop: Callable, sched: DiffusionSchedule,
     return loop(sched, denoise, x_T, **kw)
 
 
+# split_input_params keys that shape the tiles' weighting
+_WEIGHT_KEYS = ("clip_min_weight", "clip_max_weight", "tie_braker",
+                "clip_min_tie_weight", "clip_max_tie_weight")
+
+
 def make_sample_fn(
     model: nn.Module,
     sched: DiffusionSchedule,
@@ -354,11 +360,19 @@ def make_sample_fn(
     schedule; the solver makes its own grid) and ``sample_steps``, never
     clip, and take ``solver_options`` (order, method, skip_type,
     algorithm_type, ...).
+
+    ``patch_params`` (the run config's ``split_input_params``: ``ks``,
+    ``stride``, and the weighting's ``clip_min_weight``,
+    ``clip_max_weight``, ``tie_braker``, ``clip_min_tie_weight``,
+    ``clip_max_tie_weight``) makes every denoiser call one model call over
+    the overlapping ``ks`` tiles of x and the condition, refolded
+    (``core.patching.patched_apply``).
     """
     if patch_params:
-        raise NotImplementedError(
-            "split-input (patched) sampling is not ported yet (ROADMAP A17b)"
-        )
+        ks = tuple(patch_params.get("ks", (64, 64)))
+        stride = tuple(patch_params.get("stride", ks))
+        wparams = {k: patch_params[k] for k in _WEIGHT_KEYS
+                   if k in patch_params}
     dpm_family = ("dpm", "dpm_solver", "dpm_singlestep", "dpm_adaptive")
     # raises ValueError for an unknown name
     loop = None if sampler in dpm_family else sampling.make_sampler(sampler)
@@ -371,13 +385,17 @@ def make_sample_fn(
             x_T = draw_x_T(cond, out_channels, generator)
 
         def make_denoise(c):
-            raw = _denoiser(model, c)
+            # x and c tile by tile when patched: the model sees them joined
+            raw = _denoiser(model, None if patch_params else c)
 
             def denoise(x, t_model):
                 out = raw(x, t_model)
                 # feature models (DSUNet) yield (out, features)
                 return out[0] if isinstance(out, tuple) else out
 
+            if patch_params:
+                return lambda x, t_model: patching.patched_apply(
+                    denoise, x, t_model, ks, stride, cond=c, **wparams)
             return denoise
 
         denoise = make_denoise(cond)

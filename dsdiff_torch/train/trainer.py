@@ -22,6 +22,12 @@ weights (``set_sampler`` switches on a live trainer), ``validate`` with its
 image dumps, ``progressive_denoise`` and ``predict`` (test slices -> NIfTI
 volumes -> metric report). The data store is the H5 slice store
 (``data_store: h5``, the default) or the npy case store (``npy``).
+``unet_config.params`` reaches the model as the JAX trainer passes it, the
+transformer path's keys too (``fusion: crossattn``,
+``use_spatial_transformer``, ``transformer_depth``,
+``use_fft_attention``); ``split_input_params`` makes every sampler but the
+cached one split-input (``train.step.make_sample_fn``), also after
+``set_sampler``.
 
 Under a mesh (``Trainer(cfg, workdir, mesh=parallel.mesh.make_mesh(...))``,
 every rank of the process group building its own trainer) each rank trains

@@ -8,16 +8,23 @@ level included). Leaves translate as:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW,
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in],
-- norm ``scale`` -> ``weight``; ``bias`` unchanged;
+- norm ``scale`` (GroupNorm, LayerNorm) -> ``weight``; ``bias`` unchanged;
 - ``Embed``'s ``embedding`` [num, features] -> ``nn.Embedding``'s
-  ``weight``, the same layout;
+  ``weight``, the same layout (the UNet's ``label_emb``, ``ClassEmbedder``);
+- a module's own parameter keeps its name (``EncoderUNet``'s
+  ``pool_query``);
 - under a stacked subtree (``stream_mode='vmap'``: ``encoders``,
   ``cond_encoders``) every leaf keeps its leading stream axis, and the
   target parameter's rank says which layout a kernel has.
 
-The same rules carry the latent pipeline's networks: the KL-VAE
-(``models.vae``: its bottleneck attention's separate ``q``, ``k``, ``v``
-and ``proj_out`` Denses, ``quant_conv`` and ``post_quant_conv``), the
+The transformer path's modules (``SpatialTransformer``'s ``proj_in``,
+``block_{i}`` with ``norm1..3``, ``attn1``/``attn2``'s ``to_q``, ``to_k``,
+``to_v``, ``to_out`` and ``ff``'s ``proj_in``/``proj_out``; DSUNet's
+``fusion_attn``) carry their Flax names, so the same rules hold for them,
+in a stacked encoder too. The same rules carry the latent pipeline's
+networks: the KL-VAE (``models.vae``: its bottleneck attention's separate
+``q``, ``k``, ``v`` and ``proj_out`` Denses, ``quant_conv`` and
+``post_quant_conv``), the
 ``PatchDiscriminator`` (whose GroupNorms are bare ``nn.GroupNorm``
 modules: ``norm_1/scale`` -> ``norm_1.weight``) and the perceptual loss's
 random-feature pyramid and VGG16 trunk (``eval.perceptual``).
@@ -29,6 +36,7 @@ so that a run trained with the JAX package continues in the port.
 from __future__ import annotations
 
 import math
+import re
 from typing import Mapping
 
 import numpy as np
@@ -55,7 +63,7 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "embedding": "weight"}
+               "embedding": "weight", "pool_query": "pool_query"}
 
 
 def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int) -> np.ndarray:
@@ -130,12 +138,17 @@ def train_state_from_flax(tree: Mapping, model: nn.Module) -> dict:
     return out
 
 
+# a transformer block's LayerNorm scale (a GroupNorm32's is ``normN.norm``)
+_LAYER_NORM = re.compile(r"(^|\.)norm\d\.weight$")
+
+
 @torch.no_grad()
 def random_params(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter with seeded, scaled normals, in place.
 
-    Weights get ``N(0, 1/fan_in)``, norm scales ``1 + N(0, 0.1²)`` and biases
-    ``N(0, 0.1²)``, so the zero-initialised layers (every ``OutHead``, the
+    Weights get ``N(0, 1/fan_in)``, norm scales (GroupNorm's, and the
+    transformers' LayerNorms ``norm1``..``norm3``) ``1 + N(0, 0.1²)`` and
+    biases ``N(0, 0.1²)``, so the zero-initialised layers (every ``OutHead``, the
     ResBlocks' second conv, DiT's ``adaLN``, ``final_adaLN`` and
     ``final_proj``) are not zero and a random model's output depends on
     every layer. Drawn on the CPU from a
@@ -150,7 +163,7 @@ def random_params(model: nn.Module, seed: int) -> nn.Module:
         one = p[0] if name.startswith(stacked) else p
         if one.ndim >= 2:
             val = noise / math.sqrt(one[0].numel())
-        elif name.endswith("norm.weight"):
+        elif name.endswith("norm.weight") or _LAYER_NORM.search(name):
             val = 1.0 + 0.1 * noise
         else:
             val = 0.1 * noise

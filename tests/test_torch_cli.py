@@ -97,6 +97,35 @@ def test_the_entry_points_train_and_sample_a_ddpm_run(store, tmp_path):
     assert all(np.isfinite(v) for k, v in rows[0].items() if k != "case")
 
 
+def test_the_entry_points_train_and_sample_a_crossattn_run(store, tmp_path):
+    """The flagship with DSUNet's cross-attention fusion (``fusion:
+    crossattn`` in ``unet_config.params``) and split-input sampling
+    (``split_input_params``: 8² tiles at stride 4 over the 16² slices)
+    through ``cli.train`` and ``cli.sample``."""
+    import yaml
+
+    cfg = tiny_cfg()
+    cfg["unet_config"] = {"params": dict(cfg["unet_config"]["params"],
+                                         num_heads=4, fusion="crossattn")}
+    cfg.update(h5_2d_img_dir=str(store / "data"), image_size=16,
+               train_keys=["A", "B", "C", "GT"], train_batch_size=2,
+               val_batch_size=2, fold_K=2, fold_idx=0, limit_val_batches=1,
+               result_path=str(tmp_path / "results"), log_images=False,
+               filepath_img=str(store / "gt"), Task_name="synth",
+               split_input_params={"ks": [8, 8], "stride": [4, 4]})
+    path = tmp_path / "crossattn.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    assert train_cli.main(["--config_file", str(path), "--max_steps", "1",
+                           "--device", "cpu"]) == 1
+    workdir = tmp_path / "results" / "synth_r1_ds_diff_gaussian_fold2-0"
+    assert sorted(p.name for p in (workdir / "checkpoint").iterdir()) == ["1"]
+    out_dir, rows = sample_cli.main(["--config_file", str(path), "--workdir",
+                                     str(workdir), "--device", "cpu",
+                                     "--sample_steps", "2"])
+    assert len(rows) == 1 and (out_dir / "metrics.csv").exists()
+    assert all(np.isfinite(v) for k, v in rows[0].items() if k != "case")
+
+
 def test_train_vae_then_a_latent_run_through_the_entry_points(store,
                                                               tmp_path):
     import yaml

@@ -92,8 +92,10 @@ def test_stacked_stream_layout_matches_jax(in_ch, use_edge):
 def test_dsunet_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="unknown stream_mode"):
         build_model("dsunet", device="cpu", stream_mode="grouped", **TINY)
-    with pytest.raises(NotImplementedError, match="A17"):
-        build_model("dsunet", device="cpu", fusion="crossattn", **TINY)
+    # fusion='crossattn' is ported (test_torch_transformer.py); an unknown
+    # fusion is refused
+    with pytest.raises(ValueError, match="unknown fusion 'sum'"):
+        build_model("dsunet", device="cpu", fusion="sum", **TINY)
     with pytest.raises(ValueError, match="2-4 input channels"):
         build_model("dsunet", device="cpu", in_channels=6, **TINY)
 

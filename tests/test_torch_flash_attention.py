@@ -124,15 +124,52 @@ def _bf16_misaligned():
          "contiguous"),
         (lambda: [torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 3, 8),
                   torch.zeros(1, 8, 3, 8)], ValueError, "shapes"),
-        # bf16 goes through TMA tensor maps: refused before the device check
-        (_bf16_misaligned, ValueError, "16-byte aligned"),
+        # bf16 layouts no TMA tensor map describes are the kernel's too
+        # (its threads load them): refused here only for want of a card
+        (_bf16_misaligned, ValueError, "CUDA device"),
         (lambda: [torch.zeros(1, 8, 2, 12, dtype=torch.bfloat16)[..., :8]] * 3,
-         ValueError, "multiples of 8"),
+         ValueError, "CUDA device"),
     ],
 )
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(make, err, match):
     with pytest.raises(err, match=match):
         PF.flash_attention(*make())
+
+
+def _dense_heads(B, N, H, D, dtype, device="cpu", gen=None):
+    """[B, N, H, D] as a Dense(H*D) output viewed as heads: head stride D,
+    row stride H*D."""
+    x = torch.randn(B, N, H * D, generator=gen, device=device, dtype=dtype)
+    return x.view(B, N, H, D)
+
+
+@pytest.mark.parametrize(
+    "make, load",
+    [
+        # the flagship's qkv thirds and a contiguous D = 48 head: TMA
+        (lambda: torch.zeros(2, 64, 3, 6, 48, dtype=torch.bfloat16).unbind(2),
+         "tma"),
+        (lambda: [torch.zeros(2, 64, 6, 48, dtype=torch.bfloat16)] * 3, "tma"),
+        # DSUNet's cross-attention fusion at C = 96: D = 36 (a 72-byte head
+        # stride), separate Dense outputs or thirds of a fused qkv
+        (lambda: [_dense_heads(2, 64, 8, 36, torch.bfloat16)] * 3,
+         "cp.async 8 B"),
+        (lambda: torch.zeros(2, 64, 3, 8, 36, dtype=torch.bfloat16).unbind(2),
+         "cp.async 8 B"),
+        (lambda: [_dense_heads(1, 16, 2, 10, torch.bfloat16)] * 3,
+         "cp.async 4 B"),
+        (lambda: [_dense_heads(1, 16, 2, 7, torch.bfloat16)] * 3, "ld 2 B"),
+        (_bf16_misaligned, "ld 2 B"),
+    ],
+)
+def test_bf16_load_takes_tma_where_a_tensor_map_describes_the_layout(make,
+                                                                     load):
+    """TMA for the layouts it took before; the threads' widest aligned copy
+    for the rest, and every such layout passes the wrapper's checks."""
+    q, k, v = make()
+    assert PF.bf16_load(q, k, v) == load
+    with pytest.raises(ValueError, match="CUDA device"):
+        PF._check(q, k, v)
 
 
 def test_bf16_refusals_do_not_touch_the_qkv_thirds():
@@ -338,3 +375,111 @@ def test_cuda_kernel_with_one_hot_v_returns_p(dtype, D):
     want = torch.einsum("bhnm,md->bnhd", torch.softmax(s, -1), onehot)
     err = (got.float() - want).abs().max().item()
     assert err <= GPU_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B, N, M, H, D",
+    [(4, 64, 64, 8, 36), (4, 64, 256, 8, 36), (2, 100, 77, 3, 12),
+     (2, 77, 200, 2, 20), (1, 130, 64, 4, 44), (2, 64, 300, 2, 100),
+     (1, 1, 65, 2, 36), (1, 70, 130, 2, 130), (1, 65, 129, 1, 300),
+     (2, 100, 70, 1, 510)],
+)
+def test_cuda_kernel_takes_heads_of_dense_outputs(B, N, M, H, D, dtype):
+    """q, k and v as Dense(H*D) outputs viewed as heads (head stride D, not
+    a multiple of 8 elements): DSUNet's cross-attention fusion at C = 96
+    (self [4, 64, 8, 36], cross with M = 256) and other widths, ragged N
+    and M included, up to the two-block tiles above D = 256. bf16 loads
+    through the kernel's threads (no TMA map describes a 72-byte head
+    stride), f32 pads D = 36 to 40."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(N * 3 + M + D)
+    q = _dense_heads(B, N, H, D, dtype, "cuda", g)
+    k = _dense_heads(B, M, H, D, dtype, "cuda", g)
+    v = _dense_heads(B, M, H, D, dtype, "cuda", g)
+    if dtype == torch.bfloat16:
+        assert PF.bf16_load(q, k, v) != "tma"
+    before = PF.LAUNCHES
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (B, N, H, D) and err <= GPU_TOL[dtype], (D, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D, offset", [(36, 0), (36, 1), (7, 0), (10, 0)])
+def test_cuda_kernel_takes_qkv_thirds_no_tensor_map_describes(D, offset,
+                                                              dtype):
+    """Strided thirds of a fused qkv (head stride D, row stride 3*H*D),
+    D = 36 as in the fusion at C = 96, and 7 and 10; with ``offset`` 1 the
+    buffer starts one element past an aligned address, so only 2-byte
+    copies are aligned; a gradient through the kernel's autograd.Function
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, N, H = 3, 130, 8
+    g = torch.Generator(device="cuda").manual_seed(D + offset)
+    flat = torch.randn(offset + B * N * 3 * H * D, generator=g, device="cuda",
+                       dtype=dtype)
+    qkv = flat[offset:].view(B, N, 3, H, D).requires_grad_(False)
+    q, k, v = qkv.unbind(2)
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (B, N, H, D) and err <= GPU_TOL[dtype], (D, err)
+    leaf = qkv.detach().clone().requires_grad_(True)
+    w = torch.randn(B, N, H, D, generator=g, device="cuda", dtype=dtype)
+    (got_g,) = torch.autograd.grad(
+        (PF.flash_attention(*leaf.unbind(2)) * w).float().sum(), leaf)
+    (want_g,) = torch.autograd.grad(
+        (PF.reference_attention(*leaf.unbind(2)) * w).float().sum(), leaf)
+    gerr = (got_g.float() - want_g.float()).abs().max().item()
+    assert gerr <= GPU_TOL[dtype] * max(1.0, want_g.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_classifier_gradient_through_the_kernel_matches_plain_attention():
+    """A guidance classifier (EncoderUNet, attention pool, random weights)
+    on the card: its attention blocks run the kernel, and
+    ``classifier_gradient`` reaches x through the kernel's
+    autograd.Function, one forward launch a block and none in the backward;
+    the gradient within 1e-3 of the one through plain attention (f32, TF32
+    off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsdiff_torch.models import attention as attention_module
+    from dsdiff_torch.models.encoder_unet import (EncoderUNet,
+                                                  classifier_gradient)
+    from dsdiff_torch.utils.flax_bridge import random_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clf = EncoderUNet(num_classes=3, model_channels=32, channel_mult=(1, 2),
+                      attention_resolutions=(2,), num_heads=2,
+                      num_res_blocks=1, pool="attention")
+    clf = random_params(clf, 3).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 16, 16, 1, generator=g, device="cuda")
+    t = torch.tensor([3.0, 500.0], device="cuda")
+    y = torch.tensor([0, 1], device="cuda")
+    before = PF.LAUNCHES
+    with torch.inference_mode():
+        got = classifier_gradient(clf, x, t, y)
+    assert PF.LAUNCHES - before == 2  # the encoder's block and the middle's
+    kernel = attention_module.scaled_attention
+    attention_module.scaled_attention = PF.reference_attention
+    try:
+        want = classifier_gradient(clf, x, t, y)
+    finally:
+        attention_module.scaled_attention = kernel
+    err = (got - want).abs().max().item()
+    assert 0 < want.abs().max().item() and err <= 1e-3 * want.abs().max().item()
+

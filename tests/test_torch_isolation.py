@@ -67,6 +67,13 @@ RUN_MODE_MODULES = (
     "dsdiff_torch.parallel.dist", "dsdiff_torch.parallel.mesh",
 )
 
+# the transformer conditioning path: attention modules, guidance, patching
+TRANSFORMER_MODULES = (
+    "dsdiff_torch.models.attention", "dsdiff_torch.models.encoders",
+    "dsdiff_torch.models.encoder_unet", "dsdiff_torch.core.patching",
+    "dsdiff_torch.core.composite_loss",
+)
+
 
 def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     out = subprocess.run(
@@ -79,7 +86,8 @@ def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     *names, count = out.stdout.split()
     assert int(count) == n_modules >= 35
     assert (set(SERVING_MODULES) | set(FIT_MODULES) | set(LATENT_MODULES)
-            | set(RUN_MODE_MODULES) <= set(names))
+            | set(RUN_MODE_MODULES) | set(TRANSFORMER_MODULES)
+            <= set(names))
 
 
 def test_no_port_file_mentions_the_reference_package_or_jax():

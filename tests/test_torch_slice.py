@@ -153,9 +153,15 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="unknown sampler 'heun'"):
         Trainer(dict(tiny_cfg(), sampler_setting={"sampler": "heun"}),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        Trainer(dict(tiny_cfg(), split_input_params={"ks": (8, 8)}),
-                device="cpu")
+    # split-input sampling is ported (test_torch_patching.py): tiles that
+    # leave pixels uncovered are refused at the first request
+    patched = Trainer(dict(tiny_cfg(), image_size=16,
+                           split_input_params={"ks": (8, 8),
+                                               "stride": (5, 5)}),
+                      device="cpu")
+    with pytest.raises(ValueError, match="do not tile the H extent"):
+        patched.sample_fn(torch.zeros(1, 16, 16, 3),
+                          generator=torch.Generator().manual_seed(0))
     # int8 serving and the device data cache are ported; palette training
     # under a mesh of more than one rank is not
     with pytest.raises(NotImplementedError, match="palette"):

@@ -52,10 +52,12 @@ def test_unet_matches_jax(extra, y):
 
 
 def test_unet_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A17"):
-        build_model("unet", device="cpu", use_spatial_transformer=True, **TINY)
-    with pytest.raises(NotImplementedError, match="A17"):
-        build_model("unet", device="cpu", use_fft_attention=True, **TINY)
+    # spatial transformers are ported (test_torch_transformer.py): built
+    # with a context width, a context of another width is refused
+    pm = build_model("unet", device="cpu", use_spatial_transformer=True,
+                     context_dim=8, **TINY)
+    with pytest.raises(RuntimeError, match="shapes cannot be multiplied"):
+        pm(torch.zeros(1, 16, 16, 1), torch.zeros(1), torch.zeros(1, 3, 6))
     pm = build_model("unet", device="cpu", num_classes=3, **TINY)
     with pytest.raises(ValueError, match="needs y"):
         pm(torch.zeros(1, 16, 16, 1), torch.zeros(1))
