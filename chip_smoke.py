@@ -75,6 +75,20 @@ then drives the main path in both directions:
   its wall against the unpatched request's) and a classifier-guided
   request (``guided``: the ddpm UNet and an EncoderUNet's gradient through
   the kernel's autograd.Function, held to plain attention).
+- MedSegDiff (``medseg``): the attention kernel at its [4|8, 1024, 4, 32]
+  (and the f32 parity forward's [2, 1024, 4, 32]); ``medseg_v1`` (highway)
+  and ``medseg_new`` (anchor) at the JAX package's defaults, 256²: forwards
+  f32 and bf16 against plain attention, a DDIM-20 request through
+  ``make_sample_fn`` and three bf16 train steps through ``make_train_step``
+  (the JAX ``Trainer`` cannot build these models, nor can the port's),
+  with every parameter the loss reaches moved and every other one
+  untouched; SegUNet's sliding-window inference over a 320 x 320 x 20
+  volume, labels against the same call on the CPU.
+- adversarial disentanglement (``adversarial``): the flagship and the
+  spectral-norm ContentDiscriminator on its content features, one f32
+  ``model_step`` against plain attention (loss, loss_adv, every gradient),
+  then three bf16 rounds of ``model_step`` + ``disc_step`` beside the
+  flagship's own train step.
 
 ``python3 chip_smoke.py --phases int8,cache,dist`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
@@ -113,12 +127,17 @@ from dsdiff_torch.models import vae as vae_module
 from dsdiff_torch.models.attention import AttentionBlock
 from dsdiff_torch.models.dsunet import FUSION_DEPTH
 from dsdiff_torch.models.encoder_unet import EncoderUNet, classifier_gradient
+from dsdiff_torch.models.seg_unet import SegUNet, sliding_window_probabilities
 from dsdiff_torch.ops import _build
 from dsdiff_torch.ops import flash_attention as fa
 from dsdiff_torch.ops import fused_norm as fn
 from dsdiff_torch.ops import quant
 from dsdiff_torch.train.config import Config, load_run_config
-from dsdiff_torch.train.step import TaskConfig, train_loss
+from dsdiff_torch.train import adversarial
+from dsdiff_torch.train import schedule_sampler as ss
+from dsdiff_torch.train.state import TrainState, make_optimizer
+from dsdiff_torch.train.step import (TaskConfig, make_sample_fn,
+                                     make_train_step, train_loss)
 from dsdiff_torch.train.surgery import convert_stream_layout
 from dsdiff_torch.train.trainer import FEATURE_KINDS, Trainer, model_params
 from dsdiff_torch.train.vae_loop import VaeTrainer
@@ -380,6 +399,35 @@ CLASSIFIER_ATTENTION = [(1024, 4, 128, 3)]
 CLASSIFIER_CALLS = sum(c for *_, c in CLASSIFIER_ATTENTION)        # 3
 GUIDE_SCALE = 10.0
 DDPM_CALLS = sum(c for *_, c in FAMILIES[0][2])                    # 16
+
+
+# MedSegDiff (medseg_v1: highway mode; medseg_new: anchor mode) at the JAX
+# package's defaults (C = 32, channel_mult (1, 2, 4, 4), one res block,
+# attention at rate 8, 4 heads, highway 32) at 256² with the flagship's
+# three conditions: attention at 32², 128 channels in 4 heads of 32, in the
+# encoder's last level, the middle and the decoder's two blocks. The loss
+# reaches no parameter under these prefixes: anchor mode adds the highway's
+# anchors detached, and highway mode's seg map (the highway's decoder and
+# seg_out) is in no loss.
+MEDSEG_MODES = ("medseg_v1", "medseg_new")
+MEDSEG_ATTENTION = [(1024, 4, 32, 4)]
+MEDSEG_CALLS = sum(c for *_, c in MEDSEG_ATTENTION)               # 4
+MEDSEG_UNREACHED = {"medseg_v1": ("hwm.up_", "hwm.seg_out."),
+                    "medseg_new": ("hwm.",)}
+MEDSEG_TRAIN_STEPS = 3
+MEDSEG_LR = 1e-4
+# SegUNet at its defaults over a synthetic [H, W, Z, C] volume: 256² tiles
+# at overlap 0.5 (2 x 2 tiles), z-chunks of 8 (8, 8, 4 + 4 padding)
+SEG_VOLUME = (320, 320, 20, 1)
+SEG_TILE, SEG_OVERLAP, SEG_BATCH = 256, 0.5, 8
+SEG_PROB_ATOL = 1e-5
+# adversarial disentanglement on the flagship: its content features (three
+# streams of the bottleneck's 288 / 2 channels at 8²) into the JAX
+# package's default discriminator
+ADV_DISC = dict(n_streams=3, base_channels=64, use_spectral_norm=True)
+ADV_CONFIG = dict(adv_lambda=0.1, disc_start=0)
+ADV_CONTENT = (3, 8, 8, 144)  # [streams, h, w, c] a batch row
+ADV_ROUNDS = 3
 
 
 # the int8, cache and dist phases (PR 9): the int8 convs timed, the H100
@@ -2641,6 +2689,394 @@ def phase_guided(smi: str) -> dict:
     return {"guided_serve": launched, "guided_serve_f32": launched32}
 
 
+def _medseg_model(name: str, dtype):
+    """``name`` at the JAX defaults, 256², the flagship's conditions, on the
+    card in ``dtype`` with the weights of SEED."""
+    model = build_model(name, device="cuda", in_channels=4, image_size=IMAGE,
+                        dtype=dtype)
+    return random_params(model, SEED)
+
+
+def _medseg_sched():
+    """The flagship's noise schedule as its trainer builds it (its net_mode
+    follows the OpenAI math: 'linear' is scaled_linear), in full and
+    re-spaced to DDIM_STEPS."""
+    betas = schedules.make_beta_schedule(
+        "scaled_linear", FLAGSHIP_CONFIG["diffusion_steps"],
+        FLAGSHIP_CONFIG["linear_start"], FLAGSHIP_CONFIG["linear_end"])
+    full = schedules.DiffusionSchedule.create(betas, device="cuda")
+    rsched = schedules.respace(
+        betas, schedules.space_timesteps(len(betas), str(DDIM_STEPS)),
+        device="cuda")
+    return full, rsched
+
+
+def _medseg_parity(name: str) -> float:
+    """Full-width forward, kernel vs plain attention, f32 (TF32 off) and
+    bf16, batch PARITY_BATCH at 256²: the output and the seg map within the
+    models' tolerances, MEDSEG_CALLS launches. Returns the parameter
+    count."""
+    disable_tf32()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 4, generator=gen,
+                    device="cuda")
+    t = torch.tensor([17.0, 803.0], device="cuda")
+    for dtype, rtol in ((torch.float32, MODEL_RTOL),
+                        (torch.bfloat16, MODEL_BF16_RTOL)):
+        model = _medseg_model(name, dtype).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            before = fa.LAUNCHES
+            out, aux = model(x, t)
+            torch.cuda.synchronize()
+            launched = fa.LAUNCHES - before
+            want, want_aux = _with_plain_attention(lambda: model(x, t))
+        dname = str(dtype).split(".")[1]
+        for what, got, ref in (("out", out, want),
+                               ("cal", aux["cal"], want_aux["cal"])):
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs().max().item()
+            tol = rtol * max(1.0, ref.abs().max().item())
+            print(f"[medseg] {name} {n_params / 1e6:.2f} M params {IMAGE}² "
+                  f"batch {PARITY_BATCH} {dname} ({fa.ROUTES[dtype]} route) "
+                  f"{what}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+                  f"{launched} kernel launches")
+            check(got.shape == (PARITY_BATCH, IMAGE, IMAGE, 1),
+                  f"{name} {what}: shape {tuple(got.shape)}")
+            check(torch.isfinite(got).all().item(),
+                  f"{name} {dname} {what}: non-finite")
+            check(err <= tol, f"{name} {dname} {what}: error {err} over {tol}")
+        check(launched == MEDSEG_CALLS, f"{name} {dname}: {launched} "
+              f"attention launches in a forward, not {MEDSEG_CALLS}")
+        del model, out, aux, want, want_aux
+    return n_params
+
+
+def _medseg_request(name: str, rsched, smi: str) -> int:
+    """One DDIM-20 request of batch SERVE_BATCH at 256², bf16, through
+    ``make_sample_fn`` on the flagship's re-spaced schedule: shape, range,
+    finite values, MEDSEG_CALLS launches a model call. Returns them."""
+    model = _medseg_model(name, torch.bfloat16).eval()
+    task = TaskConfig(parameterization="v", loss_type="charbonnier")
+    fn = make_sample_fn(model, rsched, task, sampler="ddim")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    cond = torch.randn(SERVE_BATCH, IMAGE, IMAGE, 3, generator=gen,
+                       device="cuda")
+    fn(cond, gen)  # warm-up: cuDNN's first calls at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    out, wall = _timed(lambda: fn(cond, gen))
+    launched = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = MEDSEG_CALLS * DDIM_STEPS
+    print(f"[medseg] {name} DDIM-{DDIM_STEPS} request, batch {SERVE_BATCH}, "
+          f"{IMAGE}², bf16: {wall:.4f} s, {SERVE_BATCH / wall:.3f} slices/s, "
+          f"peak {peak:.3f} GiB, {launched} attention launches [{smi}]")
+    _check_sample(out, SERVE_BATCH, IMAGE, True, f"{name} request")
+    check(launched == want, f"{name}: {launched} launches, not {want}")
+    del model
+    return launched
+
+
+def _medseg_train(name: str, sched, smi: str) -> int:
+    """MEDSEG_TRAIN_STEPS bf16 steps (f32 master weights) at batch
+    TRAIN_BATCH, 256², through ``make_train_step`` over a ``TrainState``:
+    finite metrics, MEDSEG_CALLS launches a step; every tensor the loss
+    reaches moved, every other one (MEDSEG_UNREACHED) took an exactly zero
+    gradient (AdamW's first moment is zero) and kept its value. Returns the
+    launches."""
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    model = _medseg_model(name, torch.bfloat16)
+    state = TrainState(model, lambda p: make_optimizer(p, MEDSEG_LR))
+    step = make_train_step(TaskConfig(parameterization="v",
+                                      loss_type="charbonnier"), sched)
+    sampler = ss.uniform_init(sched.num_timesteps, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    batch = {
+        "target": torch.rand(TRAIN_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                             device="cuda") * 2 - 1,
+        "image": torch.randn(TRAIN_BATCH, IMAGE, IMAGE, 3, generator=gen,
+                             device="cuda"),
+    }
+    start = [p.detach().clone() for p in state.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    times = []
+    for i in range(MEDSEG_TRAIN_STEPS):
+        before = fa.LAUNCHES
+        (_, sampler, metrics), wall = _timed(
+            lambda: step(state, sampler, batch, gen))
+        times.append(wall)
+        launched = fa.LAUNCHES - before
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"[medseg] {name} train step {i + 1}: {wall * 1e3:.2f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
+              + f", {launched} attention launches")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"{name}: non-finite metric at step {i + 1}: {vals}")
+        check(launched == MEDSEG_CALLS, f"{name}: {launched} attention "
+              f"launches in a train step, not {MEDSEG_CALLS}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unreached = MEDSEG_UNREACHED[name]
+    moved = still = 0
+    for n, p0, p, mu in zip(state.names, start, state.params, state.tx.mu):
+        if n.startswith(unreached):
+            check(not mu.any().item() and torch.equal(p0, p),
+                  f"{name}: {n} took a gradient the loss cannot give")
+            still += 1
+        else:
+            check(not torch.equal(p0, p), f"{name}: {n} did not move")
+            moved += 1
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"[medseg] {name} train step {step_ms:.2f} ms (median of steps "
+          f"2-{MEDSEG_TRAIN_STEPS}), {TRAIN_BATCH / step_ms * 1e3:.3f} "
+          f"slices/s, peak {peak:.3f} GiB; {moved} tensors moved, {still} "
+          f"under {unreached} took a zero gradient [{smi}]")
+    check(still > 0, f"{name}: no tensor under {unreached}")
+    del model, state, start
+    return fa.LAUNCHES
+
+
+def _sliding_window(smi: str) -> None:
+    """SegUNet at its defaults, f32 (TF32 off), weights of SEED:
+    ``sliding_window_probabilities`` over a synthetic SEG_VOLUME on the
+    card, its wall, and the labels against the same call with the model on
+    the CPU, equal wherever the CPU's two top probabilities are more than
+    SEG_PROB_ATOL apart."""
+    disable_tf32()
+    seg = random_params(SegUNet().to("cuda"), SEED).eval()
+    n_params = sum(p.numel() for p in seg.parameters())
+    vol = np.random.default_rng(SEED + 17).standard_normal(SEG_VOLUME).astype(
+        np.float32)
+    args = dict(tile=SEG_TILE, overlap=SEG_OVERLAP, batch=SEG_BATCH)
+    tiles = []
+
+    def apply(model):
+        def fn(x):
+            tiles.append(tuple(x.shape))
+            return model(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return fn
+
+    with torch.inference_mode():
+        sliding_window_probabilities(apply(seg), vol[:, :, :1], device="cuda",
+                                     **args)  # warm-up
+        tiles.clear()
+        probs, wall = _timed(lambda: sliding_window_probabilities(
+            apply(seg), vol, device="cuda", **args))
+        calls = list(tiles)
+        cpu = seg.to("cpu")
+        t0 = time.perf_counter()
+        want = sliding_window_probabilities(apply(cpu), vol, device="cpu",
+                                            **args)
+        cpu_wall = time.perf_counter() - t0
+    labels, want_labels = probs.argmax(-1), want.argmax(-1)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > SEG_PROB_ATOL
+    wrong = int((labels != want_labels)[clear].sum())
+    perr = float(np.abs(probs - want).max())
+    print(f"[medseg] SegUNet {n_params / 1e6:.2f} M params, f32: "
+          f"sliding_window_inference over {list(SEG_VOLUME)}, tile "
+          f"{SEG_TILE}, overlap {SEG_OVERLAP}, batch {SEG_BATCH}: {wall:.4f} "
+          f"s on the card ({SEG_VOLUME[2] / wall:.3f} slices/s), {cpu_wall:.2f}"
+          f" s on the CPU; {len(calls)} model calls of {sorted(set(calls))}; "
+          f"max |p card - p cpu| {perr:.3e}; {wrong} labels differ where the "
+          f"CPU's top two are more than {SEG_PROB_ATOL:.0e} apart "
+          f"({int((~clear).sum())} voxels within it) [{smi}]")
+    check(labels.shape == SEG_VOLUME[:3], f"labels {labels.shape}")
+    check(set(np.unique(labels)) <= {0, 1}, "labels outside the classes")
+    check(np.isfinite(probs).all(), "non-finite probabilities")
+    check(len(calls) == 4 * -(-SEG_VOLUME[2] // SEG_BATCH),
+          f"{len(calls)} tile calls")
+    check(wrong == 0, f"sliding window: {wrong} labels differ from the CPU's")
+    del seg, cpu
+
+
+def _medseg_kernel_rows(card: str) -> list:
+    """The attention kernel at MedSegDiff's shape, timed: bf16 at batch
+    SERVE_BATCH and TRAIN_BATCH, f32 at the parity forward's batch."""
+    disable_tf32()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rows = []
+    for dtype, batches in ((torch.bfloat16, (SERVE_BATCH, TRAIN_BATCH)),
+                           (torch.float32, (PARITY_BATCH,))):
+        for batch in batches:
+            for N, H, D, calls in MEDSEG_ATTENTION:
+                row = _attention_row(gen, batch, N, H, D, dtype, calls, card)
+                rows.append(dict(row, path="medseg"))
+    return rows
+
+
+def phase_medseg(smi: str):
+    """MedSegDiff in both modes at the JAX defaults, 256²: the kernel rows
+    at its attention shape; per mode, full-width forward parity, one
+    DDIM-20 request and three train steps; then SegUNet's sliding-window
+    inference. Returns (rows, launches by path)."""
+    rows = _medseg_kernel_rows(smi)
+    full, rsched = _medseg_sched()
+    launches = {}
+    for name in MEDSEG_MODES:
+        t0 = time.perf_counter()
+        _medseg_parity(name)
+        launches[f"{name}_serve"] = _medseg_request(name, rsched, smi)
+        launches[f"{name}_train"] = _medseg_train(name, full, smi)
+        torch.cuda.empty_cache()
+        print(f"[medseg] {name} done in {time.perf_counter() - t0:.1f} s")
+    _sliding_window(smi)
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _adv_setup(dtype, batch: int):
+    """The flagship DSUNet (remat, weights of SEED) in ``dtype``, its
+    TrainState, the discriminator (weights of SEED + 1) and its state, the
+    two steps on the flagship task, the schedule sampler and a batch of
+    ``batch`` at 256²."""
+    params = FLAGSHIP_CONFIG["unet_config"]["params"]
+    model = random_params(build_model(
+        "dsunet", device="cuda", in_channels=4, out_channels=2, dtype=dtype,
+        remat=True, **params), SEED)
+    disc = random_params(adversarial.ContentDiscriminator(
+        ADV_CONTENT[-1], **ADV_DISC).to("cuda"), SEED + 1)
+    lr = FLAGSHIP_CONFIG["lr"]
+    ms = TrainState(model, lambda p: make_optimizer(p, lr))
+    ds = TrainState(disc, lambda p: make_optimizer(p, lr))
+    full, _ = _medseg_sched()
+    steps = adversarial.make_adversarial_steps(
+        _flagship_task(), full, adversarial.AdvConfig(**ADV_CONFIG))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    batch_ = {
+        "target": torch.rand(batch, IMAGE, IMAGE, 1, generator=gen,
+                             device="cuda") * 2 - 1,
+        "image": torch.randn(batch, IMAGE, IMAGE, 3, generator=gen,
+                             device="cuda"),
+    }
+    sampler = ss.uniform_init(full.num_timesteps, device="cuda")
+    return ms, ds, steps, sampler, batch_, full, gen
+
+
+def _adv_parity() -> None:
+    """One f32 ``model_step`` (TF32 off) at batch PARITY_BATCH from the same
+    states, kernel vs plain attention: the loss and loss_adv within
+    TRAIN_LOSS_RTOL, every gradient (read off AdamW's first moment) within
+    TRAIN_GRAD_RTOL of its leaf's scale."""
+    disable_tf32()
+    ms, ds, (model_step, _), sampler, batch, full, gen = _adv_setup(
+        torch.float32, PARITY_BATCH)
+    with torch.no_grad():
+        _, feats = ms.model(torch.cat([batch["target"], batch["image"]], -1),
+                            torch.tensor([17.0, 803.0], device="cuda"))
+    shape = tuple(feats["content"].shape)
+    check(shape == (ADV_CONTENT[0], PARITY_BATCH) + ADV_CONTENT[1:],
+          f"content features {shape}")
+    del feats
+    t = torch.tensor([17, 803], device="cuda")
+    noise = torch.randn(PARITY_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                        device="cuda")
+    start = {n: p.detach().clone() for n, p in ms.model.named_parameters()}
+
+    def run():
+        ms.model.load_state_dict(start)
+        ms.reset()
+        before = fa.LAUNCHES
+        _, _, metrics = model_step(ms, sampler, ds, batch, t=t, noise=noise)
+        torch.cuda.synchronize()
+        return ({k: v.item() for k, v in metrics.items()},
+                [m / 0.1 for m in ms.tx.mu], fa.LAUNCHES - before)
+
+    got, grads_k, launched = run()
+    want, grads_p, _ = _with_plain_attention(run)
+    top = max(g.abs().max().item() for g in grads_p)
+    worst, worst_name = 0.0, ""
+    for name, gk, gp in zip(ms.names, grads_k, grads_p):
+        scale = max(gp.abs().max().item(), GRAD_NOISE_FLOOR * top)
+        rel = (gk - gp).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    rels = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss",
+                                                               "loss_adv")}
+    print(f"[adversarial] flagship DSUNet f32 remat, batch {PARITY_BATCH}, "
+          f"content {shape}: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+          f"(rel {rels['loss']:.3e}), loss_adv {got['loss_adv']:.6f} vs "
+          f"{want['loss_adv']:.6f} (rel {rels['loss_adv']:.3e}; tol "
+          f"{TRAIN_LOSS_RTOL:.0e}); worst gradient error {worst:.3e} of its "
+          f"leaf's scale at {worst_name} (tol {TRAIN_GRAD_RTOL:.0e}, "
+          f"{len(ms.names)} leaves); {launched} kernel launches")
+    check(launched == CALLS_PER_FORWARD, f"adversarial parity: {launched} "
+          f"launches, not {CALLS_PER_FORWARD}")
+    check(all(torch.isfinite(g).all().item() for g in grads_k),
+          "adversarial: non-finite gradient")
+    check(max(rels.values()) <= TRAIN_LOSS_RTOL, f"adversarial loss {rels}")
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"adversarial gradient parity {worst} at {worst_name}")
+    del ms, ds, grads_k, grads_p, start
+
+
+def phase_adversarial(smi: str) -> dict:
+    """Adversarial disentanglement on the flagship (93.56 M, remat) with the
+    spectral-norm ContentDiscriminator: the f32 parity of one model step,
+    then ADV_ROUNDS rounds of ``model_step`` + ``disc_step`` in bf16 at
+    batch TRAIN_BATCH (walls, finite metrics, 0 <= disc_acc <= 1,
+    CALLS_PER_FORWARD launches each), then ADV_ROUNDS plain flagship train
+    steps on the same state for the wall beside them. Returns the
+    launches."""
+    _adv_parity()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True  # the default a user trains with
+    ms, ds, (model_step, disc_step), sampler, batch, full, gen = _adv_setup(
+        torch.bfloat16, TRAIN_BATCH)
+    n_model = sum(p.numel() for p in ms.params)
+    n_disc = sum(p.numel() for p in ds.params)
+    print(f"[adversarial] DSUNet {n_model / 1e6:.2f} M params bf16 remat, "
+          f"ContentDiscriminator {n_disc / 1e6:.3f} M params {ADV_DISC}, "
+          f"{ADV_CONFIG}, batch {TRAIN_BATCH}, {IMAGE}²")
+    d0 = [p.detach().clone() for p in ds.params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    walls = []
+    for r in range(ADV_ROUNDS):
+        before = fa.LAUNCHES
+        (_, sampler, metrics), m_wall = _timed(
+            lambda: model_step(ms, sampler, ds, batch, gen))
+        m_launched = fa.LAUNCHES - before
+        (_, dmetrics), d_wall = _timed(lambda: disc_step(ds, ms, batch, gen))
+        d_launched = fa.LAUNCHES - before - m_launched
+        walls.append((m_wall, d_wall))
+        vals = {k: v.item() for k, v in {**metrics, **dmetrics}.items()}
+        print(f"[adversarial] round {r + 1}: model step {m_wall * 1e3:.2f} ms"
+              f", disc step {d_wall * 1e3:.2f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
+              + f", {m_launched} + {d_launched} attention launches")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"adversarial: non-finite metric in round {r + 1}: {vals}")
+        check(0.0 <= vals["disc_acc"] <= 1.0, f"disc_acc {vals['disc_acc']}")
+        check(m_launched == d_launched == CALLS_PER_FORWARD,
+              f"adversarial: {m_launched} + {d_launched} launches, not "
+              f"{CALLS_PER_FORWARD} each")
+    launched = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(any(not torch.equal(a, p) for a, p in zip(d0, ds.params)),
+          "adversarial: the discriminator did not move")
+    m_ms = statistics.median(w[0] for w in walls[1:]) * 1e3
+    d_ms = statistics.median(w[1] for w in walls[1:]) * 1e3
+    step = make_train_step(_flagship_task(), full)
+    plain = []
+    for _ in range(ADV_ROUNDS):
+        _, wall = _timed(lambda: step(ms, sampler, batch, gen))
+        plain.append(wall)
+    plain_ms = statistics.median(plain[1:]) * 1e3
+    print(f"[adversarial] round {m_ms + d_ms:.2f} ms (model step {m_ms:.2f} "
+          f"+ disc step {d_ms:.2f}, medians of rounds 2-{ADV_ROUNDS}) against "
+          f"the flagship train step's {plain_ms:.2f} ms on the same state "
+          f"(median of steps 2-{ADV_ROUNDS}), {(m_ms + d_ms) / plain_ms:.3f}x;"
+          f" peak {peak:.3f} GiB [{smi}]")
+    del ms, ds, d0
+    torch.cuda.empty_cache()
+    return {"adversarial_train": launched}
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
@@ -2666,12 +3102,13 @@ def _latent_request(rows, key):
 
 
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
-                 norm_launches: int, latent_rows, transformer_rows) -> dict:
+                 norm_launches: int, latent_rows, transformer_rows,
+                 medseg_rows) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
     (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
     each dtype, and the same for one forward of each other family, for one
-    latent request, and each transformer-path shape's row (with the load
-    its layout took). GroupNorm+SiLU: one call at each flagship norm shape,
+    latent request, each transformer-path shape's row (with the load its
+    layout took) and each MedSegDiff row. GroupNorm+SiLU: one call at each flagship norm shape,
     batch SERVE_BATCH, bf16."""
     serve = [r for r in attn_rows if "families" not in r
              and r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
@@ -2694,8 +3131,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in attn_rows + latent_rows + transformer_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows + latent_rows
+                           + transformer_rows + medseg_rows),
         "ms": _per_forward(serve, "ms"),
         "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
@@ -2719,6 +3156,13 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
                                "library_graph_ms", "bound_ms", "bound_by",
                                "share_of_bound")}
             for r in transformer_rows],
+        "medseg_rows": [
+            {k: r[k] for k in ("path", "shape", "dtype", "route",
+                               "calls_per_forward", "max_abs_err", "ms",
+                               "graph_ms", "plain_ms", "library_ms",
+                               "library_graph_ms", "bound_ms", "bound_by",
+                               "share_of_bound")}
+            for r in medseg_rows],
     }, {
         "name": "group_norm_silu",
         "route": "cuda",
@@ -2741,7 +3185,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
 
 PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
           "cache", "dist", "families", "latent", "transformer_kernels",
-          "transformer", "patched", "guided")
+          "transformer", "patched", "guided", "medseg", "adversarial")
 
 
 def main(argv=None) -> None:
@@ -2757,7 +3201,7 @@ def main(argv=None) -> None:
     name, count, smi = phase_device()
     phase_build()
     attn_rows = norm_rows = norm_launches = latent_rows = None
-    transformer_rows = None
+    transformer_rows = medseg_rows = None
     attn_launches = {}
     walls = peaks = ()
     if "kernels" in phases:
@@ -2806,13 +3250,18 @@ def main(argv=None) -> None:
         attn_launches.update(phase_patched(smi))
     if "guided" in phases:
         attn_launches.update(phase_guided(smi))
+    if "medseg" in phases:
+        medseg_rows, medseg_launches = phase_medseg(smi)
+        attn_launches.update(medseg_launches)
+    if "adversarial" in phases:
+        attn_launches.update(phase_adversarial(smi))
     print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
           f"passed in {time.perf_counter() - t0:.1f} s after the imports "
           f"[{smi}]")
     if len(set(phases)) == len(PHASES):
         print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
                                       norm_launches, latent_rows,
-                                      transformer_rows)))
+                                      transformer_rows, medseg_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

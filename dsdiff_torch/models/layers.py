@@ -9,6 +9,9 @@ Compute dtype: parameters are f32 (the master copy an optimizer updates);
 ``Dense`` and ``Conv`` cast their weight, bias and input to the block's
 ``dtype`` at call, as Flax's ``dtype`` attribute does with f32 params.
 ``GroupNorm32`` computes its statistics and affine in f32, then casts back.
+``SpectralNormConv`` (the adversarial discriminator's conv) and
+``ModulatedResBlock`` (a ResBlock whose out-norm a context map modulates)
+are the JAX module's blocks of the same names.
 ``hold_in_compute_dtype`` turns a copy of a model into a serving copy whose
 ``Dense``/``Conv`` weights are stored in the compute dtype, so that the
 casts at call are no-ops; the same f32 weights round to the same values
@@ -33,6 +36,8 @@ __all__ = [
     "Upsample",
     "Downsample",
     "SEBlock",
+    "SpectralNormConv",
+    "ModulatedResBlock",
     "zero_init",
     "hold_in_compute_dtype",
     "dropout_generator",
@@ -287,3 +292,103 @@ class SEBlock(nn.Module):
         s = x.float().mean(dim=(2, 3))
         s = torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
         return x * s[:, :, None, None]
+
+
+class SpectralNormConv(nn.Module):
+    """Conv whose kernel is divided by its largest singular value, found by
+    ``n_iter`` power-iteration steps run on every call from the fixed start
+    ``u = 1/sqrt(out)``, over the f32 kernel as the matrix ``[kh*kw*cin,
+    out]`` (the Flax HWIO kernel's rows): stateless, unlike
+    ``torch.nn.utils.spectral_norm``, which keeps ``u`` between calls.
+    sigma = v . (w u), with 1e-12 in both norms; the gradient flows
+    through the iteration. ``weight`` is the raw OIHW kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 n_iter: int = 3, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.n_iter = stride, padding, n_iter
+        self.compute_dtype = dtype
+        fan_in = in_channels * kernel_size * kernel_size
+        # lecun_normal: a normal truncated at two deviations, variance 1/fan_in
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        self.weight = nn.Parameter(nn.init.trunc_normal_(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size),
+            std=std, a=-2 * std, b=2 * std))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def sigma(self) -> torch.Tensor:
+        """The kernel's top singular value estimate (0-d, f32)."""
+        out = self.weight.shape[0]
+        w = self.weight.float().permute(2, 3, 1, 0).reshape(-1, out)
+        u = torch.full((out,), 1.0 / math.sqrt(out), device=w.device)
+        for _ in range(self.n_iter):
+            v = w @ u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u = w.T @ v
+            u = u / (torch.linalg.vector_norm(u) + 1e-12)
+        return v @ (w @ u)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        w_sn = (self.weight.float() / self.sigma()).to(cd)
+        return F.conv2d(x.to(cd), w_sn, _cast(self.bias, cd), self.stride,
+                        self.padding)
+
+
+class ModulatedResBlock(nn.Module):
+    """ResBlock with two FiLMs: the timestep embedding scales and shifts
+    the in-norm, ``GN(x) * (1 + s) + shift``; a context map [B, 2*out_ch,
+    H, W] (scale channels first) scales and shifts the out-norm. Then
+    SiLU, dropout by mask (as ``ResBlock``), the zero-initialised
+    ``out_conv`` and a 1x1 skip on a channel change."""
+
+    def __init__(self, channels: int, emb_dim: int,
+                 out_channels: int | None = None, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = out_channels or channels
+        self.emb_proj = Dense(emb_dim, 2 * channels, dtype=dtype)
+        self.in_norm = GroupNorm32(channels)
+        self.in_conv = Conv(channels, out_ch, 3, padding=1, dtype=dtype)
+        self.out_norm = GroupNorm32(out_ch)
+        self.dropout = float(dropout)
+        self.generator: torch.Generator | None = None
+        self.out_conv = zero_init(
+            Conv(out_ch, out_ch, 3, padding=1, dtype=dtype))
+        self.skip = (Conv(channels, out_ch, 1, dtype=dtype)
+                     if channels != out_ch else None)
+
+    def drops(self) -> bool:
+        return self.training and self.dropout > 0
+
+    def dropout_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """The keep mask [B, out_ch, H, W] of a forward on ``x``, drawn from
+        the bound generator (``dropout_generator``)."""
+        if self.generator is None:
+            raise RuntimeError(
+                "ModulatedResBlock dropout needs a mask or a generator bound "
+                "by dropout_generator")
+        B, _, H, W = x.shape
+        return torch.rand((B, self.out_conv.in_channels, H, W),
+                          generator=self.generator,
+                          device=x.device) < 1.0 - self.dropout
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                context: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        e_scale, e_shift = self.emb_proj(F.silu(emb))[:, :, None, None].chunk(
+            2, dim=1)
+        h = F.silu(self.in_norm(x) * (1.0 + e_scale) + e_shift)
+        h = self.in_conv(h)
+        c_scale, c_shift = context.to(h.dtype).chunk(2, dim=1)
+        h = F.silu(self.out_norm(h) * (1.0 + c_scale) + c_shift)
+        if self.drops():
+            if mask is None:
+                mask = self.dropout_mask(x)
+            h = torch.where(mask, h / (1.0 - self.dropout), torch.zeros_like(h))
+        h = self.out_conv(h)
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``models/wrapper.py``: ``MODEL_REGISTRY`` /
 ``build_model`` (the denoisers: ``unet``, ``dsunet``, ``dsunet_split``,
-``disc_unet``, ``dit`` and the DiT sizes by name, and the first stage
-``autoencoder_kl``; the MedSegDiff models come with ROADMAP A17b) and ``conditioned_call``, the denoiser call
+``disc_unet``, ``dit`` and the DiT sizes by name, the MedSegDiff
+denoisers ``medseg_v1`` (highway mode) and ``medseg_new`` (anchor mode),
+and the first stage ``autoencoder_kl``) and ``conditioned_call``, the denoiser call
 per conditioning mode, which returns whatever the model returns (a feature
 model's ``(out, features)`` tuple included).
 """
@@ -19,6 +20,7 @@ from .disc_unet import DiscUNet
 from .dit import DIT_CONFIGS, DiT, make_dit
 from .dsunet import DSUNet
 from .dsunet_cached import DSUNetSplit
+from .seg_unet import MedSegDiffUNet
 from .unet import UNet
 from .vae import AutoencoderKL
 
@@ -68,6 +70,22 @@ def conditioned_call(apply_fn: Callable, mode: str | None, x: torch.Tensor,
     raise ValueError(f"unknown conditioning mode '{mode}'")
 
 
+def _medseg(mode: str) -> Callable[..., nn.Module]:
+    """The MedSegDiff factory of ``mode``. As in the JAX package it takes
+    ``in_channels`` out of the keywords and passes everything else through;
+    the torch module needs the width up front, so ``in_channels`` (x_t and
+    the conditions) sets its ``cond_channels``."""
+
+    def make(**kw):
+        in_channels = kw.pop("in_channels", None)
+        if in_channels is not None:
+            kw.setdefault("cond_channels",
+                          in_channels - kw.get("xt_channels", 1))
+        return MedSegDiffUNet(mode=mode, **kw)
+
+    return make
+
+
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "unet": UNet,
     "dsunet": DSUNet,
@@ -75,6 +93,8 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "disc_unet": DiscUNet,
     "dit": DiT,
     "autoencoder_kl": AutoencoderKL,
+    "medseg_v1": _medseg("highway"),
+    "medseg_new": _medseg("anchor"),
     **{name.lower(): (lambda n: (lambda **kw: make_dit(n, **kw)))(name)
        for name in DIT_CONFIGS},
 }

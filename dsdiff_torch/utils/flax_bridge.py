@@ -7,6 +7,13 @@ modules carry the Flax module names as attribute names, so a Flax path
 level included). Leaves translate as:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW,
+- a transposed conv's ``kernel`` HWIO -> ``weight`` [I, O, kh, kw],
+  spatially flipped (Flax's ``ConvTranspose`` is ``lax.conv_transpose``
+  with ``transpose_kernel=False``, which equals torch's
+  ``conv_transpose2d`` with the flipped kernel); the target module's type,
+  not the kernel's rank, decides this layout, so a transposed conv whose
+  in and out widths are equal cannot take the plain conv's,
+- FFParser's ``complex_weight`` [H, W//2+1, C, 2] -> [C, H, W//2+1, 2],
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in],
 - norm ``scale`` (GroupNorm, LayerNorm) -> ``weight``; ``bias`` unchanged;
 - ``Embed``'s ``embedding`` [num, features] -> ``nn.Embedding``'s
@@ -63,20 +70,30 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "embedding": "weight", "pool_query": "pool_query"}
+               "embedding": "weight", "pool_query": "pool_query",
+               "complex_weight": "complex_weight"}
 
 
-def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int) -> np.ndarray:
+def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int,
+                   module: nn.Module | None = None) -> np.ndarray:
     """A Flax leaf in the layout of a torch parameter of rank
-    ``target_ndim``. Kernels move their axes: the target's rank says whether
-    it is a Dense (2), a conv (4), or one of those with a leading stream
-    axis (3, 5); scales and biases keep theirs."""
+    ``target_ndim`` in ``module``. A transposed conv's kernel (by the
+    module's type) goes to [I, O, kh, kw] flipped; other kernels move their
+    axes by the target's rank: a Dense (2), a conv (4), or one of those
+    with a leading stream axis (3, 5). ``complex_weight`` moves its channel
+    axis first; scales and biases keep their layout."""
+    if leaf == "complex_weight":  # [H, W', C, 2] -> [C, H, W', 2]
+        return arr.transpose(2, 0, 1, 3)
     if leaf != "kernel":
         return arr
     if arr.ndim != target_ndim:
         raise ValueError(
             f"kernel of rank {arr.ndim} for a weight of rank {target_ndim}"
         )
+    if isinstance(module, nn.ConvTranspose2d):
+        if target_ndim != 4:
+            raise ValueError("a stacked transposed conv has no torch layout")
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if target_ndim == 2:  # Dense [in, out] -> [out, in]
         return arr.T
     if target_ndim == 4:  # conv HWIO -> OIHW
@@ -106,7 +123,8 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tenso
             unused.append(path)
             continue
         want = tuple(expected[key].shape)
-        val = _leaf_to_torch(arr, leaf, len(want))
+        val = _leaf_to_torch(arr, leaf, len(want),
+                             model.get_submodule(".".join(mods)))
         if tuple(val.shape) != want:
             raise ValueError(
                 f"{path}: shape {tuple(val.shape)} does not fit {key} {want}"

@@ -224,7 +224,9 @@ GPU_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
      (1, 100, 100, 2, 64), (1, 77, 77, 3, 16),
      # M != N and ragged tails on both sides, at every head width up to 64
      (2, 1000, 77, 2, 16), (1, 77, 1000, 3, 32), (2, 1000, 77, 2, 48),
-     (1, 130, 200, 2, 64), (1, 64, 1, 1, 48)],
+     (1, 130, 200, 2, 64), (1, 64, 1, 1, 48),
+     # MedSegDiffUNet at its defaults, 256²: 32² tokens, 4 heads of 32
+     (2, 1024, 1024, 4, 32)],
 )
 def test_cuda_kernel_matches_plain_version(B, N, M, H, D, dtype):
     """q from one qkv tensor, k and v from another (so M may differ from
@@ -483,3 +485,40 @@ def test_classifier_gradient_through_the_kernel_matches_plain_attention():
     err = (got - want).abs().max().item()
     assert 0 < want.abs().max().item() and err <= 1e-3 * want.abs().max().item()
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["medseg_v1", "medseg_new"])
+def test_cuda_medseg_forward_matches_plain_attention(name):
+    """MedSegDiffUNet (highway and anchor mode) on the card at 64²,
+    attention at rate 8 ([2, 64, 4, 32], four blocks), f32 with TF32 off:
+    the kernel against plain attention, within 1e-3 of max(1, max |out|)
+    for the output and the seg map, one launch a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dsdiff_torch.models import attention as attention_module
+    from dsdiff_torch.models import build_model
+    from dsdiff_torch.utils.device import disable_tf32
+    from dsdiff_torch.utils.flax_bridge import random_params
+
+    disable_tf32()
+    model = build_model(name, device="cuda", in_channels=4, image_size=64)
+    model = random_params(model, 23).eval()
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(2, 64, 64, 4, generator=g, device="cuda")
+    t = torch.tensor([5.0, 600.0], device="cuda")
+    with torch.inference_mode():
+        before = PF.LAUNCHES
+        out, aux = model(x, t)
+        torch.cuda.synchronize()
+        assert PF.LAUNCHES - before == 4
+        kernel = attention_module.scaled_attention
+        attention_module.scaled_attention = PF.reference_attention
+        try:
+            want, want_aux = model(x, t)
+        finally:
+            attention_module.scaled_attention = kernel
+    for got, ref in ((out, want), (aux["cal"], want_aux["cal"])):
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (name, err)

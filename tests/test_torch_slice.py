@@ -174,8 +174,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         Trainer(dict(tiny_cfg(), net_mode="latent", vae_checkpoint=str(sd_vae),
                      first_stage={"params": {"ch": 8, "ch_mult": [1, 2]}}),
                 device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        Trainer(dict(tiny_cfg(), net_mode="medseg_v1"), device="cpu")
+    # the MedSegDiff models are ported, but neither Trainer can build them:
+    # both pass ``remat``, which the MedSegDiff factory does not take
+    from dsdiff_tpu.train.config import Config as JConfig
+    from dsdiff_tpu.train.trainer import Trainer as JTrainer
+
+    medseg = dict(tiny_cfg(), net_mode="medseg_v1", unet_config={"params": {
+        "model_channels": 8, "channel_mult": [1, 2], "num_heads": 2}})
+    with pytest.raises(TypeError, match="'remat'"):
+        Trainer(medseg, device="cpu")
+    with pytest.raises(TypeError, match="'remat'"):
+        JTrainer(JConfig.wrap(medseg), tmp_path / "jax")
 
 
 # ------------------------------------------------ every way the model serves
