@@ -89,6 +89,18 @@ then drives the main path in both directions:
   ``model_step`` against plain attention (loss, loss_adv, every gradient),
   then three bf16 rounds of ``model_step`` + ``disc_step`` beside the
   flagship's own train step.
+- the evaluation and measurement layer (``eval``): random weight files in
+  the public layouts (InceptionV3 as .pth and .safetensors, ResNet50,
+  VGG16), the FID extractor on the card against the CPU and across the
+  two files, ``fid`` between two sets of synthetic slices, the RadImageNet
+  ResNet50 distance through ``fake_3d_distance`` and real LPIPS, card
+  against CPU, ``compiled_flops`` of a flagship forward beside the
+  analytic count of ``scripts/mfu_probe.py`` and ``chain_time`` of the
+  flagship's attention.
+- the mesh (``mesh``): two gloo ranks on the one card (this script run
+  again with ``--mesh-worker``) against one process: palette ``fit``, and
+  the flagship's ``validate`` and ``predict`` with each rank sampling its
+  rows of every batch.
 
 ``python3 chip_smoke.py --phases int8,cache,dist`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
@@ -3077,6 +3089,551 @@ def phase_adversarial(smi: str) -> dict:
     return {"adversarial_train": launched}
 
 
+# the eval phase: the evaluation networks on the card from random weight
+# files in the public layouts (pytorch-fid / torchvision inception_v3,
+# torchvision resnet50 and vgg16), TF32 off; features relative to the CPU
+# result's largest magnitude, distances relative
+EVAL_IMAGES = 8        # inception features, card against CPU
+FID_SET = 64           # slices in each FID set
+FID_BATCH = 16
+EVAL_VOLUME = (2, 128, 128, 32)  # [B, H, W, D] for the fake-3D distance
+EVAL_RATIO, EVAL_SLICE_SEED = 0.5, 1
+LPIPS_PAIRS = 4
+EVAL_RTOL = 1e-4
+FLOPS_BATCH = SERVE_BATCH
+CHAIN_SHAPE = (SERVE_BATCH, 1024, 4, 48)  # the flagship's 32² attention
+# the mesh phase: two gloo ranks on the one card (subprocesses of this
+# script over a file:// store) against one process, f32 with TF32 off and
+# deterministic cuDNN so that the batch split is the only difference: a
+# store of 6 cases x 8 slices at 256² (fold_K 5: 4 train cases, 32 slices,
+# 4 steps an epoch at batch 8; 1 validation case; 1 test case, one batch
+# of 8). Gloo reduces CUDA tensors through the host (two ranks cannot
+# share a card under NCCL)
+MESH_WORLD = 2
+MESH_BACKEND = "gloo"
+MESH_CASES, MESH_SLICES = 6, 8
+MESH_FIT_STEPS = 3
+MESH_BATCH = 8
+MESH_CUTS = {"bf16": (True, False), "num_epochs": (250, 1),
+             "limit_val_batches": (8, 1), "log_images": (True, False)}
+# ranks against one process: the batch split (a conv over 4 rows on a rank,
+# 8 in one process) changes the rounding only. Metrics and the first
+# moments relative (to the leaf's scale); the volume absolute, in [-1, 1]:
+# a DDIM chain from random weights amplifies that rounding by up to
+# 1/sqrt(alpha_bar) (~15 at T) a step, while a wrong noise row or gather
+# order moves a volume by the order of 1
+MESH_RTOL = 1e-3
+MESH_VOLUME_ATOL = 2e-2
+# parameters held where |mu| (0.1 g after one update) is at least this of
+# the leaf's largest and the floor: a leaf whose gradient is zero in exact
+# arithmetic (a conv bias before a GroupNorm of one channel a group) holds
+# rounding noise only, which moves its elements by +-lr either way
+MESH_FIRM, MESH_FIRM_FLOOR = 1e-2, 1e-7
+
+
+def _random_file_dict(shapes: dict, seed: int) -> dict:
+    """A state dict of seeded random values for ``{key: shape}``: convs
+    He-scaled, BatchNorm scales near 1 and variances in [0.5, 1.5], other
+    vectors small; ``num_batches_tracked`` counters 0."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, shape in shapes.items():
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros((), dtype=torch.long)
+            continue
+        noise = torch.randn(shape, generator=gen)
+        bn_scale = (key.endswith(".weight")
+                    and key[:-len("weight")] + "running_var" in shapes)
+        if len(shape) == 4:
+            val = noise * math.sqrt(2.0 / math.prod(shape[1:]))
+        elif key.endswith("running_var"):
+            val = 0.5 + torch.rand(shape, generator=gen)
+        elif bn_scale:
+            val = 1.0 + 0.1 * noise
+        else:
+            val = 0.1 * noise
+        out[key] = val
+    return out
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A .safetensors file: header length, JSON header, the bytes."""
+    names = {torch.float32: "F32", torch.int64: "I64"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    path.write_bytes(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+
+
+def _resnet50_file_shapes() -> dict:
+    """torchvision ``resnet50`` keys and shapes (its BatchNorms whole), from
+    the port's trunk, whose names are the JAX package's."""
+    from dsdiff_torch.eval.perceptual import ResNet50Features
+
+    shapes = {}
+    for name, mod in ResNet50Features().named_modules():
+        # layer1_0.down_conv -> layer1.0.downsample.0
+        tv = name.replace("_", ".", 1) if name.startswith("layer") else name
+        tv = tv.replace("down_conv", "downsample.0").replace("down_bn",
+                                                             "downsample.1")
+        if isinstance(mod, torch.nn.Conv2d):
+            shapes[f"{tv}.weight"] = tuple(mod.weight.shape)
+        elif name and not list(mod.children()):  # a folded BatchNorm
+            for leaf in ("weight", "bias", "running_mean", "running_var"):
+                shapes[f"{tv}.{leaf}"] = tuple(mod.weight.shape)
+    return shapes
+
+
+def _eval_files(tmp: Path) -> dict:
+    """The random weight files: inception (pt_fid layout, with the heads
+    the trunk ignores) as .pth and as .safetensors, resnet50, vgg16 with
+    the lpips lin heads."""
+    from dsdiff_torch.eval.perceptual import VGG16Features
+    from dsdiff_torch.models.inception import InceptionV3
+
+    inc = _random_file_dict({k: tuple(v.shape) for k, v in
+                             InceptionV3().state_dict().items()}, SEED)
+    inc.update(_random_file_dict({"fc.weight": (1000, 2048),
+                                  "fc.bias": (1000,)}, SEED + 1))
+    res = _random_file_dict(_resnet50_file_shapes(), SEED + 2)
+    vgg = _random_file_dict({k.replace("conv", "features."): tuple(v.shape)
+                             for k, v in VGG16Features().state_dict().items()},
+                            SEED + 3)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    for i, width in enumerate((64, 128, 256, 512, 512)):
+        vgg[f"lin{i}.model.1.weight"] = torch.rand(1, width, 1, 1,
+                                                   generator=gen)
+    files = {"inception_pth": tmp / "pt_inception.pth",
+             "inception_st": tmp / "pt_inception.safetensors",
+             "resnet50": tmp / "resnet50.pth", "vgg16": tmp / "vgg16.pth"}
+    torch.save(inc, files["inception_pth"])
+    _write_safetensors(files["inception_st"], inc)
+    torch.save(res, files["resnet50"])
+    torch.save(vgg, files["vgg16"])
+    return files
+
+
+def _fid_sets(rng) -> tuple:
+    """Two sets of FID_SET synthetic 256² slices (the store's anatomy, the
+    target sequence): the reference, and a copy with smoothed noise."""
+    slices = []
+    while len(slices) < FID_SET:
+        case = synthetic.make_structured_case(IMAGE, rng, 16)
+        slices += [s["GT"] for s in case]
+    real = np.stack(slices[:FID_SET])[..., None].astype(np.float32)
+    fake = np.clip(real + 0.1 * rng.standard_normal(real.shape), -1, 1)
+    return real, fake.astype(np.float32)
+
+
+def _analytic_flagship_flops(batch: int) -> float:
+    """``scripts/mfu_probe.py``'s ``dsunet_forward_flops`` at ``batch`` of
+    IMAGE², its functions read from the file (the script imports JAX)."""
+    import ast
+
+    path = Path(__file__).resolve().parent / "scripts" / "mfu_probe.py"
+    tree = ast.parse(path.read_text())
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.FunctionDef)
+                and n.name in ("conv_flops", "dsunet_forward_flops"))
+            or (isinstance(n, ast.Assign)
+                and [t.id for t in n.targets
+                     if isinstance(t, ast.Name)] == ["H"])]
+    namespace: dict = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"),
+         namespace)
+    return namespace["dsunet_forward_flops"](batch, h=IMAGE)
+
+
+def phase_eval(smi: str, attn_rows) -> None:
+    """The evaluation and measurement layer on the card: the InceptionV3
+    extractor (f32, TF32 off) over EVAL_IMAGES 256² images against the CPU,
+    from .pth and .safetensors bit for bit; ``fid`` between two sets of
+    FID_SET slices through it (wall, images/s); the RadImageNet ResNet50
+    distance through ``fake_3d_distance`` on an EVAL_VOLUME volume and real
+    LPIPS from the VGG16 file, card against CPU; ``compiled_flops`` of a
+    flagship bf16 forward beside the analytic count; ``chain_time`` of the
+    flagship's 32² attention beside the kernel phase's event time."""
+    from dsdiff_torch.eval import fid as fid_mod
+    from dsdiff_torch.eval.perceptual import (PerceptualLoss,
+                                              fake_3d_distance,
+                                              load_resnet50_perceptual)
+    from dsdiff_torch.utils.benchtime import chain_time
+    from dsdiff_torch.utils.device import full_f32
+    from dsdiff_torch.utils.profiling import compiled_flops
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        files = _eval_files(tmp)
+        rng = np.random.default_rng(SEED)
+        images = rng.uniform(-1, 1, (EVAL_IMAGES, IMAGE, IMAGE, 1)).astype(
+            np.float32)
+        with full_f32():
+            ext = fid_mod.make_inception_extractor(files["inception_pth"],
+                                                   device="cuda")
+            ext_st = fid_mod.make_inception_extractor(files["inception_st"],
+                                                      device="cuda")
+            got, got_st = ext(images), ext_st(images)
+            want = fid_mod.make_inception_extractor(
+                files["inception_pth"], device="cpu")(images)
+            err = np.abs(got - want).max() / np.abs(want).max()
+            check(got.shape == (EVAL_IMAGES, 2048), f"features {got.shape}")
+            check(np.array_equal(got, got_st),
+                  "inception features from .pth and .safetensors differ")
+            check(err <= EVAL_RTOL, f"inception card vs CPU: {err}")
+            real, fake = _fid_sets(rng)
+            ext(real[:FID_BATCH])  # warm at the batch shape
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = ext(real[:FID_BATCH])
+            img_s = FID_BATCH / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            score = fid_mod.fid(real, fake, extractor=ext, batch=FID_BATCH)
+            fid_wall = time.perf_counter() - t0
+            same = fid_mod.fid(real, real, extractor=ext, batch=FID_BATCH)
+        print(f"[eval] InceptionV3 pt_fid (random weights, f32, TF32 off), "
+              f"{EVAL_IMAGES} images {IMAGE}² -> 299²: card vs CPU max err "
+              f"{err:.3e} of the largest feature (tol {EVAL_RTOL:.0e}); "
+              f".pth and .safetensors bit for bit; {img_s:.2f} images/s at "
+              f"batch {FID_BATCH} [{smi}]")
+        print(f"[eval] fid between {FID_SET} synthetic {IMAGE}² slices and "
+              f"their noised copy: {score:.6f} (against themselves "
+              f"{same:.3e}), wall {fid_wall:.3f} s, "
+              f"{2 * FID_SET / fid_wall:.2f} images/s [{smi}]")
+        check(math.isfinite(score) and score > 0 and abs(same) < 1e-3 * score,
+              f"fid {score}, against itself {same}")
+        check(feats.shape == (FID_BATCH, 2048), "fid batch features")
+
+        vol = torch.from_numpy(rng.uniform(-1, 1, EVAL_VOLUME).astype(
+            np.float32))
+        other = torch.clamp(vol + 0.2 * torch.from_numpy(
+            rng.standard_normal(EVAL_VOLUME).astype(np.float32)), -1, 1)
+        card = load_resnet50_perceptual(files["resnet50"], device="cuda")
+        cpu = load_resnet50_perceptual(files["resnet50"], device="cpu")
+        n_pairs = sum(max(round(EVAL_VOLUME[1 + a] * EVAL_RATIO), 1)
+                      for a in range(3)) * EVAL_VOLUME[0]
+        with full_f32(), torch.inference_mode():
+            kw = dict(ratio=EVAL_RATIO, seed=EVAL_SLICE_SEED)
+            fake_3d_distance(card, vol.cuda(), other.cuda(), **kw)  # warm
+            (d_card, wall) = _timed(lambda: fake_3d_distance(
+                card, vol.cuda(), other.cuda(), **kw))
+            d_cpu = fake_3d_distance(cpu, vol, other, **kw)
+            rad_err = ((d_card.cpu() - d_cpu).abs() / d_cpu.abs()).max().item()
+            lp_card = PerceptualLoss(weights_path=str(files["vgg16"]),
+                                     device="cuda")
+            lp_cpu = PerceptualLoss(weights_path=str(files["vgg16"]),
+                                    device="cpu")
+            x = torch.from_numpy(images[:LPIPS_PAIRS])
+            y = torch.clamp(x + 0.2, -1, 1)
+            lp_got = lp_card(x.cuda(), y.cuda()).cpu()
+            lp_want = lp_cpu(x, y)
+            lp_err = ((lp_got - lp_want).abs() / lp_want.abs()).max().item()
+        print(f"[eval] RadPerceptual (ResNet50, random weights) through "
+              f"fake_3d_distance on {list(EVAL_VOLUME)}, ratio {EVAL_RATIO}, "
+              f"seed {EVAL_SLICE_SEED}: {d_card.tolist()}, card vs CPU rel "
+              f"err {rad_err:.3e} (tol {EVAL_RTOL:.0e}); {n_pairs} 2-D pairs "
+              f"in {wall * 1e3:.2f} ms, {wall * 1e3 / n_pairs:.4f} ms a pair "
+              f"[{smi}]")
+        print(f"[eval] real LPIPS from the random VGG16 file "
+              f"(is_real_lpips {lp_card.is_real_lpips}), {LPIPS_PAIRS} pairs "
+              f"{IMAGE}²: {lp_got.tolist()}, card vs CPU rel err "
+              f"{lp_err:.3e} [{smi}]")
+        check(lp_card.is_real_lpips and lp_err <= EVAL_RTOL,
+              f"LPIPS card vs CPU {lp_err}")
+        check(rad_err <= EVAL_RTOL, f"RadPerceptual card vs CPU {rad_err}")
+        del card, cpu, lp_card, lp_cpu
+
+        model = build_model("dsunet", device="cuda", in_channels=4,
+                            out_channels=2, dtype=torch.bfloat16,
+                            **FLAGSHIP_CONFIG["unet_config"]["params"]).eval()
+        random_params(model, SEED)
+        x = torch.randn(FLOPS_BATCH, IMAGE, IMAGE, 4, device="cuda")
+        t = torch.randint(0, 1000, (FLOPS_BATCH,), device="cuda").float()
+        counted = compiled_flops(model, x, t)
+        analytic = _analytic_flagship_flops(FLOPS_BATCH)
+        print(f"[eval] compiled_flops of one flagship bf16 forward at batch "
+              f"{FLOPS_BATCH}: {counted:.6e} (torch FlopCounterMode: convs, "
+              f"matmuls; the attention kernel is a custom op it does not "
+              f"see) vs scripts/mfu_probe.py dsunet_forward_flops "
+              f"{analytic:.6e}, ratio {counted / analytic:.4f}")
+        check(0.5 < counted / analytic < 1.5,
+              f"flop counts {counted} vs {analytic}")
+        del model
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn(CHAIN_SHAPE, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        chain_s = chain_time(lambda q: fa.flash_attention(q, k, v), q,
+                             length=50, repeats=3)
+        row = next((r for r in attn_rows or [] if "families" not in r
+                    and r["shape"] == list(CHAIN_SHAPE)
+                    and r["dtype"] == "bfloat16"), None)
+        events = f"{row['ms']:.5f} ms" if row else "not run"
+        print(f"[eval] chain_time of flash_attention {list(CHAIN_SHAPE)} "
+              f"bf16, 50 dependent calls: {chain_s * 1e3:.5f} ms a call; "
+              f"the kernel phase's event time {events} [{smi}]")
+        check(math.isfinite(chain_s) and chain_s > 0, f"chain_time {chain_s}")
+        print(f"[eval] done in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _mesh_store(tmp: Path) -> Path:
+    root = tmp / "data"
+    synthetic.make_structured_dataset(root, n_cases=MESH_CASES,
+                                      n_slices=MESH_SLICES, hw=IMAGE,
+                                      seed=SEED, store="npy")
+    return root
+
+
+def _mesh_configs(root: Path) -> dict:
+    """The palette family's and the flagship's run configs on the mesh
+    store, with the cuts of MESH_CUTS."""
+    common = dict(h5_2d_img_dir=str(root), data_store="npy",
+                  image_size=IMAGE, train_keys=FIT_KEYS, fold_K=5, fold_idx=1,
+                  train_batch_size=MESH_BATCH, val_batch_size=MESH_BATCH,
+                  **{k: cut for k, (_, cut) in MESH_CUTS.items()})
+    palette = family_config("palette", "palette.yaml").to_dict()
+    palette.update(common)
+    flagship = dict(FLAGSHIP_CONFIG)
+    flagship.update(common)
+    return {"palette": palette, "flagship": flagship}
+
+
+def _mesh_trainer(cfg: dict, workdir: Path, mesh=None) -> Trainer:
+    """The same seeded random weights in every process (``random_params``
+    draws on the CPU in name order)."""
+    trainer = Trainer(cfg, workdir, device="cuda", mesh=mesh)
+    random_params(trainer.model, SEED)
+    trainer.reset_state()
+    return trainer
+
+
+def _mesh_run(trainer: Trainer, kind: str, out: Path) -> dict:
+    """What the mesh phase compares, from one process or one rank: for
+    'palette' MESH_FIT_STEPS steps of ``fit`` (each step's metrics and wall;
+    the parameters and first moments), for 'flagship' ``validate`` (one
+    batch) and ``predict`` into ``out``; the attention launches of each."""
+    res: dict = {}
+    if kind == "palette":
+        walls, metrics = [], []
+        step_fn = trainer.train_step
+
+        def timed_step(*args, **kw):
+            m, wall = _timed(lambda: step_fn(*args, **kw))
+            walls.append(wall)
+            metrics.append({k: v.item() for k, v in m.items()})
+            if len(walls) == 1:  # the state after the first update
+                res["state"] = {
+                    "params": [p.detach().cpu() for p in trainer.state.params],
+                    "mu": [m.detach().cpu() for m in trainer.state.tx.mu]}
+            return m
+
+        trainer.train_step = timed_step
+        fa.LAUNCHES = 0  # count only the main path from here
+        step = trainer.fit(max_steps=MESH_FIT_STEPS, log_every=1,
+                           val_on_done=False)
+        res.update(fit_launches=fa.LAUNCHES, step=step, walls=walls,
+                   metrics=metrics)
+        return res
+    fa.LAUNCHES = 0  # count only the main path from here
+    res["val"], res["val_wall"] = _timed(lambda: trainer.validate(1))
+    res["val_launches"] = fa.LAUNCHES
+    fa.LAUNCHES = 0
+    (pred_dir, _), res["predict_wall"] = _timed(
+        lambda: trainer.predict(out_dir=out))
+    res["predict_launches"] = fa.LAUNCHES
+    res["pred_dir"] = str(pred_dir)
+    return res
+
+
+def mesh_worker(spec_path: str, rank: int) -> None:
+    """One rank of the mesh phase (``--mesh-worker``): joins the file
+    store, builds its trainer on a (MESH_WORLD, 1) mesh and writes what
+    ``_mesh_run`` gives into ``<out>/rank<r>.pt``."""
+    from dsdiff_torch.parallel import dist as pdist
+    from dsdiff_torch.parallel import mesh as pmesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    out = Path(spec["out"])
+    pdist.initialize(f"file://{spec['store']}", spec["world"], rank,
+                     backend=spec["backend"])
+    try:
+        mesh = pmesh.make_mesh(spec["world"], 1)
+        trainer = _mesh_trainer(spec["cfg"], out / "run", mesh)
+        res = _mesh_run(trainer, spec["kind"], out / "pred")
+        res["backend"] = torch.distributed.get_backend()
+        if rank:  # rank 0's state stands for the gathered state
+            res.pop("state", None)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_ranks(kind: str, cfg: dict, out: Path) -> list:
+    """MESH_WORLD ranks of this script on the card, run to their end (each
+    killed if it outlives the phase's limit); their results in rank
+    order."""
+    out.mkdir(parents=True)
+    spec = dict(kind=kind, cfg=cfg, out=str(out), world=MESH_WORLD,
+                backend=MESH_BACKEND, store=str(out / "store"))
+    (out / "spec.json").write_text(json.dumps(spec))
+    procs = []
+    try:
+        for rank in range(MESH_WORLD):
+            log = open(out / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-worker", str(out / "spec.json"), str(rank)],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        codes = [proc.wait(timeout=600) for proc, _ in procs]
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if codes != [0] * MESH_WORLD:
+        for rank in range(MESH_WORLD):
+            print((out / f"rank{rank}.log").read_text()[-4000:],
+                  file=sys.stderr)
+        fail(f"mesh {kind}: ranks exited with {codes}")
+    return [torch.load(out / f"rank{r}.pt") for r in range(MESH_WORLD)]
+
+
+def _mesh_palette(cfg: dict, tmp: Path, smi: str) -> int:
+    one = _mesh_trainer(cfg, tmp / "palette_one")
+    n_params = sum(p.numel() for p in one.state.params)
+    want = _mesh_run(one, "palette", tmp / "unused")
+    del one
+    torch.cuda.empty_cache()
+    ranks = _mesh_ranks("palette", cfg, tmp / "palette_ranks")
+    got = ranks[0]
+    # after the first update (AdamW moves each element by about lr whatever
+    # its gradient, so the parameters are held where the gradient is firm)
+    worst = {"params": 0.0, "mu": 0.0}
+    top = max(m.abs().max().item() for m in want["state"]["mu"])
+    for p, w, gm, mu in zip(got["state"]["params"], want["state"]["params"],
+                            got["state"]["mu"], want["state"]["mu"]):
+        scale = max(mu.abs().max().item(), MESH_FIRM * top)
+        worst["mu"] = max(worst["mu"], (gm - mu).abs().max().item() / scale)
+        firm = mu.abs() >= max(MESH_FIRM * mu.abs().max().item(),
+                               MESH_FIRM_FLOOR)
+        if firm.any():
+            worst["params"] = max(worst["params"], (
+                (p - w).abs()[firm].max() / w.abs().max().clamp_min(1e-12)
+            ).item())
+    loss_rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                   for g, w in zip(got["metrics"], want["metrics"]))
+    launches = [r["fit_launches"] for r in ranks]
+    calls = sum(c for *_, c in FAMILIES[2][2])  # palette: 6 a forward
+    print(f"[mesh] palette ({n_params / 1e6:.2f} M params, f32, TF32 off) "
+          f"fit {MESH_FIT_STEPS} steps at batch {MESH_BATCH}: {MESH_WORLD} "
+          f"{got['backend']} ranks on one card, step walls "
+          + ", ".join(f"{w * 1e3:.2f}" for w in got["walls"])
+          + " ms (rank 0); one process "
+          + ", ".join(f"{w * 1e3:.2f}" for w in want["walls"])
+          + f" ms; losses {[m['loss'] for m in got['metrics']]} vs "
+          f"{[m['loss'] for m in want['metrics']]} (max rel {loss_rel:.3e}); "
+          f"after step 1: first moments max err {worst['mu']:.3e} and "
+          f"parameters (where the gradient is firm) {worst['params']:.3e} "
+          f"of the leaf's scale (tol {MESH_RTOL:.0e}); attention launches "
+          f"{launches} a rank [{smi}]")
+    check(all(r["step"] == MESH_FIT_STEPS for r in ranks), "mesh fit steps")
+    check(loss_rel <= MESH_RTOL, f"mesh palette loss {loss_rel}")
+    check(max(worst.values()) <= MESH_RTOL, f"mesh palette state {worst}")
+    check(launches == [MESH_FIT_STEPS * calls] * MESH_WORLD
+          and want["fit_launches"] == MESH_FIT_STEPS * calls,
+          f"mesh palette launches {launches}, one process "
+          f"{want['fit_launches']}")
+    return sum(launches)
+
+
+def _mesh_flagship(cfg: dict, tmp: Path, smi: str) -> tuple:
+    one = _mesh_trainer(cfg, tmp / "flagship_one")
+    want = _mesh_run(one, "flagship", tmp / "one_pred")
+    del one
+    torch.cuda.empty_cache()
+    ranks = _mesh_ranks("flagship", cfg, tmp / "flagship_ranks")
+    val_rel = max(abs(r["val"][k] - want["val"][k]) / abs(want["val"][k])
+                  for r in ranks for k in want["val"])
+    vols = sorted(Path(want["pred_dir"]).glob("*_pred.nii.gz"))
+    got_vols = sorted(Path(ranks[0]["pred_dir"]).glob("*_pred.nii.gz"))
+    check([p.name for p in vols] == [p.name for p in got_vols]
+          and len(vols) == 1, f"mesh predict volumes {got_vols} vs {vols}")
+    a, b = read_nifti(got_vols[0]).data, read_nifti(vols[0]).data
+    vol_err = float(np.abs(a - b).max())
+    per_request = DDIM_STEPS * CALLS_PER_FORWARD
+    n_batches = -(-MESH_SLICES // MESH_BATCH)
+    val_l = [r["val_launches"] for r in ranks]
+    pred_l = [r["predict_launches"] for r in ranks]
+    print(f"[mesh] flagship (f32, TF32 off) on {MESH_WORLD} "
+          f"{ranks[0]['backend']} ranks: validate one DDIM-{DDIM_STEPS} batch "
+          f"of {MESH_BATCH} ({MESH_BATCH // MESH_WORLD} rows a rank) "
+          f"{ranks[0]['val_wall']:.3f} s vs one process "
+          f"{want['val_wall']:.3f} s, metrics {ranks[0]['val']} vs "
+          f"{want['val']} (max rel {val_rel:.3e}); predict one case of "
+          f"{MESH_SLICES} slices {ranks[0]['predict_wall']:.3f} s vs "
+          f"{want['predict_wall']:.3f} s, volume {a.shape} max |diff| "
+          f"{vol_err:.3e} (tol {MESH_VOLUME_ATOL:.0e}); attention launches a "
+          f"rank: "
+          f"validate {val_l}, predict {pred_l} [{smi}]")
+    check(val_rel <= MESH_RTOL, f"mesh validate metrics {val_rel}")
+    check(vol_err <= MESH_VOLUME_ATOL
+          and a.shape == (IMAGE, IMAGE, MESH_SLICES),
+          f"mesh predicted volume {a.shape}, err {vol_err}")
+    check(val_l == [per_request] * MESH_WORLD
+          and want["val_launches"] == per_request,
+          f"mesh validate launches {val_l}")
+    check(pred_l == [n_batches * per_request] * MESH_WORLD
+          and want["predict_launches"] == n_batches * per_request,
+          f"mesh predict launches {pred_l}")
+    return sum(val_l), sum(pred_l)
+
+
+def phase_mesh(smi: str) -> dict:
+    """Palette under a mesh and the flagship's sharded validation and
+    prediction: MESH_WORLD ranks on the one card (subprocesses of this
+    script, MESH_BACKEND over CUDA tensors, a file:// store) against one
+    process, each drawing the same seeded random weights: palette ``fit``
+    MESH_FIT_STEPS steps at batch MESH_BATCH (per-step losses, the
+    parameters), the flagship's ``validate`` (one DDIM-20 batch, each rank
+    sampling its rows) and ``predict`` of the one test case (the volume).
+    Returns the attention launches of each path, both ranks."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    deterministic = torch.backends.cudnn.deterministic
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        cfgs = _mesh_configs(_mesh_store(tmp))
+        print(f"[mesh] synthetic npy store {MESH_CASES} cases x "
+              f"{MESH_SLICES} slices at {IMAGE}²; cut: " + ", ".join(
+                  f"{k} {a} -> {b}" for k, (a, b) in MESH_CUTS.items()))
+        launches = {"mesh_palette_fit": _mesh_palette(cfgs["palette"], tmp,
+                                                      smi)}
+        launches["mesh_validate"], launches["mesh_predict"] = _mesh_flagship(
+            cfgs["flagship"], tmp, smi)
+        print(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
@@ -3185,7 +3742,8 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
 
 PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
           "cache", "dist", "families", "latent", "transformer_kernels",
-          "transformer", "patched", "guided", "medseg", "adversarial")
+          "transformer", "patched", "guided", "medseg", "adversarial", "eval",
+          "mesh")
 
 
 def main(argv=None) -> None:
@@ -3193,7 +3751,13 @@ def main(argv=None) -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {', '.join(PHASES)} "
                          f"(default all)")
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--mesh-worker", nargs=2, metavar=("SPEC", "RANK"),
+                    help=argparse.SUPPRESS)  # one rank of the mesh phase
+    args = ap.parse_args(argv)
+    if args.mesh_worker:
+        mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]))
+        return
+    phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -3255,6 +3819,10 @@ def main(argv=None) -> None:
         attn_launches.update(medseg_launches)
     if "adversarial" in phases:
         attn_launches.update(phase_adversarial(smi))
+    if "eval" in phases:
+        phase_eval(smi, attn_rows)
+    if "mesh" in phases:
+        attn_launches.update(phase_mesh(smi))
     print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
           f"passed in {time.perf_counter() - t0:.1f} s after the imports "
           f"[{smi}]")

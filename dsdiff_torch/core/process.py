@@ -1,10 +1,9 @@
 """The Gaussian diffusion process: sampling moments and training losses.
 
-Port of the JAX package's ``core/process.py:55-355`` (``prior_bpd`` comes
-with the evaluation tools, ROADMAP A17b). Every per-timestep coefficient is a
-gather from a [T] table of the schedule; ``t`` is a [B] integer tensor.
-Images are NHWC, so a learned-sigma output splits on the trailing channel
-axis.
+Port of the JAX package's ``core/process.py``. Every per-timestep
+coefficient is a gather from a [T] table of the schedule; ``t`` is a [B]
+integer tensor. Images are NHWC, so a learned-sigma output splits on the
+trailing channel axis.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from .losses import (
 from .schedules import DiffusionSchedule
 
 __all__ = [
+    "prior_bpd",
     "extract",
     "model_timestep",
     "q_mean_variance",
@@ -310,3 +310,13 @@ def lvlb_weights(sched: DiffusionSchedule,
     )
     w[0] = w[1]
     return w
+
+
+def prior_bpd(sched: DiffusionSchedule, x0: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_T | x_0) || N(0, 1)) in bits per dimension, per row [B]: the
+    prior term of the variational bound, which no parameter moves."""
+    t = torch.full((x0.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                   device=x0.device)
+    mean, _, log_variance = q_mean_variance(sched, x0, t)
+    zero = torch.zeros_like(mean)
+    return mean_flat(normal_kl(mean, log_variance, zero, zero)) / math.log(2.0)

@@ -5,8 +5,8 @@ Port of the JAX package's ``parallel/dist.py`` over ``torch.distributed``:
 (torchrun's ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` and
 ``LOCAL_RANK``) or that the caller names (``init_method``, e.g. a
 ``file://`` store, with ``world_size`` and ``rank``): NCCL when the rank
-trains on a card, gloo on the CPU. One process with no launcher is a no-op.
-``gather_rows`` is the differentiable all-gather the train step puts before
+trains on a card (the default), gloo when it asks for the CPU. One process
+with no launcher is a no-op. ``gather_rows`` is the differentiable all-gather the train step puts before
 a loss that mixes samples: its backward sums every rank's gradient of the
 gathered tensor and keeps this rank's rows.
 """
@@ -18,6 +18,8 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.device import resolve_device
 
 __all__ = [
     "initialize",
@@ -40,8 +42,8 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     """Join the process group, once. Without ``init_method`` it is read from
     the environment a launcher sets (``env://``), and with ``WORLD_SIZE``
     unset or 1 nothing happens. ``backend`` defaults to NCCL for a CUDA
-    ``device`` (default: CUDA when a card is present), gloo otherwise; under
-    NCCL the rank's card is ``cuda:LOCAL_RANK``."""
+    ``device`` (the default, which raises without a card), gloo for
+    ``device="cpu"``; under NCCL the rank's card is ``cuda:LOCAL_RANK``."""
     if dist.is_initialized():
         return
     if init_method is None:
@@ -49,8 +51,7 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
             return
         init_method = "env://"
     if backend is None:
-        dev = torch.device(device if device is not None else (
-            "cuda" if torch.cuda.is_available() else "cpu"))
+        dev = resolve_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(local_rank())

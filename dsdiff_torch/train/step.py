@@ -241,12 +241,17 @@ def _optimizer_step(state: TrainState, objective: Callable,
     return {k: v.detach().float() for k, v in metrics.items()}, aux
 
 
-def make_palette_train_step(sched: palette.GammaSchedule) -> Callable:
+def make_palette_train_step(sched: palette.GammaSchedule,
+                            mesh=None) -> Callable:
     """The Palette pipeline's step over the train ``GammaSchedule``: the
     same signature and state as ``make_train_step``'s. ``t`` is uniform over
     the schedule; the model sees ``[cond, y_t]`` and ``gamma * 1000`` as its
     timestep and the loss is the eps MSE. The sampler state passes through
-    unchanged. Metrics: loss, loss_simple (the same), grad_norm."""
+    unchanged. Metrics: loss, loss_simple (the same), grad_norm. Under a
+    distributed ``mesh`` the batch is this rank's rows of the global batch,
+    whose ``t`` and ``noise`` (drawn or given) are global; each rank's loss
+    is its rows' share of the global mean, so the summed gradients are the
+    global mean's, and the metrics are the global means."""
 
     def step(state: TrainState, sampler_state, batch: dict,
              generator: torch.Generator | None = None,
@@ -254,20 +259,29 @@ def make_palette_train_step(sched: palette.GammaSchedule) -> Callable:
              noise: torch.Tensor | None = None):
         x0 = batch["target"]
         B = x0.shape[0]
+        lo, hi, n_total = 0, B, B
+        if _distributed(mesh):
+            n_total = B * mesh.world
+            lo, hi = mesh.local_rows(n_total)
         if t is None:
-            t = torch.randint(0, sched.num_timesteps, (B,),
+            t = torch.randint(0, sched.num_timesteps, (n_total,),
                               generator=generator, device=x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
-                                device=x0.device)
+            noise = torch.randn((n_total,) + x0.shape[1:], generator=generator,
+                                dtype=x0.dtype, device=x0.device)
+        t, noise = t.to(x0.device)[lo:hi], noise.to(x0.device)[lo:hi]
 
         def objective(model):
             loss = palette.training_loss(
                 sched, lambda x, g: model(x, g * 1000.0), x0, batch["image"],
-                t.to(x0.device), noise)
-            return loss, None, {"loss": loss, "loss_simple": loss}
+                t, noise) * (B / n_total)
+            if n_total == B:
+                return loss, None, {"loss": loss, "loss_simple": loss}
+            main = loss.detach().clone()
+            dist.all_reduce(main)
+            return loss, None, {"loss": main, "loss_simple": main}
 
-        metrics, _ = _optimizer_step(state, objective, generator)
+        metrics, _ = _optimizer_step(state, objective, generator, mesh)
         return state, sampler_state, metrics
 
     return step

@@ -35,11 +35,15 @@ on its rows of every global batch (the loader's ``process_index`` /
 ``process_count`` are its rank and the world; the device cache draws the
 global batch and makes its rows), the train state follows the JAX ZeRO plan
 (``fsdp_min_size``, default 2**18 elements) and a step equals one process's
-on the global batch (``train.step``). ``validate`` and ``predict`` run the
-whole of each batch on every rank, which gives every rank one process's
-result; logs, the journal, image dumps, checkpoints and predicted volumes
-are written by rank 0 alone, and every rank restores its shards from a
-checkpoint.
+on the global batch (``train.step``). ``validate`` and ``predict`` shard
+each batch over the ranks (``_sample_batch``): every rank draws the whole
+batch's x_T and per-step noise from the shared seeded generator, samples
+its rows and gathers the others', which gives every rank one process's
+result. A batch whose rows the ranks do not divide, and the samplers whose
+arithmetic spans the batch (int8 serving's dynamic activation scale, the
+adaptive DPM-Solver's step control), run whole on every rank. Logs, the
+journal, image dumps, checkpoints and predicted volumes are written by
+rank 0 alone, and every rank restores its shards from a checkpoint.
 
 Random numbers: ``fit`` seeds a generator on the trainer's device for each
 step from (seed, number of earlier ``fit`` calls of this trainer, step), so
@@ -166,6 +170,28 @@ def model_params(cfg: Config, model_name: str, n_cond: int,
         params.setdefault("use_edge", bool(use_edge))
     return dict(params, in_channels=in_ch, out_channels=out_ch, dtype=dtype,
                 remat=bool(cfg.get("remat", False)))
+
+
+class _RowNoise:
+    """The per-step noise of a sampling loop over rows ``lo:hi`` of a batch:
+    item ``i`` draws step ``i``'s noise for the whole batch (shaped, typed
+    and placed like ``x_T``, as the loops draw it) from ``generator`` and
+    keeps the rows, so that the draws are one process's. Steps are read
+    once each, in order."""
+
+    def __init__(self, x_T: torch.Tensor, generator: torch.Generator,
+                 lo: int, hi: int):
+        self.like, self.generator, self.lo, self.hi = x_T, generator, lo, hi
+        self.next = 0
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if i != self.next:
+            raise IndexError(f"noise of step {i} read out of order "
+                             f"(next is {self.next})")
+        self.next += 1
+        x = self.like
+        return torch.randn(x.shape, generator=self.generator, dtype=x.dtype,
+                           device=x.device)[self.lo:self.hi]
 
 
 def _step_seed(seed: int, fit_call: int, step: int, *stream: int) -> int:
@@ -343,11 +369,8 @@ class Trainer:
         self.eta = float(samp.get("ddim_eta", 0.0))
         self.palette = net_mode in ("palette", "diffusion")
         if self.palette:
-            if self.ranks > 1:
-                raise NotImplementedError(
-                    "palette training under a mesh is not ported yet")
             self._setup_palette_schedules()
-            self._train_step = make_palette_train_step(self.gs_train)
+            self._train_step = make_palette_train_step(self.gs_train, mesh)
         else:
             self._train_step = make_train_step(self.task, self.sched, mesh)
 
@@ -832,6 +855,31 @@ class Trainer:
             return self.first_stage.decode_batch(out)
         return out
 
+    def _sample_batch(self, cond: torch.Tensor,
+                      generator: torch.Generator) -> torch.Tensor:
+        """``sample_images`` of a whole batch, which under a distributed
+        mesh each rank samples only its rows of: the conditions' encoding
+        (``latent``), x_T and every per-step noise are drawn for the whole
+        batch from ``generator``, as one process draws them, and the rows
+        are gathered after. Whole on every rank where the ranks do not
+        divide the rows, under int8 serving and for 'dpm_adaptive'."""
+        B = cond.shape[0]
+        if (self.ranks == 1 or B % self.ranks or self.sample_int8
+                or self.sampler_name == "dpm_adaptive"):
+            return self.sample_images(cond, generator)
+        lo, hi = self.mesh.local_rows(B)
+        if self.first_stage is not None:
+            cond = self.first_stage.encode_cond(cond, generator)
+        if self.palette:  # core.palette's start: one channel
+            x_T = draw_x_T(cond, 1, generator)
+        else:
+            x_T = draw_x_T(cond, self.base_out, generator)
+        out = self.sample_fn(cond[lo:hi], generator, x_T=x_T[lo:hi],
+                             noise=_RowNoise(x_T, generator, lo, hi))
+        if self.first_stage is not None:
+            out = self.first_stage.decode_batch(out)
+        return pdist.all_gather_rows(out)
+
     def progressive_denoise(self, cond: torch.Tensor,
                             generator: torch.Generator | None = None,
                             x_T: torch.Tensor | None = None, cond_noise=None):
@@ -871,7 +919,7 @@ class Trainer:
         for i, batch in enumerate(self.val_loader.epoch(0)):
             if i >= max_batches:
                 break
-            pred = self.sample_images(self._to_device(batch["image"]), gen)
+            pred = self._sample_batch(self._to_device(batch["image"]), gen)
             m = self.val_metrics(pred, self._to_device(batch["target"]),
                                  self._to_device(batch["valid"]))
             for k in tot:
@@ -967,7 +1015,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(
             int(cfg.get("seed", 2024)))
         for batch in loader.epoch(0):
-            pred = self.sample_images(self._to_device(batch["image"]), gen)
+            pred = self._sample_batch(self._to_device(batch["image"]), gen)
             asm.add_batch(batch["case"], batch["slice"],
                           pred.float().cpu().numpy(), batch["valid"])
         gt_file = gt_name or f"{self.keys[-1]}.nii.gz"

@@ -34,7 +34,18 @@ networks: the KL-VAE (``models.vae``: its bottleneck attention's separate
 ``post_quant_conv``), the
 ``PatchDiscriminator`` (whose GroupNorms are bare ``nn.GroupNorm``
 modules: ``norm_1/scale`` -> ``norm_1.weight``) and the perceptual loss's
-random-feature pyramid and VGG16 trunk (``eval.perceptual``).
+random-feature pyramid and VGG16 trunk (``eval.perceptual``; a pickled
+pyramid tree of the JAX package loads the same way).
+
+The evaluation networks carry their Flax names too: InceptionV3
+(``models.inception``), whose Flax ``BatchNorm`` keeps ``scale`` and
+``bias`` under ``params`` and ``mean`` and ``var`` under ``batch_stats``:
+a variables tree ``{"params": ..., "batch_stats": ...}`` is read whole and
+those leaves become ``weight``, ``bias``, ``running_mean`` and
+``running_var`` (BatchNorm's ``num_batches_tracked`` counter, which Flax
+has not, is set to 0); its (1, 7) and (7, 1) kernels move their axes as
+any conv kernel does. The ResNet50 trunk's folded ``_AffineBN``
+(``eval.perceptual``) has a ``scale`` and a ``bias`` like a norm.
 
 ``train_state_from_flax`` maps a whole JAX training state (params, EMA,
 AdamW moments and counts) onto the model's keys, for ``TrainState.load``,
@@ -55,15 +66,24 @@ __all__ = ["flatten_tree", "flax_to_state_dict", "train_state_from_flax",
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested dicts of arrays -> ``{"a/b/leaf": np.ndarray}``. A top-level
-    ``{"params": ...}`` wrapper (Flax variables) is dropped."""
-    if not prefix and set(tree) == {"params"}:
-        tree = tree["params"]
+    """Nested dicts of arrays -> ``{"a/b/leaf": np.ndarray}``. Top-level
+    Flax variable collections (``params``, and ``batch_stats`` beside it)
+    are dropped from the paths, their leaves merged."""
+    if not prefix and "params" in tree and set(tree) <= {"params",
+                                                         "batch_stats"}:
+        flat = {}
+        for collection in tree.values():
+            flat.update(_flatten(collection))
+        return flat
+    return _flatten(tree, prefix)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
     for key, val in tree.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, Mapping):
-            flat.update(flatten_tree(val, path))
+            flat.update(_flatten(val, path))
         else:
             flat[path] = np.asarray(val)
     return flat
@@ -71,7 +91,8 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "embedding": "weight", "pool_query": "pool_query",
-               "complex_weight": "complex_weight"}
+               "complex_weight": "complex_weight", "mean": "running_mean",
+               "var": "running_var"}
 
 
 def _leaf_to_torch(arr: np.ndarray, leaf: str, target_ndim: int,
@@ -130,6 +151,9 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tenso
                 f"{path}: shape {tuple(val.shape)} does not fit {key} {want}"
             )
         out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
+    for key in expected:  # BatchNorm's step counter has no Flax leaf
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros_like(expected[key])
     missing = sorted(set(expected) - set(out))
     if missing or unused:
         raise KeyError(

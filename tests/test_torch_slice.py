@@ -162,11 +162,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="do not tile the H extent"):
         patched.sample_fn(torch.zeros(1, 16, 16, 3),
                           generator=torch.Generator().manual_seed(0))
-    # int8 serving and the device data cache are ported; palette training
-    # under a mesh of more than one rank is not
-    with pytest.raises(NotImplementedError, match="palette"):
-        Trainer(dict(tiny_cfg(), net_mode="palette"), device="cpu",
-                mesh=Mesh(2, 1, distributed=True))
+    # int8 serving, the device data cache and palette training under a
+    # mesh of more than one rank are ported (test_torch_mesh_eval.py): a
+    # palette trainer builds on a two-rank mesh
+    palette = Trainer(dict(tiny_cfg(), net_mode="palette"), device="cpu",
+                      mesh=Mesh(2, 1, distributed=True))
+    assert palette.palette and palette.ranks == 2
     # net_mode latent is ported; an SD VAE file as its first stage is not
     sd_vae = tmp_path / "sd_vae.safetensors"
     sd_vae.write_bytes(b"")

@@ -224,10 +224,22 @@ def test_lpips_with_random_vgg16_weights_matches_jax(tmp_path, with_lins):
 
 
 def test_lpips_refuses_incomplete_weights_and_other_backbones(tmp_path):
+    """An incomplete VGG16 file is refused by both backbones' loaders, and
+    by ``PerceptualLoss`` in both packages: after the backbone's load fails
+    it reads the file as a pickled pyramid tree (the JAX package's order),
+    which fails too, its error carrying the loader's."""
     path = tmp_path / "partial.pth"
     torch.save({"features.0.weight": torch.zeros(64, 3, 3, 3)}, path)
     with pytest.raises(ValueError, match="incomplete"):
-        PP.PerceptualLoss(weights_path=str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A17b"):
-        PP.PerceptualLoss(weights_path=str(path), network_type="radimagenet",
-                          device="cpu")
+        PP.load_vgg16_lpips(str(path), device="cpu")
+    with pytest.raises(ValueError, match="incomplete"):
+        PP.load_resnet50_perceptual(str(path), device="cpu")
+    for network_type in ("lpips", "radimagenet"):
+        with pytest.raises(Exception) as err:
+            PP.PerceptualLoss(weights_path=str(path),
+                              network_type=network_type, device="cpu")
+        first = err.value.__context__
+        assert isinstance(first, ValueError) and "incomplete" in str(first)
+        with pytest.raises(Exception):
+            JP.PerceptualLoss(weights_path=str(path),
+                              network_type=network_type)
