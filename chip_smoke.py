@@ -101,6 +101,16 @@ then drives the main path in both directions:
   again with ``--mesh-worker``) against one process: palette ``fit``, and
   the flagship's ``validate`` and ``predict`` with each rank sampling its
   rows of every batch.
+- published-layout weights (``weights``): two SD VAE files of the same
+  random weights in vae-ft-mse-840000's layout (.safetensors, and a full
+  SD zip pickle), ``python -m dsdiff_torch.cli.import_weights`` on one,
+  the latent ``Trainer`` with each file as ``vae_checkpoint`` (its VAE the
+  CPU ``load_sd_vae`` result bit for bit), that VAE's encode and decode
+  kernel vs plain, one DDIM-20 request served from it through
+  ``sample_images``, then CLIP's text tower at ViT-L/14 widths and image
+  tower at ViT-H/14 widths (random weights in transformers' key layout),
+  card against CPU, and the attention kernel at the image tower's
+  [4, 257, 16, 80] f32.
 
 ``python3 chip_smoke.py --phases int8,cache,dist`` runs only the named
 phases (device and build always run; the kernels line needs every phase).
@@ -3634,6 +3644,360 @@ def phase_mesh(smi: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------- published weights and CLIP (weights)
+# the published SD VAE (vae-ft-mse-840000) has this many tensors
+SD_VAE_TENSORS = 248
+# CLIP towers at published widths, as transformers' per-tower
+# save_pretrained writes their config.json: openai/clip-vit-large-patch14's
+# text_config, and laion/CLIP-ViT-H-14-laion2B-s32B-b79K's vision_config
+# (the ViT-H/14 the reference's FrozenOpenCLIPImageEmbedder names)
+CLIP_TEXT = dict(model_type="clip_text_model", vocab_size=49408,
+                 hidden_size=768, intermediate_size=3072,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 max_position_embeddings=77, hidden_act="quick_gelu",
+                 layer_norm_eps=1e-5)
+CLIP_VISION = dict(model_type="clip_vision_model", hidden_size=1280,
+                   intermediate_size=5120, num_hidden_layers=32,
+                   num_attention_heads=16, num_channels=3, image_size=224,
+                   patch_size=14, hidden_act="gelu", layer_norm_eps=1e-5)
+# the image tower's attention: the patches and the class token, its heads
+CLIP_ATTENTION = ((CLIP_VISION["image_size"] // CLIP_VISION["patch_size"])
+                  ** 2 + 1, CLIP_VISION["num_attention_heads"],
+                  CLIP_VISION["hidden_size"]
+                  // CLIP_VISION["num_attention_heads"])  # (257, 16, 80)
+CLIP_BATCH = SERVE_BATCH
+CLIP_PROMPTS = ["an axial T1-weighted brain MRI",
+                "a contrast-enhanced T1 scan of a glioma",
+                "whole-body FDG PET, coronal view",
+                "MRI -> CE-MRI synthesis, slice 42"]
+# CLIP embeddings, f32 with TF32 off, card against CPU: relative to the
+# CPU output's largest magnitude (summation order only, over 12 / 32
+# layers)
+CLIP_RTOL = 1e-4
+# the SD VAE file's encode / decode, kernel vs plain attention, relative to
+# the output's own largest magnitude (the file's random weights give
+# outputs of ~0.1, so max(1, max |out|) would allow errors of the size of
+# the outputs themselves). Measured on the H100 at 256², batch 4: f32
+# (TF32 off) 3.6e-7 / 8.7e-6 of max |out| (encode / decode, summation order
+# and the 3xTF32 split); bf16 0.48 % / 2.1 % (decode 5 bf16 ulps, spread by
+# the ~30 bf16 layers after its one attention block). Held at 1e-4 and
+# 5e-2: a wrong attention moves the output by the order of max |out|.
+SD_VAE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _weights_import(path: Path, out: Path) -> None:
+    """``python -m dsdiff_torch.cli.import_weights --kind sd_vae`` on the
+    file: 0 missing, 0 unused, and the saved state dict equals
+    ``load_sd_vae`` on the CPU bit for bit."""
+    from dsdiff_torch.models.vae import AutoencoderKL
+    from dsdiff_torch.utils.torch_io import load_sd_vae
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "dsdiff_torch.cli.import_weights", "--kind",
+         "sd_vae", str(path), str(out)], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"cli.import_weights: {run.stderr[-2000:]}")
+    report = json.loads(run.stdout[:run.stdout.rindex("}") + 1])
+    saved = torch.load(out / "params.pt", weights_only=True)
+    want, _, _ = load_sd_vae(path, AutoencoderKL(in_channels=3,
+                                                  out_channels=3))
+    same = set(saved) == set(want) and all(torch.equal(saved[k], v)
+                                           for k, v in want.items())
+    print(f"[weights] python -m dsdiff_torch.cli.import_weights --kind "
+          f"sd_vae {path.name}: {wall:.2f} s, mapped {report['mapped']}, "
+          f"missing {len(report['missing_target_leaves'])}, unused "
+          f"{len(report['unused_source_keys'])}; params.pt equals "
+          f"load_sd_vae on the CPU: {same}")
+    check(report["mapped"] == SD_VAE_TENSORS
+          and not report["missing_target_leaves"]
+          and not report["unused_source_keys"], f"import report {report}")
+    check(same, "the imported state dict differs from load_sd_vae's")
+
+
+def _weights_vae_parity(cfg, state: dict, smi: str) -> None:
+    """The file's VAE (vae-ft-mse's ddconfig, one channel), encode and
+    decode at batch SERVE_BATCH, 256², kernel vs plain attention, f32 with
+    TF32 off and bf16, one launch each; to SD_VAE_RTOL of the output's own
+    largest magnitude."""
+    from dsdiff_torch.utils.device import full_f32
+
+    fs = dict(cfg.get_path("first_stage.params"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x = torch.rand(SERVE_BATCH, IMAGE, IMAGE, 1, generator=gen,
+                   device="cuda") * 2 - 1
+    z = torch.randn(SERVE_BATCH, IMAGE // 8, IMAGE // 8, fs["embed_dim"],
+                    generator=gen, device="cuda")
+    with full_f32():
+        for dtype, rtol in SD_VAE_RTOL.items():
+            vae = build_model("autoencoder_kl", device="cuda", dtype=dtype,
+                              **fs).eval()
+            vae.load_state_dict(state)
+            name = str(dtype).split(".")[1]
+            for what, fn in (("encode (mean, logvar)",
+                              lambda: _moments(vae, x)),
+                             ("decode", lambda: vae.decode(z))):
+                with torch.inference_mode():
+                    before = fa.LAUNCHES
+                    got = fn().float()
+                    torch.cuda.synchronize()
+                    launched = fa.LAUNCHES - before
+                    want = _with_plain_attention(fn).float()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                tol = rtol * scale
+                print(f"[weights] SD VAE file {what} {name}, batch "
+                      f"{SERVE_BATCH}, {IMAGE}²: max_abs_err {err:.3e} (tol "
+                      f"{tol:.3e}, max |out| {scale:.4f}), "
+                      f"{launched} kernel launch(es) [{smi}]")
+                check(torch.isfinite(got).all().item(),
+                      f"SD VAE {what} {name}: non-finite")
+                check(launched == 1, f"SD VAE {what} {name}: {launched} "
+                      f"attention launches, not 1")
+                check(err <= tol, f"SD VAE {what} {name}: parity error "
+                      f"{err} over {tol}")
+            del vae
+    torch.cuda.empty_cache()
+
+
+def _weights_request(trainer, smi: str) -> int:
+    """One DDIM-20 request of batch SERVE_BATCH decoded to 256² through
+    ``sample_images``, the latent UNet's weights random from SEED: every
+    attention call through the kernel (LATENT_REQUEST_CALLS), finite, the
+    latents it decodes (DDIM's last x0) in [-1, 1]. Returns its launches."""
+    random_params(trainer.model, SEED)
+    trainer.reset_state()
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cond = torch.rand(SERVE_BATCH, IMAGE, IMAGE, LATENT_N_COND, generator=gen,
+                      device="cuda") * 2 - 1
+    latents = []
+    decode = trainer.first_stage.decode_batch
+
+    def recording_decode(z):
+        latents.append(z)
+        return decode(z)
+
+    trainer.first_stage.decode_batch = recording_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0  # count only the main path from here
+    t0 = time.perf_counter()
+    out = trainer.sample_images(cond, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = fa.LAUNCHES
+    trainer.first_stage.decode_batch = decode
+    z = latents[0]
+    print(f"[weights] latent request from the SD VAE file: DDIM-{DDIM_STEPS}, "
+          f"batch {SERVE_BATCH}, {IMAGE}²: {wall:.4f} s, "
+          f"{SERVE_BATCH / wall:.3f} slices/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {launched} "
+          f"attention launches, latents {tuple(z.shape)} in "
+          f"[{z.min().item():.4f}, {z.max().item():.4f}], decoded "
+          f"{tuple(out.shape)} in [{out.min().item():.4f}, "
+          f"{out.max().item():.4f}] [{smi}]")
+    _check_sample(out, SERVE_BATCH, IMAGE, False, "SD VAE file request")
+    check(len(latents) == 1 and z.abs().max().item() <= 1.0,
+          "the request's latent x0s lie outside [-1, 1]")
+    check(launched == LATENT_REQUEST_CALLS, f"SD VAE file request: "
+          f"{launched} attention launches, not {LATENT_REQUEST_CALLS}")
+    return launched
+
+
+def _clip_snapshot(path: Path, tower: str, cfg: dict, seed: int) -> None:
+    """One tower's snapshot as transformers' ``save_pretrained`` lays it
+    out: ``config.json`` and ``pytorch_model.bin`` under the tower's torch
+    key names, seeded random weights (LayerNorm scales 1 + N(0, 0.1²),
+    matrices and kernels N(0, 1/fan_in), vectors N(0, 0.1²))."""
+    from dsdiff_torch.models import clip
+
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(cfg))
+    with torch.device("meta"):  # the shapes only
+        model = {"text": clip.CLIPTextTransformer,
+                 "vision": clip.CLIPVisionTransformer}[tower](
+            clip.read_clip_config(path, tower))
+    norms = {f"{n}.weight" for n, m in model.named_modules()
+             if isinstance(m, torch.nn.LayerNorm)}
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, p in model.state_dict().items():
+        noise = torch.randn(p.shape, generator=gen)
+        if name in norms:
+            val = 1.0 + 0.1 * noise
+        elif p.ndim >= 2:
+            val = noise / math.sqrt(p[0].numel())
+        else:
+            val = 0.1 * noise
+        state[f"{tower}_model.{name}"] = val
+    torch.save(state, path / "pytorch_model.bin")
+
+
+def _clip_vocab(path: Path, texts) -> int:
+    """``vocab.json`` and ``merges.txt`` (no real vocabulary is in the
+    repository): CLIP's byte alphabet and its end-of-word forms, merges
+    that build each word of ``texts`` whole, the start and end tokens.
+    Returns the vocabulary's size."""
+    from dsdiff_torch.models.clip import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = chars + [c + "</w>" for c in chars]
+    merges = []
+    for word in sorted({w for t in texts
+                        for w in "".join(c if c.isalpha() else " "
+                                         for c in t.lower()).split()}):
+        symbols = list(word[:-1]) + [word[-1] + "</w>"]
+        cur = symbols[0]
+        for nxt in symbols[1:]:
+            if (cur, nxt) not in merges:
+                merges.append((cur, nxt))
+                vocab.append(cur + nxt)
+            cur += nxt
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    (path / "vocab.json").write_text(json.dumps(
+        {t: i for i, t in enumerate(vocab)}))
+    (path / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    return len(vocab)
+
+
+def _clip_towers(tmp: Path, smi: str) -> dict:
+    """Both CLIP towers at published widths from snapshots the phase
+    writes (random weights): text embeddings of CLIP_PROMPTS (77 tokens)
+    and image embeddings of CLIP_BATCH 224² images on the card against the
+    same port model on the CPU, f32 with TF32 off; the image tower's 32
+    attention calls through the kernel, the text tower's causal ones plain.
+    Returns the image tower's launches."""
+    from dsdiff_torch.models.encoders import (CLIPImageEmbedder,
+                                              CLIPTextEmbedder)
+    from dsdiff_torch.utils.device import full_f32
+
+    t0 = time.perf_counter()
+    text_dir, image_dir = tmp / "clip-vit-large-patch14", tmp / "clip-vit-h-14"
+    _clip_snapshot(text_dir, "text", CLIP_TEXT, SEED + 14)
+    n_vocab = _clip_vocab(text_dir, CLIP_PROMPTS)
+    _clip_snapshot(image_dir, "vision", CLIP_VISION, SEED + 15)
+    print(f"[weights] CLIP snapshots written in {time.perf_counter() - t0:.1f}"
+          f" s (random weights; text ViT-L/14 widths with a {n_vocab}-token "
+          f"BPE vocabulary, image ViT-H/14)")
+    images = torch.rand(CLIP_BATCH, CLIP_VISION["image_size"],
+                        CLIP_VISION["image_size"], 3,
+                        generator=torch.Generator().manual_seed(SEED + 16))
+    images = images * 2 - 1
+    launches = {}
+    runs = (("text", CLIPTextEmbedder, text_dir, CLIP_PROMPTS, 0),
+            ("image", CLIPImageEmbedder, image_dir, images,
+             CLIP_VISION["num_hidden_layers"]))
+    with full_f32():
+        for name, make, path, inputs, calls in runs:
+            embedder = make(str(path), device="cuda")
+            embedder(inputs)  # warm-up
+            torch.cuda.synchronize()
+            fa.LAUNCHES = 0  # count only the main path from here
+            t0 = time.perf_counter()
+            got = embedder(inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = fa.LAUNCHES
+            del embedder
+            torch.cuda.empty_cache()
+            want = make(str(path), device="cpu")(inputs)
+            err = (got.cpu() - want).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"[weights] CLIP {name} tower {tuple(got.shape)}, f32, "
+                  f"TF32 off: {wall * 1e3:.2f} ms on the card, card vs CPU "
+                  f"max_abs_err {err:.3e} (tol {CLIP_RTOL * scale:.3e}, max "
+                  f"|out| {scale:.3f}), {launched} attention launches [{smi}]")
+            check(torch.isfinite(got).all().item(), f"CLIP {name}: non-finite")
+            check(launched == calls, f"CLIP {name}: {launched} attention "
+                  f"launches, not {calls}")
+            check(err <= CLIP_RTOL * scale, f"CLIP {name}: card vs CPU "
+                  f"{err} over {CLIP_RTOL * scale}")
+            if calls:
+                launches[f"clip_{name}"] = launched
+    return launches
+
+
+def phase_weights(smi: str):
+    """Published-layout weights on the card: two SD VAE files of the same
+    random weights in vae-ft-mse-840000's layout (.safetensors, and a full
+    SD zip pickle with the ``first_stage_model.`` prefix under
+    ``state_dict``), one imported through ``cli.import_weights``; the
+    latent ``Trainer`` (train_config.yaml + latent.yaml) with each as
+    ``vae_checkpoint``, its VAE the CPU ``load_sd_vae`` result; the file's
+    VAE kernel vs plain; one DDIM-20 request from it; the CLIP towers.
+    Returns (kernel rows, attention launches by path)."""
+    from dsdiff_torch.train.vae_loop import build_vae
+    from dsdiff_torch.utils.device import full_f32
+    from dsdiff_torch.utils.inventories import fake_state_dict
+    from dsdiff_torch.utils.torch_io import load_sd_vae
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    try:
+        sd = {k: torch.from_numpy(v) for k, v in
+              fake_state_dict("sd_vae_ft_mse", SEED).items()}
+        check(len(sd) == SD_VAE_TENSORS, f"{len(sd)} SD VAE tensors")
+        files = [tmp / "vae-ft-mse-840000.safetensors", tmp / "sd-full.ckpt"]
+        _write_safetensors(files[0], sd)
+        torch.save({"state_dict": {f"first_stage_model.{k}": v
+                                   for k, v in sd.items()}}, files[1])
+        _weights_import(files[0], tmp / "imported")
+        trainer = state = None
+        for i, path in enumerate(files):
+            cfg = load_run_config(
+                CONFIGS / "train_config.yaml", CONFIGS / "latent.yaml",
+                overrides=dict(seed=SEED, vae_checkpoint=str(path)))
+            want, missing, unused = load_sd_vae(path, build_vae(cfg, "cpu"))
+            t0 = time.perf_counter()
+            run = Trainer(cfg, tmp / f"run_{i}", device="cuda")
+            build_s = time.perf_counter() - t0
+            vae = run.first_stage.vae
+            # held in the compute dtype: the file's f32 weights, rounded
+            held = set(vae.state_dict()) == set(want) and all(
+                torch.equal(p.cpu(), want[n].to(p.dtype))
+                for n, p in vae.named_parameters())
+            unscaled = torch.equal(want["encoder.conv_in.weight"][:, 0],
+                                   sd["encoder.conv_in.weight"][:, 0])
+            journal = (tmp / f"run_{i}" / "log_txt.txt").read_text()
+            print(f"[weights] latent Trainer with vae_checkpoint "
+                  f"{path.name}: built in {build_s:.2f} s; VAE "
+                  f"{sum(p.numel() for p in vae.parameters()) / 1e6:.2f} M "
+                  f"params, {len(missing)} kept fresh, {len(unused)} unused; "
+                  f"on the card the CPU load_sd_vae's (in the compute dtype "
+                  f"{vae.compute_dtype}): {held}; conv_in input channel 0 "
+                  f"unscaled: {unscaled}")
+            check(not missing and not unused, f"{path.name}: missing "
+                  f"{missing[:4]}, unused {unused[:4]}")
+            check(held, f"{path.name}: the card's VAE is not load_sd_vae's")
+            check(unscaled, "conv_in's input channel 0 was scaled")
+            check(f"vae init from {path}: 0 params kept fresh" in journal,
+                  f"journal: {journal[-300:]}")
+            if i == 0:
+                trainer, state = run, want
+            else:
+                del run
+        _weights_vae_parity(cfg, state, smi)
+        launches = {"weights_request": _weights_request(trainer, smi)}
+        del trainer
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        with full_f32():
+            rows = [dict(_attention_row(gen, CLIP_BATCH, *CLIP_ATTENTION,
+                                        torch.float32,
+                                        CLIP_VISION["num_hidden_layers"],
+                                        smi, layout="dense"),
+                         path="clip_image")]
+        launches.update(_clip_towers(tmp, smi))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[weights] done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
 def _per_forward(rows, key):
     """Sum of ``key`` over one serving forward's attention calls."""
     return sum(r[key] * r["calls_per_forward"] for r in rows)
@@ -3660,12 +4024,13 @@ def _latent_request(rows, key):
 
 def kernels_line(attn_rows, attn_launches: dict, norm_rows,
                  norm_launches: int, latent_rows, transformer_rows,
-                 medseg_rows) -> dict:
+                 medseg_rows, weights_rows) -> dict:
     """One entry per kernel. Attention: its work in one serving forward
     (batch SERVE_BATCH, bf16, 34 calls: the wgmma route), with its route for
     each dtype, and the same for one forward of each other family, for one
     latent request, each transformer-path shape's row (with the load its
-    layout took) and each MedSegDiff row. GroupNorm+SiLU: one call at each flagship norm shape,
+    layout took), each MedSegDiff row and the CLIP image tower's row.
+    GroupNorm+SiLU: one call at each flagship norm shape,
     batch SERVE_BATCH, bf16."""
     serve = [r for r in attn_rows if "families" not in r
              and r["shape"][0] == SERVE_BATCH and r["dtype"] == "bfloat16"]
@@ -3689,7 +4054,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "launches": sum(attn_launches.values()),
         "launches_by_path": attn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in attn_rows + latent_rows
-                           + transformer_rows + medseg_rows),
+                           + transformer_rows + medseg_rows + weights_rows),
         "ms": _per_forward(serve, "ms"),
         "graph_ms": _per_forward(serve, "graph_ms"),
         "plain_ms": _per_forward(serve, "plain_ms"),
@@ -3720,6 +4085,13 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
                                "library_graph_ms", "bound_ms", "bound_by",
                                "share_of_bound")}
             for r in medseg_rows],
+        "weights_rows": [
+            {k: r[k] for k in ("path", "shape", "keys", "dtype", "route",
+                               "load", "calls_per_forward", "max_abs_err",
+                               "ms", "graph_ms", "plain_ms", "library_ms",
+                               "library_graph_ms", "bound_ms", "bound_by",
+                               "share_of_bound")}
+            for r in weights_rows],
     }, {
         "name": "group_norm_silu",
         "route": "cuda",
@@ -3743,7 +4115,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
 PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
           "cache", "dist", "families", "latent", "transformer_kernels",
           "transformer", "patched", "guided", "medseg", "adversarial", "eval",
-          "mesh")
+          "mesh", "weights")
 
 
 def main(argv=None) -> None:
@@ -3765,7 +4137,7 @@ def main(argv=None) -> None:
     name, count, smi = phase_device()
     phase_build()
     attn_rows = norm_rows = norm_launches = latent_rows = None
-    transformer_rows = medseg_rows = None
+    transformer_rows = medseg_rows = weights_rows = None
     attn_launches = {}
     walls = peaks = ()
     if "kernels" in phases:
@@ -3823,13 +4195,17 @@ def main(argv=None) -> None:
         phase_eval(smi, attn_rows)
     if "mesh" in phases:
         attn_launches.update(phase_mesh(smi))
+    if "weights" in phases:
+        weights_rows, weights_launches = phase_weights(smi)
+        attn_launches.update(weights_launches)
     print(f"[done] {'every phase' if len(phases) == len(PHASES) else phases} "
           f"passed in {time.perf_counter() - t0:.1f} s after the imports "
           f"[{smi}]")
     if len(set(phases)) == len(PHASES):
         print(json.dumps(kernels_line(attn_rows, attn_launches, norm_rows,
                                       norm_launches, latent_rows,
-                                      transformer_rows, medseg_rows)))
+                                      transformer_rows, medseg_rows,
+                                      weights_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

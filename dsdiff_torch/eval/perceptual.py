@@ -9,8 +9,8 @@ Port of the JAX package's ``eval/perceptual.py``:
 - ``LPIPS``: per-layer unit-normalised feature differences, the ``lin``
   heads (or, without them, the uniform mean), summed over the layers;
   ``load_vgg16_lpips`` builds it from a local torchvision VGG16 file
-  (``utils.torch_io``: .pth or .safetensors), with the lin heads from the
-  same file or another;
+  (``utils.torch_io``: .pth or .safetensors; ``map_vgg16``), with the lin
+  heads from the same file or another;
 - ``ResNet50Features`` / ``RadPerceptual``: the torchvision ResNet50 trunk
   (BatchNorm folded to a per-channel affine at load, ``map_resnet50``),
   its four layer outputs compared as LPIPS compares VGG's, on
@@ -47,7 +47,7 @@ from ..utils.device import resolve_device
 from ..utils.flax_bridge import flax_to_state_dict
 
 __all__ = ["PerceptualLoss", "LPIPS", "VGG16Features", "load_vgg16_lpips",
-           "map_lpips_lins", "ResNet50Features", "RadPerceptual",
+           "map_vgg16", "map_lpips_lins", "ResNet50Features", "RadPerceptual",
            "map_resnet50", "load_resnet50_perceptual", "fake_3d_distance"]
 
 # torchvision VGG16 ``features`` conv indices per block
@@ -97,6 +97,21 @@ class VGG16Features(nn.Module):
             if b < len(_VGG16_LAYOUT) - 1:
                 h = F.max_pool2d(h, 2, 2)
         return feats
+
+
+def map_vgg16(sd: dict) -> dict:
+    """A torchvision VGG16 state dict -> ``VGG16Features``'s Flax paths
+    (``params/conv{i}/kernel`` HWIO, ``params/conv{i}/bias``), as the JAX
+    package maps it; ``utils.torch_io.assign`` puts them on the module."""
+    out = {}
+    for _, idxs in _VGG16_LAYOUT:
+        for i in idxs:
+            for suf in ("weight", "bias"):
+                key = f"features.{i}.{suf}"
+                if key in sd:
+                    leaf, val = torch_io.to_flax(key, sd[key])
+                    out[f"params/conv{i}/{leaf}"] = val
+    return out
 
 
 def map_lpips_lins(sd: dict) -> list[torch.Tensor | None]:
@@ -151,16 +166,10 @@ def load_vgg16_lpips(vgg_path, lpips_path=None, device=None) -> LPIPS:
     dev = resolve_device(device)
     sd = torch_io.load_checkpoint(vgg_path)
     net = VGG16Features()
-    mapped = {}
-    for _, idxs in _VGG16_LAYOUT:
-        for i in idxs:
-            for leaf in ("weight", "bias"):
-                if f"features.{i}.{leaf}" in sd:
-                    mapped[f"conv{i}.{leaf}"] = sd[f"features.{i}.{leaf}"]
-    missing = sorted(set(net.state_dict()) - set(mapped))
+    state, missing, _ = torch_io.assign(net, map_vgg16(sd), make_fit=False)
     if missing:
         raise ValueError(f"VGG16 weights incomplete: missing {missing[:5]}")
-    net.load_state_dict(mapped)
+    net.load_state_dict(state)
     lins = map_lpips_lins(sd)
     if lpips_path:
         extra = map_lpips_lins(torch_io.load_checkpoint(lpips_path))
@@ -249,12 +258,14 @@ class ResNet50Features(nn.Module):
 
 
 def _fold_bn(sd, prefix: str, eps: float = 1e-5):
-    """A torch BatchNorm's (scale, shift) at inference, in f32."""
-    g, b, m, v = (torch.as_tensor(sd[f"{prefix}.{leaf}"], dtype=torch.float32)
+    """A torch BatchNorm's (scale, shift) at inference, in f32, folded with
+    numpy as the JAX package folds it (torch's CPU ``sqrt`` rounds some
+    values one ulp away from numpy's)."""
+    g, b, m, v = (np.asarray(sd[f"{prefix}.{leaf}"], np.float32)
                   for leaf in ("weight", "bias", "running_mean",
                                "running_var"))
-    scale = g / torch.sqrt(v + eps)
-    return scale, b - m * scale
+    scale = g / np.sqrt(v + eps)
+    return torch.from_numpy(scale), torch.from_numpy(b - m * scale)
 
 
 def map_resnet50(sd: dict) -> dict:

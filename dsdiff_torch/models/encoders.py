@@ -1,12 +1,16 @@
-"""Conditioning encoders: class embeddings and embedding noise augmentation.
+"""Conditioning encoders: class embeddings, CLIP wrappers, noise
+augmentation.
 
-Port of the JAX package's ``models/encoders.py`` without its CLIP wrappers
-(they need the ``transformers`` package and pretrained CLIP weights, which
-this repository does not hold; ROADMAP lists them):
+Port of the JAX package's ``models/encoders.py``:
 
 - ``ClassEmbedder``: label -> embedding, with train-time unconditional-class
   dropout (to the last class) for classifier-free guidance; the dropout
   mask is given, or drawn from a given generator.
+- ``CLIPTextEmbedder`` / ``CLIPImageEmbedder``: the FrozenCLIP /
+  FrozenOpenCLIPImageEmbedder capability from a local snapshot (no
+  download: a missing ``weights_path`` raises), through the port's own CLIP
+  towers and tokenizer (``models.clip``); on ``device``, the card by
+  default.
 - ``EmbeddingNoiseAugmentation``: q-sample diffusion noise on embedding
   vectors (unCLIP style), returning the noise level for 'adm' conditioning;
   the noise and the level are given, or drawn from a given generator.
@@ -19,9 +23,12 @@ from torch import nn
 
 from ..core import process
 from ..core.schedules import DiffusionSchedule
+from ..utils.device import resolve_device
+from .clip import CLIPTokenizer, load_clip_tower
 from .layers import timestep_embedding
 
-__all__ = ["ClassEmbedder", "EmbeddingNoiseAugmentation", "unclip_adm_cond"]
+__all__ = ["ClassEmbedder", "EmbeddingNoiseAugmentation", "CLIPTextEmbedder",
+           "CLIPImageEmbedder", "unclip_adm_cond"]
 
 
 class ClassEmbedder(nn.Module):
@@ -113,3 +120,49 @@ def unclip_adm_cond(emb: torch.Tensor, aug: EmbeddingNoiseAugmentation,
                               device=noisy.device) >= embedding_dropout
         noisy = noisy * keep.to(noisy.dtype)[:, None]
     return noisy
+
+
+def _require_snapshot(weights_path):
+    if not weights_path:
+        raise ValueError(
+            "CLIP encoders need a local weights snapshot (nothing is "
+            "downloaded); pass weights_path=<local dir>")
+    return weights_path
+
+
+class CLIPTextEmbedder:
+    """Frozen CLIP text encoder (FrozenCLIPEmbedder capability,
+    modules.py:92-140) from a local snapshot on ``device`` (default
+    ``"cuda"``). Returns the last hidden states [B, max_length, D] for
+    cross-attention conditioning."""
+
+    def __init__(self, weights_path: str, max_length: int = 77, device=None):
+        self.device = resolve_device(device)
+        path = _require_snapshot(weights_path)
+        self.tokenizer = CLIPTokenizer.from_pretrained(path)
+        self.model = load_clip_tower(path, "text", self.device)
+        self.max_length = max_length
+
+    def __call__(self, texts: list[str]) -> torch.Tensor:
+        ids = self.tokenizer(texts, self.max_length).to(self.device)
+        with torch.inference_mode():
+            return self.model(ids)
+
+
+class CLIPImageEmbedder:
+    """Frozen CLIP image encoder (FrozenOpenCLIPImageEmbedder capability,
+    modules.py:240-320) from a local snapshot on ``device`` (default
+    ``"cuda"``). Returns pooled image embeddings [B, D] for 'adm'
+    conditioning."""
+
+    def __init__(self, weights_path: str, device=None):
+        self.device = resolve_device(device)
+        self.model = load_clip_tower(_require_snapshot(weights_path), "vision",
+                                     self.device)
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, 3] in [-1, 1], handed to the tower as NCHW
+        pixels without CLIP's normalisation, as the JAX wrapper does."""
+        pixels = images.to(self.device, torch.float32).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            return self.model(pixels)

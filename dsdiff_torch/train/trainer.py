@@ -75,6 +75,7 @@ from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import flax_to_state_dict, train_state_from_flax
 from ..utils.logging import KVLogger, journal
+from ..utils.torch_io import load_sd_vae
 from . import schedule_sampler as ss
 from .checkpoints import CheckpointManager
 from .config import Config
@@ -405,21 +406,26 @@ class Trainer:
 
     def _build_first_stage(self):
         """The frozen ``AutoencoderKL`` of ``first_stage.params`` behind a
-        ``LatentAdapter``: weights from the config's seed, or the raw (not
-        EMA) parameters of the latest checkpoint under ``vae_checkpoint``,
-        a directory ``VaeTrainer`` wrote (its ``checkpoint/``). A file there
-        (an SD VAE checkpoint) is refused."""
+        ``LatentAdapter``: weights from the config's seed, then, where
+        ``vae_checkpoint`` names a file (an SD / HF VAE checkpoint:
+        safetensors or a zip pickle), that file key-mapped and shape-fit
+        onto it (``utils.torch_io.load_sd_vae``; leaves the file lacks keep
+        the seed's values), or where it names a directory ``VaeTrainer``
+        wrote (its ``checkpoint/``), the raw (not EMA) parameters of its
+        latest checkpoint."""
         from .latent import LatentAdapter
         from .vae_loop import build_vae
 
         cfg = self.cfg
         vae = build_vae(cfg, self.device)
         ckpt_path = cfg.get("vae_checkpoint")
-        if ckpt_path:
-            if Path(ckpt_path).is_file():
-                raise NotImplementedError(
-                    "an SD VAE checkpoint file as vae_checkpoint is not "
-                    "ported yet (ROADMAP A18, utils/torch_io.load_sd_vae)")
+        if ckpt_path and Path(ckpt_path).is_file():
+            state, missing, _ = load_sd_vae(ckpt_path, vae)
+            vae.load_state_dict(state)
+            if self.workdir is not None:
+                self._journal(f"vae init from {ckpt_path}: "
+                              f"{len(missing)} params kept fresh")
+        elif ckpt_path:
             vcm = CheckpointManager(ckpt_path, keep_best=False)
             vae.load_state_dict(vcm.restore_params(vae, ema=False))
             if self.workdir is not None:

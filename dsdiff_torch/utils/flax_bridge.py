@@ -50,6 +50,12 @@ any conv kernel does. The ResNet50 trunk's folded ``_AffineBN``
 ``train_state_from_flax`` maps a whole JAX training state (params, EMA,
 AdamW moments and counts) onto the model's keys, for ``TrainState.load``,
 so that a run trained with the JAX package continues in the port.
+
+``flax_leaves`` goes the other way: a model's state dict as the flat
+``{"params/a/b/leaf": array}`` (``batch_stats/...`` for BatchNorm's
+statistics) of the Flax module it mirrors, each leaf in the Flax layout.
+``utils.torch_io.assign`` fits published weights in that layout, as the
+JAX package does, before ``flax_to_state_dict`` maps them back.
 """
 from __future__ import annotations
 
@@ -62,7 +68,7 @@ import torch
 from torch import nn
 
 __all__ = ["flatten_tree", "flax_to_state_dict", "train_state_from_flax",
-           "random_params"]
+           "flax_leaves", "random_params"]
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -160,6 +166,52 @@ def flax_to_state_dict(tree: Mapping, model: nn.Module) -> dict[str, torch.Tenso
             f"Flax tree does not match the model: missing {missing[:8]} "
             f"({len(missing)}), unused {sorted(unused)[:8]} ({len(unused)})"
         )
+    return out
+
+
+def _leaf_to_flax(val: np.ndarray, module: nn.Module, name: str) -> tuple:
+    """(Flax leaf name, array in the Flax layout) of the torch entry
+    ``name`` of ``module``: the inverse of ``_leaf_to_torch``."""
+    if name == "running_mean":
+        return "mean", val
+    if name == "running_var":
+        return "var", val
+    if name in ("bias", "pool_query"):
+        return name, val
+    if name == "complex_weight":  # [C, H, W', 2] -> [H, W', C, 2]
+        return name, val.transpose(1, 2, 0, 3)
+    if name != "weight":
+        raise ValueError(f"no Flax leaf for '{name}'")
+    if isinstance(module, nn.Embedding):
+        return "embedding", val
+    if val.ndim == 1:  # a norm's (or a folded BatchNorm's) scale
+        return "scale", val
+    if isinstance(module, nn.ConvTranspose2d):  # [I, O, kh, kw] flipped
+        return "kernel", val.transpose(2, 3, 0, 1)[::-1, ::-1]
+    layouts = {2: (1, 0), 3: (0, 2, 1), 4: (2, 3, 1, 0), 5: (0, 3, 4, 2, 1)}
+    if val.ndim not in layouts:
+        raise ValueError(f"weight of rank {val.ndim} has no Flax layout")
+    return "kernel", val.transpose(layouts[val.ndim])
+
+
+def flax_leaves(model: nn.Module, state: Mapping | None = None
+                ) -> dict[str, np.ndarray]:
+    """``state`` (default: ``model.state_dict()``), keyed as ``model``'s
+    state dict, as flat Flax paths ``params/a/b/leaf`` (``batch_stats/...``
+    for a BatchNorm's running statistics), each leaf in the Flax layout,
+    in f32 on the host. BatchNorm's step counter has no Flax leaf and is
+    left out."""
+    state = model.state_dict() if state is None else state
+    out = {}
+    for key, val in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        *mods, name = key.split(".")
+        arr = torch.as_tensor(val).detach().cpu().float().numpy()
+        leaf, arr = _leaf_to_flax(arr, model.get_submodule(".".join(mods)),
+                                  name)
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        out["/".join([collection, *mods, leaf])] = np.ascontiguousarray(arr)
     return out
 
 

@@ -1,7 +1,8 @@
-"""The port stands alone: it imports no JAX, Flax or dsdiff_tpu, and no
-package beyond torch, numpy and scipy at import time (PyYAML, h5py, cv2,
-matplotlib, sklearn are imported inside the functions that use them), and
-neither does chip_smoke.py."""
+"""The port stands alone: it imports no JAX, Flax or dsdiff_tpu, none of
+``transformers``, ``regex``, ``ftfy`` or ``safetensors`` (the card's
+machine has none of them), and no package beyond torch, numpy and scipy at
+import time (PyYAML, h5py, cv2, matplotlib, sklearn are imported inside the
+functions that use them), and neither does chip_smoke.py."""
 import pkgutil
 import re
 import subprocess
@@ -20,7 +21,7 @@ PORT = ROOT / "dsdiff_torch"
 _IMPORT_ALL = """
 import sys
 BLOCKED = ("jax", "flax", "dsdiff_tpu", "yaml", "h5py", "cv2", "matplotlib",
-           "sklearn")
+           "sklearn", "transformers", "regex", "ftfy", "safetensors")
 for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 import importlib, pkgutil
@@ -82,6 +83,14 @@ EVAL_MODULES = (
     "dsdiff_torch.cli.evaluate",
 )
 
+# the last modules: published-layout weight import, preprocessing and the
+# nnU-Net export, the CLIP towers
+WEIGHTS_MODULES = (
+    "dsdiff_torch.utils.inventories", "dsdiff_torch.cli.import_weights",
+    "dsdiff_torch.data.preprocess", "dsdiff_torch.data.nnunet_export",
+    "dsdiff_torch.cli.preprocess", "dsdiff_torch.models.clip",
+)
+
 
 def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     out = subprocess.run(
@@ -95,13 +104,14 @@ def test_port_and_smoke_import_without_jax_flax_yaml_or_reference():
     assert int(count) == n_modules >= 35
     assert (set(SERVING_MODULES) | set(FIT_MODULES) | set(LATENT_MODULES)
             | set(RUN_MODE_MODULES) | set(TRANSFORMER_MODULES)
-            | set(EVAL_MODULES) <= set(names))
+            | set(EVAL_MODULES) | set(WEIGHTS_MODULES) <= set(names))
 
 
 def test_no_port_file_mentions_the_reference_package_or_jax():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
     assert len(files) >= 20
-    imports = re.compile(r"^\s*(import|from)\s+(jax|flax|dsdiff_tpu)\b", re.M)
+    imports = re.compile(r"^\s*(import|from)\s+(jax|flax|dsdiff_tpu|"
+                         r"transformers|regex|ftfy|safetensors)\b", re.M)
     for path in files:
         text = path.read_text()
         assert "dsdiff_tpu" not in text, path.relative_to(ROOT)
@@ -111,6 +121,21 @@ def test_no_port_file_mentions_the_reference_package_or_jax():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert imports.search(smoke) is None
     assert "import jax" not in smoke and "import yaml" not in smoke
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    """The .py / .json file lists of the two packages differ only by the
+    port's own modules: the kernels' build, device resolution, the Flax
+    bridge and the CLIP towers (which the JAX package takes from
+    ``transformers``)."""
+    def files(pkg):
+        return {p.relative_to(pkg).as_posix() for p in pkg.rglob("*")
+                if p.suffix in (".py", ".json") and "_build" not in p.parts}
+
+    jax_files, port_files = files(ROOT / "dsdiff_tpu"), files(PORT)
+    assert not jax_files - port_files
+    assert port_files - jax_files == {"ops/_build.py", "utils/device.py",
+                                      "utils/flax_bridge.py", "models/clip.py"}
 
 
 @pytest.mark.gpu

@@ -237,9 +237,11 @@ def test_vae_trainer_checkpoint_serves_a_latent_trainer(tmp_path):
 
 
 def test_vae_checkpoint_file_is_refused(tmp_path):
+    """An SD VAE file as ``vae_checkpoint`` is read (test_torch_sd_vae_file.py);
+    a file in no checkpoint format is refused."""
     path = tmp_path / "sd_vae.safetensors"
     path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="unrecognized checkpoint format"):
         Trainer(_cfg(vae_checkpoint=str(path)), device="cpu")
 
 

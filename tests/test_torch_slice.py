@@ -168,10 +168,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     palette = Trainer(dict(tiny_cfg(), net_mode="palette"), device="cpu",
                       mesh=Mesh(2, 1, distributed=True))
     assert palette.palette and palette.ranks == 2
-    # net_mode latent is ported; an SD VAE file as its first stage is not
+    # net_mode latent is ported, and an SD VAE file as its first stage
+    # (test_torch_sd_vae_file.py); a file in no checkpoint format is refused
     sd_vae = tmp_path / "sd_vae.safetensors"
     sd_vae.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="unrecognized checkpoint format"):
         Trainer(dict(tiny_cfg(), net_mode="latent", vae_checkpoint=str(sd_vae),
                      first_stage={"params": {"ch": 8, "ch_mult": [1, 2]}}),
                 device="cpu")
