@@ -298,6 +298,11 @@ FAMILY_TRAIN_STEPS = 3
 FAMILY_KERNEL_BATCHES = (SERVE_BATCH, 8)
 HEAD_DIM_HELD = [("DiT-XL/8 at 256²", (1024, 16, 72)),
                  ("D = 96", (1024, 8, 96)), ("D = 256", (1024, 3, 256))]
+# bf16 head dims above 64 that no shipped config launches, timed at batch 4
+# beside the families' D = 192 and the classifier's D = 128: DiT-XL/8's
+# 16 heads of 72 at 256² and the route's widest head, 256
+WIDE_HEAD_ROWS = [("DiT-XL/8 at 256²", (1024, 16, 72)),
+                  ("D = 256", (1024, 4, 256))]
 
 # the latent pipeline: the KL-VAE of configs/autoencoder_kl.yaml, whose
 # bottleneck attention (encoder and decoder, one call each) is one head over
@@ -601,6 +606,19 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
     bufs, views = _attention_inputs(gen, batch, N, H, D, dtype, M, layout)
     qkv = views(*bufs)
     load = _load(*qkv)
+    route = fa.route(*qkv)
+    plan = ""
+    if dtype == torch.bfloat16:
+        # the library's launch is the one the wrapper describes
+        vec = fa._vec(*qkv, tuple(x.stride() for x in qkv))
+        want_plan = fa.bf16_plan(batch, N, H, D, vec)
+        got_plan = fa.native_bf16_plan(batch, N, H, D, vec)
+        check(got_plan == {k: want_plan[k] for k in got_plan},
+              f"flash_attention {[batch, N, H, D]}: the library plans "
+              f"{got_plan}, the wrapper {want_plan}")
+        plan = (f", {want_plan['q_rows']} Q rows x {want_plan['stages']} "
+                f"stage(s), {want_plan['threads']} threads, "
+                f"{want_plan['smem_bytes']} B")
     got = fa.flash_attention(*qkv)
     torch.cuda.synchronize()
     want = fa.reference_attention(*qkv)
@@ -623,14 +641,14 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
     bound_ms, bound_by = attention_bound(batch, N, H, D, dtype, M)
     row = dict(shape=[batch, N, H, D], keys=M, layout=layout, load=load,
                dtype=str(dtype).split(".")[1],
-               route=fa.ROUTES[dtype], calls_per_forward=calls,
+               route=route, calls_per_forward=calls,
                max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms,
                plain_ms=plain_ms, library_ms=lib_ms,
                library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / graph_ms)
     keys = f" x M={M}" if M != N else ""
     print(f"[kernel] flash_attention {row['shape']}{keys} {row['dtype']} "
-          f"({row['route']}, {layout}, {load}): max_abs_err {err:.3e} "
+          f"({route}{plan}, {layout}, {load}): max_abs_err {err:.3e} "
           f"(tol {tol:.0e}), "
           f"kernel {ms:.5f} ms (graph {graph_ms:.5f}), plain "
           f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (graph "
@@ -645,8 +663,11 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
 def phase_kernels(card: str):
     """Kernel vs plain at the flagship attention shapes, with the calls of
     one flagship forward, and at the other families' (head dims 192 and 64),
-    with ``families``: {family: calls of one forward}; returns the rows.
-    bf16 runs the kernel's wgmma route, f32 its tf32x3 route."""
+    with ``families``: {family: calls of one forward}, then bf16 at
+    WIDE_HEAD_ROWS (no config launches them: 0 calls); returns the rows.
+    bf16 runs the kernel's wgmma route (its warp-specialised kernel above
+    D = 64: each row names the launch, checked against the library's own
+    plan), f32 its tf32x3 route."""
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -668,6 +689,10 @@ def phase_kernels(card: str):
             for (N, H, D), families in family_shapes.items():
                 row = _attention_row(gen, batch, N, H, D, dtype, None, card)
                 rows.append(dict(row, families=families))
+    for name, (N, H, D) in WIDE_HEAD_ROWS:
+        row = _attention_row(gen, SERVE_BATCH, N, H, D, torch.bfloat16, None,
+                             card)
+        rows.append(dict(row, families={name: 0}))
     # error only: the adaptive request's shapes (partial tiles in every
     # one), the other configs' (N mostly not a multiple of the 64-row
     # tile, 32-channel heads) and the other head dims the kernel takes
@@ -1506,8 +1531,12 @@ def _family_parity(cfg, calls: int, tag: str = "families") -> None:
         scale = out_plain.abs().max().item()
         tol = rtol * max(1.0, scale)
         dname = str(dtype).split(".")[1]
+        shapes = {m: sh for m, _, sh in FAMILIES}.get(net_mode, [])
+        route = (dtype == torch.bfloat16 and ", ".join(sorted(
+            {fa.bf16_plan(PARITY_BATCH, N, H, D)["kernel"]
+             for N, H, D, _ in shapes}))) or fa.ROUTES[dtype]
         print(f"[{tag}] {net_mode} {type(model).__name__} {IMAGE}² batch "
-              f"{PARITY_BATCH} {dname} ({fa.ROUTES[dtype]} route): "
+              f"{PARITY_BATCH} {dname} ({route} route): "
               f"max_abs_err {err:.3e} (tol {tol:.3e}, max |out| "
               f"{scale:.3f}), {launched} kernel launches")
         check(torch.isfinite(out_kernel).all().item(),
@@ -2664,6 +2693,20 @@ def phase_guided(smi: str) -> dict:
     check(fwd == CLASSIFIER_CALLS and bwd == 0,
           f"guided: classifier launches {fwd} forward, {bwd} backward")
     check(math.isfinite(gmax) and gmax > 0, f"guided: gradient {gmax}")
+    # the classifier's full-width bf16 forward, kernel against plain
+    # attention (its [4, 1024, 4, 128] calls take the warp-specialised route)
+    with torch.inference_mode():
+        got = clf(x_T, t_model).float()
+        want = _with_plain_attention(lambda: clf(x_T, t_model)).float()
+    err = (got - want).abs().max().item()
+    tol = MODEL_BF16_RTOL * max(1.0, want.abs().max().item())
+    kernels = sorted({fa.bf16_plan(SERVE_BATCH, N, H, D)["kernel"]
+                      for N, H, D, _ in CLASSIFIER_ATTENTION})
+    print(f"[guided] EncoderUNet bf16 forward ({', '.join(kernels)}) vs "
+          f"plain attention: max_abs_err {err:.3e} (tol {tol:.3e}, max "
+          f"|logits| {want.abs().max().item():.3f})")
+    check(torch.isfinite(got).all().item(), "guided: non-finite logits")
+    check(err <= tol, f"guided: classifier bf16 parity error {err} over {tol}")
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = 0  # count only the main path from here

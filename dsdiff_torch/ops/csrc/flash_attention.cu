@@ -12,7 +12,65 @@
 //
 // Two routes, chosen by dtype in the C entry at the bottom:
 //
-// bf16: tensor cores through wgmma, K/V tiles through TMA (attn_fwd_wgmma).
+// bf16: tensor cores through wgmma, K/V tiles through TMA. Two kernels, the
+// C entry's bf16_plan picking one: attn_fwd_ws for 64 < D <= 256 where TMA
+// describes the layout, attn_fwd_wgmma for everything else.
+//
+// attn_fwd_ws (64 < D <= 256, TMA layouts): one block keeps the tensor
+// cores busy by itself.
+// - 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of a
+//   128-row Q tile and both reading every K/V tile, so a K/V byte brought
+//   into shared memory serves twice the Q rows it served in attn_fwd_wgmma;
+//   warpgroup 2 produces: one thread issues every TMA load, and the
+//   warpgroup gives its registers to the consumers (setmaxnreg 24 / 240:
+//   O takes 32 * NA f32 registers a consumer thread, 96 at D=192, 128 at
+//   256, beside S's 32, P's 16 in bf16 and, up to D=192, Q's 16 * NA).
+// - Q is loaded once as NA boxes of 128 rows (16 KB an atom; each consumer's
+//   64 rows are 8 KB into it). Up to D=192 each consumer then holds its
+//   rows as the A fragments of QK^T (ldmatrix from the swizzled tile) and
+//   QK^T reads only K from shared memory: with both operands there, an
+//   m64n64k16 product reads 4 KB for 32 cycles of tensor work, the SM's
+//   whole shared-memory bandwidth.
+// - K and V have rings of their own, ws_stages(NA) = 2 stages each, with a
+//   full mbarrier (TMA's bytes) and an empty one (an arrival from each of
+//   the 8 consumer warps) a stage. The producer loads K_0, then K_(j+1)
+//   ahead of V_j, each as soon as its stage is released, so the loads of
+//   tiles j+1 and j+2 overlap the products of tile j. Shared memory: Q + 2 K
+//   + 2 V tiles = 6 * NA atoms: 97 KB at D <= 128, 145 KB at 192, 193 KB at
+//   256 (under 232,448 B, one block an SM).
+// - Softmax under the tensor cores: a consumer issues S_j = Q K_j^T and
+//   O += P_(j-1) V_(j-1) as two wgmma groups, waits for the first only
+//   (wait_group 1), releases K_j and runs tile j's online softmax in place
+//   on S (f32) while PV runs; the next iteration waits for PV, releases
+//   V_(j-1), rescales O and packs P_j to bf16. Nothing PV reads is written
+//   while it runs (ptxas would serialise the products, C7513), and the
+//   wait for PV sits behind the loop's back edge: within one block ptxas
+//   hoists it above the softmax to interleave the rescale and the pack.
+// - The two consumers take turns to issue their products (WS_PINGPONG,
+//   named barriers 1 and 2), so that one's softmax runs under the other's
+//   products.
+// - PV is one m64n(64 NA)k16 product a k-step, over every atom of V (the
+//   descriptor's leading byte offset steps the atoms), QK^T 4 * NA
+//   m64n64k16 products, or 5 up to D=80 (DiT-XL's 72: 8 would multiply 48
+//   columns of zeros).
+// - The running max moves only when a row of the warp would pass it by more
+//   than 2^8 (WS_RESCALE_LOG2): P stays below 256, and O is rescaled on
+//   the few tiles where the max jumps, not on every tile.
+// - Grid (ceil(N/128), B*H), no persistent scheduler: at [8,1024,4,192]
+//   256 blocks fill 1.94 waves of 132 SMs (the last 124/132 full), at
+//   [4,1024,4,192] and [4,1024,4,128] 128 blocks fill one.
+// - scripts/torch_attention_variants.py times each of these choices
+//   against its alternative (--wide), and --clock prints the cycles of
+//   each phase of a key tile.
+// - Epilogue: O / l in bf16 into the warpgroup's half of the Q tile (free by
+//   then) in the swizzled layout, then TMA stores of whole rows (the
+//   threads' own 4-byte stores, 16 bytes a row and sector, took 14-19 % of
+//   a block's cycles at D=192); for D % 8 != 0 no tensor map describes o
+//   and the threads store it as attn_fwd_wgmma does.
+// - The products' fragments and the masking of keys past M are
+//   attn_fwd_wgmma's (below), per consumer warpgroup.
+//
+// attn_fwd_wgmma (D <= 64, D > 256, and layouts no tensor map describes):
 // - One warpgroup (128 threads) per 64-row Q tile; grid (ceil(N/64), B*H).
 // - One TMA tensor map per operand per launch, over the view's own shape and
 //   strides as a 4-D tensor (D, H, rows, B), box (64, 1, 64, 1), 128-byte
@@ -27,7 +85,8 @@
 //   done with it. At D <= 64 the ring has two stages, so the load of tile j+1
 //   overlaps the products of tile j, and shared memory stays at 41 KB: up to
 //   five blocks share an SM (scripts/torch_attention_variants.py times a
-//   4-stage ring). Above 64 it has one stage: the tiles grow with NA (73 KB
+//   4-stage ring). Above 64 (where this kernel takes only the thread-loaded
+//   layouts and D > 256) it has one stage: the tiles grow with NA (73 KB
 //   at D=192, 97 KB at 256), and the blocks that share an SM (three at 192,
 //   two at 256) hide each other's loads; two stages would leave one block.
 // - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
@@ -305,6 +364,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       "}\n"
       : ACC32
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (+)= A B, m64n64k16, A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : ACC32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
 #undef ACC32
@@ -644,14 +719,14 @@ EncodeTiled encode_tiled() {
 }
 
 // [B, rows, H, D] bf16 with element strides s -> 4-D map (D, H, rows, B),
-// box (64, 1, 64, 1), 128-byte swizzle, zero fill out of bounds
+// box (64, 1, box_rows, 1), 128-byte swizzle, zero fill out of bounds
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-                int rows, int H, int D, Strides s) {
+                int rows, int H, int D, Strides s, int box_rows = TILE) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.n * 2,
                                  (cuuint64_t)s.b * 2};
-  const cuuint32_t box[4] = {64, 1, TILE, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -665,6 +740,10 @@ struct WgmmaArgs {
   CUtensorMap tq, tk, tv;
   Operand q, k, v;
   int vec;
+  // attn_fwd_ws: o's map (contiguous [B, N, H, D], box (64, 1, 64, 1)) where
+  // D % 8 == 0 makes its strides 16-byte multiples, else o_tma = 0
+  CUtensorMap to;
+  int o_tma;
 };
 
 template <int NA, int KSTEPS, int NV, bool TMA>
@@ -690,6 +769,556 @@ int launch_wgmma(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
                                                  scale_log2, st);
   return launch_wgmma_as<NA, KSTEPS, NV, false>(a, o, B, H, N, M, D, os,
                                                 scale_log2, st);
+}
+
+// ---------------------------------------------------------------------------
+// bf16, 64 < D <= 256, TMA layouts: warp-specialised (attn_fwd_ws)
+// ---------------------------------------------------------------------------
+
+constexpr int WS_CONSUMERS = 2;                    // warpgroups, 64 Q rows each
+constexpr int WS_ROWS = WS_CONSUMERS * TILE;       // Q rows a block
+constexpr int WS_THREADS = (WS_CONSUMERS + 1) * WG;  // + the producer's
+// K and V ring depth (each ring has its own stages) for a tile NA atoms wide
+__host__ __device__ constexpr int ws_stages(int na) { return 2; }
+// Q (WS_ROWS rows of NA atoms) + the rings' K and V tiles, + 1024 to align
+__host__ __device__ constexpr int ws_smem_bytes(int na) {
+  return (WS_CONSUMERS + 2 * ws_stages(na)) * na * ATOM_BYTES + 1024;
+}
+static_assert(ws_smem_bytes(4) <= 232448, "D=256 tiles above the block limit");
+// whether the two consumer warpgroups take turns to issue their products
+// (named barriers 1 and 2), so that one's softmax runs under the other's
+constexpr bool WS_PINGPONG = true;
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// whether a consumer holds its 64 rows of Q in registers (the A fragments
+// of QK^T, 16 registers an atom: 48 at D=192) rather than reading them
+// from shared memory at every product: an m64n64k16 product with both
+// operands in shared memory reads 4 KB for 32 cycles of tensor work, the
+// SM's whole shared-memory bandwidth. At D=256 O's 128 registers leave no
+// room for Q's 64.
+__host__ __device__ constexpr bool ws_q_regs(int na) { return na <= 3; }
+
+// Q's A fragments for k-step kk from the 128-byte-swizzled Q tile (atoms
+// 16 KB apart, this warpgroup's 64 rows at q_rows): ldmatrix.x4, lane l
+// giving row 8 (l / 8 % 2) + l % 8 of the warp's 16 and 16-byte chunk
+// 2 (kk % 4) + l / 16 of atom kk / 4, returns a0..a3 as wgmma reads them
+__device__ __forceinline__ void ws_q_frag(uint32_t q_rows, int warp, int lane,
+                                          int kk, uint32_t (&f)[4]) {
+  const int row = 16 * warp + 8 * (lane / 8 % 2) + lane % 8;
+  const int chunk = 2 * (kk % 4) + lane / 16;
+  const uint32_t addr = q_rows + (kk / 4) * (WS_CONSUMERS * ATOM_BYTES) +
+                        row * 128 + ((chunk ^ (row % 8)) << 4);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// S = Q K^T for one warpgroup's 64 rows, K's atoms 64 rows (8 KB) apart, a
+// k-step of 16 columns 32 bytes inside an atom; Q from the registers qf
+// where ws_q_regs(NA), else from shared memory at q_desc (atoms 16 KB
+// apart)
+template <int NA, int KSTEPS>
+__device__ __forceinline__ void ws_qk(
+    float (&sc)[32], const uint32_t (&qf)[ws_q_regs(NA) ? KSTEPS : 1][4],
+    uint64_t q_desc, uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint64_t k_step = k_desc + 512 * (kk / 4) + 2 * (kk % 4);
+    if constexpr (ws_q_regs(NA))
+      wgmma_rs_kmajor(sc, qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], k_step,
+                      kk);
+    else
+      wgmma_ss(sc, q_desc + 1024 * (kk / 4) + 2 * (kk % 4), k_step, kk);
+  }
+}
+
+// d += A B, m64n(64 NA)k16: A in registers, B MN-major in shared memory
+// with its 64-column atoms ATOM_BYTES apart (the descriptor's leading byte
+// offset), d the NA atoms' accumulators in a row (the fragment of column
+// 64a + x is acc[a]'s of column x)
+template <int NA>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[NA][32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b);
+#define ACC_ATOM(a)                                                         \
+  "+f"(d[a][0]), "+f"(d[a][1]), "+f"(d[a][2]), "+f"(d[a][3]),              \
+      "+f"(d[a][4]), "+f"(d[a][5]), "+f"(d[a][6]), "+f"(d[a][7]),          \
+      "+f"(d[a][8]), "+f"(d[a][9]), "+f"(d[a][10]), "+f"(d[a][11]),        \
+      "+f"(d[a][12]), "+f"(d[a][13]), "+f"(d[a][14]), "+f"(d[a][15]),      \
+      "+f"(d[a][16]), "+f"(d[a][17]), "+f"(d[a][18]), "+f"(d[a][19]),      \
+      "+f"(d[a][20]), "+f"(d[a][21]), "+f"(d[a][22]), "+f"(d[a][23]),      \
+      "+f"(d[a][24]), "+f"(d[a][25]), "+f"(d[a][26]), "+f"(d[a][27]),      \
+      "+f"(d[a][28]), "+f"(d[a][29]), "+f"(d[a][30]), "+f"(d[a][31])
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<2>(float (&d)[2][32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC_ATOM(0), ACC_ATOM(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<3>(float (&d)[3][32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : ACC_ATOM(0), ACC_ATOM(1), ACC_ATOM(2)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_wide<4>(float (&d)[4][32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC_ATOM(0), ACC_ATOM(1), ACC_ATOM(2), ACC_ATOM(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef ACC_ATOM
+
+// O += P V: one m64n(64 NA)k16 product a k-step of 16 keys over every atom
+// of V (MN-major), P the register A operand
+template <int NA>
+__device__ __forceinline__ void ws_pv(float (&acc)[NA][32],
+                                      const uint32_t (&p)[16],
+                                      uint32_t v_tile) {
+  const uint64_t v_desc = make_desc(v_tile, ATOM_BYTES, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs_wide<NA>(acc, a, v_desc + 128 * kk);
+  }
+}
+
+// The running max moves only when a row of the warp would pass it by more
+// than this (log2 units): until then P = 2^(s - m_run) stays below 2^8,
+// which bf16 and the f32 sums hold with the same relative precision, and O
+// and the row sums need no rescale (softmax is the same for any max
+// subtracted)
+constexpr float WS_RESCALE_LOG2 = 8.f;
+
+// Key tile j's scores into P, in place and in f32, by the online softmax:
+// keys past M get -inf; where a row of the warp passes its running max by
+// more than WS_RESCALE_LOG2 (always on the first tile), every row of the
+// warp takes its new max, the row sums are rescaled and alpha is the factor
+// O must be rescaled by before tile j's product is added to it; returns
+// whether that happened (the same in every lane). P is packed to bf16
+// (ws_pack) only once no product is in flight: a register written while PV
+// still reads the other P buffer makes ptxas serialise the wgmma pipeline
+// (C7513).
+__device__ __forceinline__ bool ws_softmax(float (&sc)[32], int j, int M,
+                                           int c, float scale_log2,
+                                           float (&m_run)[2],
+                                           float (&l_run)[2],
+                                           float (&alpha)[2]) {
+  if ((j + 1) * TILE > M) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (j * TILE + 8 * i + c + e >= M)
+          sc[4 * i + e] = sc[4 * i + 2 + e] = -INFINITY;
+  }
+  float mt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      mt[r] = fmaxf(mt[r], fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    mt[r] *= scale_log2;
+  }
+  const bool rescale =
+      __any_sync(0xffffffffu, mt[0] > m_run[0] + WS_RESCALE_LOG2 ||
+                                  mt[1] > m_run[1] + WS_RESCALE_LOG2);
+  if (rescale) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mt[r]);
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p0 = exp2_ftz(fmaf(sc[4 * i + 2 * r], scale_log2, -m_run[r]));
+      const float p1 =
+          exp2_ftz(fmaf(sc[4 * i + 2 * r + 1], scale_log2, -m_run[r]));
+      l_run[r] += p0 + p1;
+      sc[4 * i + 2 * r] = p0;
+      sc[4 * i + 2 * r + 1] = p1;
+    }
+  return rescale;
+}
+
+// O's rows r = 0 (g) and 1 (g + 8) times alpha[r]
+template <int NA>
+__device__ __forceinline__ void ws_rescale(float (&acc)[NA][32],
+                                           const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[a][i] *= alpha[(i / 2) % 2];
+}
+
+// P (in sc) to bf16 A fragments: p[4kk..4kk+3] for keys 16kk..16kk+15
+__device__ __forceinline__ void ws_pack(const float (&sc)[32],
+                                        uint32_t (&p)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// Warp-specialised block of WS_THREADS: warpgroups 0 and 1 consume (rows
+// 64w..64w+63 of the 128-row Q tile each, sharing every K/V tile), warpgroup
+// 2 produces (one thread issues every TMA load). K and V have rings of their
+// own, each stage with a full mbarrier (TMA's bytes) and an empty one (one
+// arrival per consumer warp). A consumer issues S_j = Q K_j^T and
+// O += P_(j-1) V_(j-1) together, waits for S_j only and runs tile j's
+// softmax in place on S while the tensor cores finish PV; the next
+// iteration waits for PV, rescales O and packs P_j.
+template <int NA, int KSTEPS>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+attn_fwd_ws(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap to, int o_tma,
+            __nv_bfloat16* __restrict__ o, int H, int N, int M, int D,
+            Strides ost, float scale_log2) {
+  constexpr int STAGES = ws_stages(NA);
+  constexpr int KV_BYTES = NA * ATOM_BYTES;  // a K or V tile; Q is two
+  static_assert(4 * NA - 4 < KSTEPS && KSTEPS <= 4 * NA,
+                "k-steps reach into the last atom");
+  extern __shared__ uint8_t smem_raw[];
+  // Q, then per stage of each ring a full and an empty barrier
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_smem = base;
+  const auto k_smem = [&](int s) {
+    return base + (WS_CONSUMERS + s) * KV_BYTES;
+  };
+  const auto v_smem = [&](int s) {
+    return base + (WS_CONSUMERS + STAGES + s) * KV_BYTES;
+  };
+  const uint32_t q_full = smem_u32(bars);
+  const auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  const auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  const auto k_empty = [&](int s) {
+    return q_full + 8u * (1 + 2 * STAGES + s);
+  };
+  const auto v_empty = [&](int s) {
+    return q_full + 8u * (1 + 3 * STAGES + s);
+  };
+
+  const int wg = threadIdx.x / WG;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int n0 = blockIdx.x * WS_ROWS;
+  const int ntiles = (M + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * WS_CONSUMERS);
+      mbar_init(v_empty(s), 4 * WS_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WS_CONSUMERS) {
+    // producer: K_0, then K_(j+1) ahead of V_j; a stage is refilled once
+    // every consumer warp has released it (the first round passes at once)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == WS_CONSUMERS * WG) {
+      mbar_expect_tx(q_full, WS_CONSUMERS * KV_BYTES);
+      for (int a = 0; a < NA; ++a)  // one 128-row box an atom
+        tma_load(q_smem + a * WS_CONSUMERS * ATOM_BYTES, &tq, q_full, 64 * a,
+                 h, n0, b);
+      for (int j = 0; j <= ntiles; ++j) {
+        if (j < ntiles) {
+          const int s = j % STAGES;
+          mbar_wait(k_empty(s), ((j / STAGES) & 1) ^ 1);
+          mbar_expect_tx(k_full(s), KV_BYTES);
+          tma_load_tile(k_smem(s), &tk, k_full(s), 0, NA, h, j * TILE, b);
+        }
+        if (j > 0) {
+          const int i = j - 1, s = i % STAGES;
+          mbar_wait(v_empty(s), ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(v_full(s), KV_BYTES);
+          tma_load_tile(v_smem(s), &tv, v_full(s), 0, NA, h, i * TILE, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int c = 2 * (lane % 4);
+    // with WS_PINGPONG, warpgroup w issues its products after bar.sync on
+    // barrier 1 + w and hands the turn over by arriving on the other's
+    const auto turn_wait = [&] {
+      if constexpr (WS_PINGPONG) named_sync(1 + wg, WS_CONSUMERS * WG);
+    };
+    const auto turn_pass = [&] {
+      if constexpr (WS_PINGPONG) named_arrive(2 - wg, WS_CONSUMERS * WG);
+    };
+    if (WS_PINGPONG && wg == 1) named_arrive(1, WS_CONSUMERS * WG);
+
+    float acc[NA][32], sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = 0.f;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) acc[a][i] = 0.f;
+    }
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float alpha[2];
+    bool rescale;    // whether O takes alpha before the next PV
+    uint32_t p[16];  // P in bf16, the A operand of PV
+    // this warpgroup's 64 rows: 8 KB into each 16 KB atom of the Q tile
+    const uint64_t q_desc = make_desc(q_smem + wg * ATOM_BYTES, 16, 1024);
+    mbar_wait(q_full, 0);
+    uint32_t qf[ws_q_regs(NA) ? KSTEPS : 1][4];
+    if constexpr (ws_q_regs(NA)) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ws_q_frag(q_smem + wg * ATOM_BYTES, warp, lane, kk, qf[kk]);
+    }
+
+    // tile 0: S only
+    mbar_wait(k_full(0), 0);
+    turn_wait();
+    fence_regs(sc);
+    wgmma_fence();
+    ws_qk<NA, KSTEPS>(sc, qf, q_desc, make_desc(k_smem(0), 16, 1024));
+    wgmma_commit();
+    turn_pass();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(k_empty(0));
+    rescale = ws_softmax(sc, 0, M, c, scale_log2, m_run, l_run, alpha);
+
+    // Tile j's softmax runs at the end of an iteration, under PV of tile
+    // j - 1; the wait for that PV, the rescale of O and the pack of P_j open
+    // the next iteration. The loop's back edge keeps ptxas from hoisting
+    // the wait into the softmax, as it does within one block to interleave
+    // the rescale and the pack with it.
+#pragma unroll 1
+    for (int j = 1; j < ntiles; ++j) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      wgmma_wait<0>();  // PV of tile j - 2
+      fence_regs(p);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+      if (j > 1 && lane == 0) mbar_arrive(v_empty((j - 2) % STAGES));
+      if (rescale) ws_rescale<NA>(acc, alpha);
+      ws_pack(sc, p);
+      mbar_wait(k_full(s), (j / STAGES) & 1);
+      turn_wait();
+      fence_regs(sc);
+      fence_regs(p);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+      wgmma_fence();
+      ws_qk<NA, KSTEPS>(sc, qf, q_desc, make_desc(k_smem(s), 16, 1024));
+      wgmma_commit();
+      mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);
+      ws_pv<NA>(acc, p, v_smem(sp));
+      wgmma_commit();
+      turn_pass();
+      wgmma_wait<1>();  // S_j; PV of tile j - 1 may still run
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(k_empty(s));
+      rescale = ws_softmax(sc, j, M, c, scale_log2, m_run, l_run, alpha);
+    }
+
+    // the last tile's PV (V of tile ntiles - 2 released: with one stage the
+    // producer waits for it to load the last V)
+    const int sl = (ntiles - 1) % STAGES;
+    wgmma_wait<0>();
+    fence_regs(p);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    if (ntiles > 1 && lane == 0) mbar_arrive(v_empty((ntiles - 2) % STAGES));
+    if (rescale) ws_rescale<NA>(acc, alpha);
+    ws_pack(sc, p);
+    mbar_wait(v_full(sl), ((ntiles - 1) / STAGES) & 1);
+    turn_wait();
+    fence_regs(p);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    wgmma_fence();
+    ws_pv<NA>(acc, p, v_smem(sl));
+    wgmma_commit();
+    turn_pass();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    // warpgroup 1's first arrival on barrier 1 is matched here
+    if (WS_PINGPONG && wg == 0) named_sync(1, WS_CONSUMERS * WG);
+
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv_l[r] = 1.f / l;
+    }
+    if (o_tma) {
+      // O through shared memory and TMA stores of whole 128-byte rows (the
+      // threads' own stores write 16 bytes a row and sector): this
+      // warpgroup's 64 rows as NA swizzled atoms in its half of the Q tile,
+      // which nothing reads any more
+      const uint32_t o_tile = q_smem + wg * ATOM_BYTES;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + lane / 4 + 8 * r;
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const uint32_t v = pack_bf16(acc[a][4 * i + 2 * r] * inv_l[r],
+                                         acc[a][4 * i + 2 * r + 1] * inv_l[r]);
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(
+                             o_tile + a * WS_CONSUMERS * ATOM_BYTES + row * 128 +
+                             ((i ^ (row % 8)) << 4) + 2 * c),
+                         "r"(v)
+                         : "memory");
+          }
+      }
+      // the threads' generic-proxy stores, visible to TMA's async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync(3 + wg, WG);
+      const int row0 = n0 + TILE * wg;
+      if (tid == 0 && row0 < N) {
+        for (int a = 0; a < NA; ++a)
+          asm volatile(
+              "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+              "[%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+                  reinterpret_cast<uint64_t>(&to)),
+              "r"(o_tile + a * WS_CONSUMERS * ATOM_BYTES), "r"(64 * a), "r"(h),
+              "r"(row0), "r"(b)
+              : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // shared memory must outlive the copies' reads of it
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      return;
+    }
+    __nv_bfloat16* ob = o + b * ost.b + h * ost.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = n0 + TILE * wg + 16 * warp + lane / 4 + 8 * r;
+      if (row >= N) continue;
+      __nv_bfloat16* orow = ob + row * ost.n;
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = 64 * a + 8 * i + c;
+          const float v0 = acc[a][4 * i + 2 * r] * inv_l[r];
+          const float v1 = acc[a][4 * i + 2 * r + 1] * inv_l[r];
+          if (D % 2 == 0) {  // col even and < D: col + 1 < D, 4-byte aligned
+            if (col < D)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (col < D) orow[col] = __float2bfloat16(v0);
+            if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+          }
+        }
+    }
+  }
+}
+
+template <int NA, int KSTEPS>
+int launch_ws(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
+              int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+  constexpr int smem = ws_smem_bytes(NA);
+  const auto kernel = attn_fwd_ws<NA, KSTEPS>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = allow_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + WS_ROWS - 1) / WS_ROWS, B * H);
+  kernel<<<grid, WS_THREADS, smem, st>>>(a.tq, a.tk, a.tv, a.to, a.o_tma, o,
+                                         H, N, M, D, os, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which bf16 kernel takes (vec, D), and its tiles: `ws` attn_fwd_ws (TMA
+// layouts with 64 < D <= 256), else attn_fwd_wgmma; NA atoms a Q/K row, NV
+// atoms of O a block, KSTEPS k-steps of QK^T
+struct Bf16Plan {
+  bool ws;
+  int na, nv, ksteps;
+};
+
+Bf16Plan bf16_plan(int vec, int D) {
+  if (D <= 64) return {false, 1, 1, (D + 15) / 16};
+  if (D <= 256) {
+    const int na = (D + 63) / 64;
+    // attn_fwd_ws up to D=80 (DiT-XL's 72): QK^T over 5 k-steps, not 8
+    const int ksteps = vec == 0 && D <= 80 ? 5 : 4 * na;
+    return {vec == 0, na, na, ksteps};
+  }
+  // above 256: two blocks a Q tile, each owning half of O's columns
+  if (D <= 384) return {false, 6, 3, 24};
+  return {false, 8, 4, 32};
 }
 
 // ---------------------------------------------------------------------------
@@ -1186,27 +1815,41 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
     a.k = Operand{static_cast<const bf16*>(k), ks};
     a.v = Operand{static_cast<const bf16*>(v), vs};
     a.vec = vec;
+    const Bf16Plan plan = bf16_plan(vec, D);
     if (vec == 0) {
       const EncodeTiled fn = encode_tiled();
       if (fn == nullptr) return -1;
-      CUresult res = encode(fn, &a.tq, q, B, N, H, D, qs);
+      CUresult res =
+          encode(fn, &a.tq, q, B, N, H, D, qs, plan.ws ? WS_ROWS : TILE);
       if (res == CUDA_SUCCESS) res = encode(fn, &a.tk, k, B, M, H, D, ks);
       if (res == CUDA_SUCCESS) res = encode(fn, &a.tv, v, B, M, H, D, vs);
+      a.o_tma = plan.ws && D % 8 == 0;
+      if (res == CUDA_SUCCESS && a.o_tma)
+        res = encode(fn, &a.to, o, B, N, H, D, os);
       if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
     }
     bf16* ob = static_cast<bf16*>(o);
-    switch ((D + 15) / 16) {  // k-steps of QK^T; above 64, one atom more
+    if (plan.ws) {
+      if (plan.ksteps == 5)
+        return launch_ws<2, 5>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      switch (plan.na) {
+        case 2: return launch_ws<2, 8>(a, ob, B, H, N, M, D, os, scale_log2, st);
+        case 3: return launch_ws<3, 12>(a, ob, B, H, N, M, D, os, scale_log2, st);
+        default: return launch_ws<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      }
+    }
+    switch (plan.ksteps) {  // k-steps of QK^T; above 64, 4 an atom
       case 1: return launch_wgmma<1, 1>(a, ob, B, H, N, M, D, os, scale_log2, st);
       case 2: return launch_wgmma<1, 2>(a, ob, B, H, N, M, D, os, scale_log2, st);
       case 3: return launch_wgmma<1, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
       case 4: return launch_wgmma<1, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      // 64 < D <= 256 reaches attn_fwd_wgmma only from the threads' loads
+      case 8: return launch_wgmma_as<2, 8, 2, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 12: return launch_wgmma_as<3, 12, 3, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 16: return launch_wgmma_as<4, 16, 4, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 24: return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      default: return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
     }
-    if (D <= 128) return launch_wgmma<2, 8>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    if (D <= 192) return launch_wgmma<3, 12>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    if (D <= 256) return launch_wgmma<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    // above 256: two blocks a Q tile, each owning half of O's columns
-    if (D <= 384) return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -1248,4 +1891,21 @@ extern "C" int dsdiff_flash_attention(
                         scale_log2, static_cast<cudaStream_t>(stream));
   if (current != device) cudaSetDevice(current);
   return rc;
+}
+
+// The bf16 launch dsdiff_flash_attention makes for (vec, B, H, N, D), into
+// out[8]: kernel (0 attn_fwd_wgmma, 1 attn_fwd_ws), Q rows a block, K/V ring
+// stages, threads a block, dynamic shared memory bytes, grid x, y, z.
+extern "C" void dsdiff_flash_attention_bf16_plan(int vec, int B, int H, int N,
+                                                 int D, int* out) {
+  const Bf16Plan p = bf16_plan(vec, D);
+  const int rows = p.ws ? WS_ROWS : TILE;
+  out[0] = p.ws;
+  out[1] = rows;
+  out[2] = p.ws ? ws_stages(p.na) : wg_stages(p.na);
+  out[3] = p.ws ? WS_THREADS : WG;
+  out[4] = p.ws ? ws_smem_bytes(p.na) : wg_smem_bytes(p.na, p.nv);
+  out[5] = (N + rows - 1) / rows;
+  out[6] = B * H;
+  out[7] = p.na / p.nv;
 }

@@ -12,7 +12,10 @@ each 64-row Q tile takes two blocks, each owning half of the output's
 columns (both compute the full scores).
 
 The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
-bf16 through ``wgmma`` with K/V fed by TMA, f32 through ``mma.sync`` in three
+bf16 through ``wgmma`` with K/V fed by TMA (``bf16_plan`` names its
+instantiation: above D = 64, on TMA layouts, a warp-specialised block of
+128 Q rows, two consumer warpgroups and a producer, ``wgmma_ws``), f32
+through ``mma.sync`` in three
 TF32 passes (``tf32x3``: each operand split into a TF32 high and low part,
 which keeps the products f32-accurate) with K/V fed by ``cp.async``. Both
 take any strides with a contiguous last dimension. The bf16 route reads q,
@@ -40,7 +43,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "reference_attention", "FlashAttention",
-           "bf16_load", "LAUNCHES", "MAX_HEAD_DIM", "ROUTES", "BF16_LOADS"]
+           "bf16_load", "bf16_plan", "route", "LAUNCHES", "MAX_HEAD_DIM",
+           "ROUTES", "BF16_LOADS", "BF16_KERNELS", "SMEM_LIMIT"]
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -54,6 +58,17 @@ ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 # or its threads this many elements a copy
 BF16_LOADS = {0: "tma", 4: "cp.async 8 B", 2: "cp.async 4 B", 1: "ld 2 B"}
 
+# the bf16 route's two kernels (csrc/flash_attention.cu): one warpgroup a
+# 64-row Q tile (attn_fwd_wgmma), or, above D = 64 on TMA layouts, two
+# consumer warpgroups and a producer a 128-row Q tile (attn_fwd_ws)
+BF16_KERNELS = ("wgmma", "wgmma_ws")
+# shared memory a block may have on an H100
+SMEM_LIMIT = 232448
+
+# csrc/flash_attention.cu's tile constants: K/V tile and attn_fwd_wgmma's Q
+# rows, one 128-byte swizzle atom of a 64-row tile, attn_fwd_ws's consumer
+# warpgroups and K/V ring depth
+_TILE, _ATOM_BYTES, _WS_CONSUMERS, _WS_STAGES = 64, 64 * 64 * 2, 2, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 _lib = None
@@ -121,6 +136,58 @@ def bf16_load(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return BF16_LOADS[_vec(q, k, v, (q.stride(), k.stride(), v.stride()))]
 
 
+def bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+    """The bf16 launch the C entry makes for [B, N, H, D] q and ``vec``
+    (``_vec``; 0 = TMA): its kernel (``BF16_KERNELS``), the 128-byte atoms
+    of a Q/K row (``atoms``) and of O a block owns (``o_atoms``), the Q
+    rows, K/V ring stages, consumer warpgroups and threads of a block, its
+    dynamic shared memory in bytes (the tiles and 1024 to align them) and
+    its grid. ``dsdiff_flash_attention_bf16_plan`` in the source returns
+    the same numbers."""
+    if D <= 64:
+        na, nv = 1, 1
+    elif D <= 256:
+        na = nv = -(-D // 64)
+    else:  # two blocks a Q tile, each owning half of O's columns
+        na = 6 if D <= 384 else 8
+        nv = na // 2
+    if vec == 0 and 64 < D <= 256:
+        rows, stages, consumers = _TILE * _WS_CONSUMERS, _WS_STAGES, _WS_CONSUMERS
+        threads = 128 * (consumers + 1)  # + the producer's warpgroup
+        # Q, and each stage of the K ring and of the V ring
+        smem = (consumers + 2 * stages) * na * _ATOM_BYTES + 1024
+        kernel = "wgmma_ws"
+    else:
+        rows, consumers, threads = _TILE, 1, 128
+        stages = 2 if na == 1 else 1
+        smem = (na + stages * (na + nv)) * _ATOM_BYTES + 1024
+        kernel = "wgmma"
+    return dict(kernel=kernel, atoms=na, o_atoms=nv, q_rows=rows,
+                stages=stages, consumers=consumers, threads=threads,
+                smem_bytes=smem, grid=(-(-N // rows), B * H, na // nv))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel these q, k, v take: ``tf32x3`` for f32, for bf16 the
+    ``bf16_plan`` kernel of their layout."""
+    if q.dtype != torch.bfloat16:
+        return ROUTES[q.dtype]
+    B, N, H, D = q.shape
+    vec = _vec(q, k, v, (q.stride(), k.stride(), v.stride()))
+    return bf16_plan(B, N, H, D, vec)["kernel"]
+
+
+def native_bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+    """``bf16_plan``'s numbers as the built kernel library gives them
+    (needs the library, so ``nvcc``)."""
+    fn = _library().dsdiff_flash_attention_bf16_plan
+    out = (ctypes.c_int * 8)()
+    fn(vec, B, H, N, D, out)
+    return dict(kernel=BF16_KERNELS[out[0]], q_rows=out[1], stages=out[2],
+                threads=out[3], smem_bytes=out[4],
+                grid=(out[5], out[6], out[7]))
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -133,6 +200,9 @@ def _library():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        plan = lib.dsdiff_flash_attention_bf16_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = None
         _lib = lib
     return _lib
 

@@ -1,23 +1,34 @@
 """What bounds the attention kernel's two routes: ablations and alternatives,
 timed on a CUDA card.
 
-    python scripts/torch_attention_variants.py
+    python scripts/torch_attention_variants.py [--wide] [--baseline PATH]
+    python scripts/torch_attention_variants.py --clock
 
 Builds ``dsdiff_torch/ops/csrc/flash_attention.cu`` as the package does and,
 beside it, variants made by editing a copy of that source (``VARIANTS``):
 ablations that drop one part of the work (their outputs are wrong; only
 their times count) and design alternatives. Each variant edits one route
-(bf16 ``wgmma`` or f32 ``tf32x3``) and is graph-timed
+(bf16 ``wgmma`` / ``wgmma_ws`` or f32 ``tf32x3``) at head dims up to 64,
+above 64 or both. Every variant first runs once in a subprocess of its own
+(``probe_all``): one that does not answer in ``PROBE_S`` seconds hangs and
+is dropped with a message. The rest are graph-timed
 (``chip_smoke.time_ms_graph``, inputs rotated through device memory) beside
-the package's kernel and ``scaled_dot_product_attention`` at the flagship's
-and the other families' attention shapes in that dtype, in turns: package, variants, variants
-reversed, package. Every variant's largest error against the plain version
-is printed. Then times the host side of one call at ``[4, 64, 6, 48]``: the
-wrapper, its checks, the C entry with (bf16) and without (f32) the three
-tensor-map encodes, and SDPA's call; each the least of five runs of 2000
-calls. Exits non-zero without a CUDA device, or when an edit no longer
-applies to the kernel's source.
+the package's kernel and ``scaled_dot_product_attention`` at ``SHAPES`` in
+that dtype, in turns: package, variants, variants reversed, package; every
+variant's largest error against the plain version is printed. Then times
+the host side of one call at ``[4, 64, 6, 48]``: the wrapper, its checks,
+the C entry with (bf16) and without (f32) the three tensor-map encodes, and
+SDPA's call; each the least of five runs of 2000 calls.
+
+``--wide`` keeps the bf16 shapes above D = 64 and their variants only, and
+skips the host timing. ``--baseline PATH`` adds another version of the
+source (the parent commit's, say) as the variant ``baseline``, timed at
+every shape. ``--clock`` builds the source with ``clock64()`` stamps
+(``CLOCK_EDITS``) and prints the cycles of each phase of an ``attn_fwd_ws``
+key tile, its prologue and its epilogue. Exits non-zero without a CUDA
+device, or when an edit no longer applies to the kernel's source.
 """
+import argparse
 import ctypes
 import math
 import subprocess
@@ -30,61 +41,304 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from chip_smoke import rotated, time_ms_graph  # noqa: E402
+from chip_smoke import attention_bound, rotated, time_ms_graph  # noqa: E402
 from dsdiff_torch.ops import _build  # noqa: E402
 from dsdiff_torch.ops import flash_attention as fa  # noqa: E402
 
 SHAPES = [(4, 1024, 4, 48), (8, 1024, 4, 48), (16, 1024, 4, 48),
-          (4, 256, 6, 48), (4, 64, 6, 48),
-          # the disc_diff / palette U-Nets' and DiT-B's
-          (4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 12, 64)]
+          (4, 256, 6, 48), (4, 64, 6, 48), (4, 1024, 12, 64),
+          # above D = 64: the disc_diff / palette U-Nets', the guidance
+          # classifier's, DiT-XL's and D = 256
+          (4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 4, 128),
+          (4, 1024, 16, 72), (4, 1024, 4, 256)]
 BF16, F32 = torch.bfloat16, torch.float32
-# name -> (edits of the source, whether the output is still right, dtype
-# of the route it edits)
+
+# name -> (edits of the source as (old, new, times old occurs), whether the
+# output is still right, dtype of the route it edits, head dims it runs at:
+# "narrow" D <= 64 (attn_fwd_wgmma), "wide" D > 64 (attn_fwd_ws), "all")
 VARIANTS = {
     # the exponentials of P replaced by their arguments
     "no_exp": ([("exp2_ftz(fmaf(sc[4 * i + 2 * r], scale_log2",
-                 "(fmaf(sc[4 * i + 2 * r], scale_log2"),
+                 "(fmaf(sc[4 * i + 2 * r], scale_log2", 2),
                 ("exp2_ftz(fmaf(sc[4 * i + 2 * r + 1], scale_log2",
-                 "(fmaf(sc[4 * i + 2 * r + 1], scale_log2")], False, BF16),
-    "no_qk": ([("      wgmma_ss(sc, q_desc", "      if (D < 0) wgmma_ss(sc, q_desc")],
-              False, BF16),
+                 "(fmaf(sc[4 * i + 2 * r + 1], scale_log2", 2)],
+               False, BF16, "all"),
+    "no_qk": ([("      wgmma_ss(sc, q_desc + step",
+                "      if (D < 0) wgmma_ss(sc, q_desc + step", 1),
+               ("  for (int kk = 0; kk < KSTEPS; ++kk) {\n    const uint64_t k_step",
+                "  for (int kk = 0; kk < KSTEPS && KSTEPS < 0; ++kk) {\n"
+                "    const uint64_t k_step", 1)],
+              False, BF16, "all"),
     "no_pv": ([("        wgmma_rs(acc[a], p[4 * kk]",
-                "        if (D < 0) wgmma_rs(acc[a], p[4 * kk]")], False, BF16),
-    # K/V tiles loaded once into the ring and reused: no refills, no waits
+                "        if (D < 0) wgmma_rs(acc[a], p[4 * kk]", 1),
+               ("    wgmma_rs_wide<NA>(acc, a, v_desc + 128 * kk);",
+                "    if (kk < 0) wgmma_rs_wide<NA>(acc, a, v_desc + 128 * kk);", 1)],
+              False, BF16, "all"),
+    # attn_fwd_wgmma: K/V tiles loaded once into the ring and reused, no
+    # refills, no waits
     "no_refill": ([("if (tid == 0 && j + STAGES < ntiles) {",
-                    "if (tid == 0 && j + STAGES < ntiles && D < 0) {"),
-                   ("mbar_wait(bar(s), (j / STAGES) & 1);", "mbar_wait(bar(s), 0);")],
-                  False, BF16),
-    # CUDA's exp2f (range handling around the same special-function op)
+                    "if (tid == 0 && j + STAGES < ntiles && D < 0) {", 1),
+                   ("mbar_wait(bar(s), (j / STAGES) & 1);", "mbar_wait(bar(s), 0);", 1)],
+                  False, BF16, "narrow"),
+    # attn_fwd_wgmma: CUDA's exp2f (range handling around the same
+    # special-function op)
     "exp2f": ([("mt * scale_log2);\n      alpha[r] = exp2_ftz(",
-                "mt * scale_log2);\n      alpha[r] = exp2f("),
-               ("const float p0 = exp2_ftz(", "const float p0 = exp2f("),
-               ("            exp2_ftz(fmaf(", "            exp2f(fmaf(")], True, BF16),
-    # a four-stage ring at D <= 64: 74,752 B of shared memory, opted in above
-    # 48 KB
+                "mt * scale_log2);\n      alpha[r] = exp2f(", 1),
+               ("        const float p0 = exp2_ftz(", "        const float p0 = exp2f(", 1),
+               ("            exp2_ftz(fmaf(", "            exp2f(fmaf(", 1)],
+              True, BF16, "narrow"),
+    # attn_fwd_wgmma: a four-stage ring at D <= 64: 74,752 B of shared
+    # memory, opted in above 48 KB
     "stages_4": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
-                   "constexpr int wg_stages(int na) { return na == 1 ? 4 : 1; }")],
-                 True, BF16),
-    # two stages above D=64 too, up to D=256: 121 KB at D=192, one block an
-    # SM (at D=512 two stages would pass the block's shared memory)
-    "wide_stages_2": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
-                        "constexpr int wg_stages(int na) { return na <= 4 ? 2 : 1; }")],
-                      True, BF16),
+                   "constexpr int wg_stages(int na) { return na == 1 ? 4 : 1; }", 1)],
+                 True, BF16, "narrow"),
+    # above 64, attn_fwd_wgmma for TMA layouts too: one warpgroup a 64-row Q tile,
+    # one K/V stage
+    "wgmma_route": ([("return {vec == 0, na, na, ksteps};",
+                    "return {false, na, na, 4 * na};", 1)]
+                  + [(f"launch_wgmma_as<{na}, {4 * na}, {na}, false>(",
+                      f"launch_wgmma<{na}, {4 * na}>(", 1) for na in (2, 3, 4)],
+                  True, BF16, "wide"),
+    # attn_fwd_ws: the two consumer warpgroups issue their products without
+    # taking turns
+    "ws_no_pingpong": ([("constexpr bool WS_PINGPONG = true;",
+                         "constexpr bool WS_PINGPONG = false;", 1)], True, BF16, "wide"),
+    # attn_fwd_ws: O rescaled whenever a row's max grows, not only past 2^8
+    "ws_eager_rescale": ([("constexpr float WS_RESCALE_LOG2 = 8.f;",
+                           "constexpr float WS_RESCALE_LOG2 = 0.f;", 1)],
+                         True, BF16, "wide"),
+    # attn_fwd_ws: no overlap of the softmax with PV inside a warpgroup
+    # (S_j waited on together with PV of tile j - 1)
+    "ws_no_overlap": ([("wgmma_wait<1>();  // S_j", "wgmma_wait<0>();  // S_j", 1)],
+                      True, BF16, "wide"),
+    # attn_fwd_ws: ring depth 1 and 3 (3 up to D = 192: 197,632 B there)
+    "ws_stages_1": ([("constexpr int ws_stages(int na) { return 2; }",
+                      "constexpr int ws_stages(int na) { return 1; }", 1)],
+                    True, BF16, "wide"),
+    "ws_stages_3": ([("constexpr int ws_stages(int na) { return 2; }",
+                      "constexpr int ws_stages(int na) { return na <= 3 ? 3 : 2; }", 1)],
+                    True, BF16, "wide"),
+    # attn_fwd_ws diagnostics: K and V loaded once (the first STAGES tiles,
+    # reused), so no load is waited on after the first; only warpgroup 0
+    # issues products (warpgroup 1 idles through the same barriers)
+    "ws_no_loads": ([("        if (j < ntiles) {\n          const int s = j % STAGES;",
+                      "        if (j < ntiles && j < STAGES) {\n          const int s = j % STAGES;", 1),
+                     ("        if (j > 0) {\n          const int i = j - 1",
+                      "        if (j > 0 && j <= STAGES) {\n          const int i = j - 1", 1),
+                     ("mbar_wait(k_full(s), (j / STAGES) & 1);", "mbar_wait(k_full(s), 0);", 1),
+                     ("mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);",
+                      "mbar_wait(v_full(sp), 0);", 1),
+                     ("mbar_wait(v_full(sl), ((ntiles - 1) / STAGES) & 1);",
+                      "mbar_wait(v_full(sl), 0);", 1)], False, BF16, "wide"),
+    "ws_one_consumer": ([("ws_qk<NA, KSTEPS>(sc,", "if (wg == 0) ws_qk<NA, KSTEPS>(sc,", 2),
+                         ("ws_pv<NA>(acc, p,", "if (wg == 0) ws_pv<NA>(acc, p,", 2)],
+                        False, BF16, "wide"),
+    # attn_fwd_ws: Q read from shared memory by every QK^T product at every
+    # D, or held in registers up to D = 128 only
+    "ws_q_smem": ([("constexpr bool ws_q_regs(int na) { return na <= 3; }",
+                    "constexpr bool ws_q_regs(int na) { return false; }", 1)],
+                  True, BF16, "wide"),
+    "ws_q_regs_128": ([("constexpr bool ws_q_regs(int na) { return na <= 3; }",
+                        "constexpr bool ws_q_regs(int na) { return na <= 2; }", 1)],
+                      True, BF16, "wide"),
+    # attn_fwd_ws: QK^T over 8 k-steps up to D = 80 too (the padding's 48
+    # columns of zeros multiplied)
+    "ws_ksteps_8": ([("const int ksteps = vec == 0 && D <= 80 ? 5 : 4 * na;",
+                      "const int ksteps = 4 * na;", 1)], True, BF16, "wide"),
+    # attn_fwd_ws: O stored by the threads straight from the registers
+    "ws_thread_stores": ([("      a.o_tma = plan.ws && D % 8 == 0;",
+                           "      a.o_tma = 0;", 1)], True, BF16, "wide"),
+    # attn_fwd_ws: PV as NA m64n64k16 products a k-step, one per atom of V
+    "ws_pv_atoms": ([("""  const uint64_t v_desc = make_desc(v_tile, ATOM_BYTES, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs_wide<NA>(acc, a, v_desc + 128 * kk);
+  }""", """#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const uint64_t v_desc = make_desc(v_tile + a * ATOM_BYTES, ATOM_BYTES, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[a], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+               v_desc + 128 * kk);
+  }""", 1)], True, BF16, "wide"),
     # f32: one TF32 pass (hi * hi only), which prices the two extra passes;
     # its error shows why the route needs them
     "f32_one_pass": ([("  mma_tf32(d, a_lo, b0_hi, b1_hi);\n"
-                       "  mma_tf32(d, a_hi, b0_lo, b1_lo);\n", "")], False, F32),
+                       "  mma_tf32(d, a_hi, b0_lo, b1_lo);\n", "", 1)], False, F32, "all"),
     # f32: the split through cvt.rna.tf32.f32 for hi and for lo
     "f32_cvt_rna": ([("  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n"
                       "  lo = __float_as_uint(x - __uint_as_float(hi));",
                       '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
                       '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) '
-                      ': "f"(x - __uint_as_float(hi)));')], True, F32),
+                      ': "f"(x - __uint_as_float(hi)));', 1)], True, F32, "all"),
     # f32: K/V tiles loaded once into the ring and reused
     "f32_no_refill": ([("if (j + F_STAGES < ntiles) {",
-                        "if (j + F_STAGES < ntiles && D < 0) {")], False, F32),
+                        "if (j + F_STAGES < ntiles && D < 0) {", 1)], False, F32, "all"),
 }
+
+# --clock: attn_fwd_ws with clock64() stamps of block (0, 0), its consumer
+# warpgroups' first threads at each phase of every key tile j (slots: loop
+# top, PV of tile j - 2 done, O rescaled and P_(j-1) packed, K_j landed,
+# QK^T issued, V_(j-1) landed, PV issued, S_j done; the softmax runs to the
+# next loop top) and the producer's K_j / V_(j-1) issues
+CLOCK_PHASES = ("wait PV", "rescale+pack", "wait K", "issue QK", "wait V",
+                "issue PV", "wait S", "softmax")
+_CLK = "if (rec && (i) < 17) g_clock[wg][i][k] = clock64();"
+CLOCK_EDITS = [
+    ("namespace {\n", "namespace {\n__device__ long long g_clock[3][17][8];\n"
+     f"#define CLK(i, k) {_CLK}\n", 1),
+    ("    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;\n",
+     "    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;\n"
+     "    const bool rec = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;\n", 1),
+    ("    mbar_wait(q_full, 0);\n", "    CLK(0, 0)\n    mbar_wait(q_full, 0);\n    CLK(0, 1)\n", 1),
+    ("      wgmma_wait<0>();  // PV of tile j - 2\n",
+     "      CLK(j, 0)\n      wgmma_wait<0>();  // PV of tile j - 2\n      CLK(j, 1)\n", 1),
+    ("      ws_pack(sc, p);\n      mbar_wait(k_full(s), (j / STAGES) & 1);\n",
+     "      ws_pack(sc, p);\n      CLK(j, 2)\n      mbar_wait(k_full(s), (j / STAGES) & 1);\n"
+     "      CLK(j, 3)\n", 1),
+    ("      ws_qk<NA, KSTEPS>(sc, qf, q_desc, make_desc(k_smem(s), 16, 1024));\n"
+     "      wgmma_commit();\n",
+     "      ws_qk<NA, KSTEPS>(sc, qf, q_desc, make_desc(k_smem(s), 16, 1024));\n"
+     "      wgmma_commit();\n      CLK(j, 4)\n", 1),
+    ("      mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);\n",
+     "      mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);\n      CLK(j, 5)\n", 1),
+    ("      ws_pv<NA>(acc, p, v_smem(sp));\n      wgmma_commit();\n",
+     "      ws_pv<NA>(acc, p, v_smem(sp));\n      wgmma_commit();\n      CLK(j, 6)\n", 1),
+    ("      wgmma_wait<1>();  // S_j; PV of tile j - 1 may still run\n",
+     "      wgmma_wait<1>();  // S_j; PV of tile j - 1 may still run\n      CLK(j, 7)\n", 1),
+    ("    const int sl = (ntiles - 1) % STAGES;\n",
+     "    CLK(16, 0)\n    const int sl = (ntiles - 1) % STAGES;\n", 1),
+    ('    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");\n'
+     "    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;\n",
+     '    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");\n'
+     "    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;\n"
+     "    if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) g_clock[wg][0][3] = clock64();\n", 1),
+    ("    // warpgroup 1's first arrival on barrier 1 is matched here\n",
+     "    CLK(16, 1)\n    // warpgroup 1's first arrival on barrier 1 is matched here\n", 1),
+    ("      return;\n    }\n    __nv_bfloat16* ob",
+     "      CLK(16, 2)\n      return;\n    }\n    __nv_bfloat16* ob", 1),
+    ("          tma_load_tile(k_smem(s), &tk, k_full(s), 0, NA, h, j * TILE, b);\n",
+     "          tma_load_tile(k_smem(s), &tk, k_full(s), 0, NA, h, j * TILE, b);\n"
+     "          if (blockIdx.x == 0 && blockIdx.y == 0 && j < 17) g_clock[2][j][0] = clock64();\n", 1),
+    ("          tma_load_tile(v_smem(s), &tv, v_full(s), 0, NA, h, i * TILE, b);\n",
+     "          tma_load_tile(v_smem(s), &tv, v_full(s), 0, NA, h, i * TILE, b);\n"
+     "          if (blockIdx.x == 0 && blockIdx.y == 0 && j < 17) g_clock[2][j][1] = clock64();\n", 1),
+    ("extern \"C\" void dsdiff_flash_attention_bf16_plan(",
+     "extern \"C\" int dsdiff_clock(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_clock, sizeof(g_clock));\n}\n\n"
+     "extern \"C\" void dsdiff_flash_attention_bf16_plan(", 1),
+]
+CLOCK_SHAPES = [(4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 4, 128)]
+
+
+def clock_breakdown(lib_fn, clock_fn) -> None:
+    """Cycles of each phase of an attn_fwd_ws key tile, block (0, 0): the
+    mean over tiles 2..14 for each consumer warpgroup, and when warpgroup
+    1 reaches each phase after warpgroup 0."""
+    run = launcher(lib_fn)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buf = (ctypes.c_longlong * (3 * 17 * 8))()
+    for B, N, H, D in CLOCK_SHAPES:
+        qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
+                          dtype=BF16)
+        for _ in range(3):
+            run(*qkv.unbind(2))
+        torch.cuda.synchronize()
+        if clock_fn(buf):
+            raise RuntimeError("cudaMemcpyFromSymbol failed")
+        t = [[[buf[(w * 17 + j) * 8 + k] for k in range(8)] for j in range(17)]
+             for w in range(3)]
+        for w in range(2):
+            e = t[w]
+            print(f"[clock] [{B},{N},{H},{D}] block (0, 0), warpgroup {w}: "
+                  f"entry to Q landed {e[0][1] - e[0][3]}, tile 0 "
+                  f"{e[1][0] - e[0][1]}, tiles 1..{N // 64 - 1} "
+                  f"{e[16][0] - e[1][0]}, the last PV {e[16][1] - e[16][0]}, "
+                  f"the epilogue {e[16][2] - e[16][1]} cycles")
+        for w in range(2):
+            phases = []
+            for k in range(8):
+                d = [(t[w][j][k + 1] if k < 7 else t[w][j + 1][0]) - t[w][j][k]
+                     for j in range(2, 15)]
+                phases.append(sum(d) / len(d))
+            print(f"[clock]   warpgroup {w}, cycles a key tile: "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in zip(CLOCK_PHASES, phases))
+                  + f"; total {sum(phases):.0f}")
+        lag = [sum(t[1][j][k] - t[0][j][k] for j in range(2, 15)) / 13
+               for k in range(8)]
+        print("[clock]   warpgroup 1 after warpgroup 0: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in zip(CLOCK_PHASES, lag)))
+        ahead = [t[0][j][3] - t[2][j][0] for j in range(2, 15)]
+        print(f"[clock]   producer: K_j issued {sum(ahead) / len(ahead):.0f} "
+              f"cycles before warpgroup 0 found it landed (mean, tiles 2..14)")
+        del qkv
+
+
+def _runs_at(name: str, D: int) -> bool:
+    reach = VARIANTS[name][3]
+    return reach == "all" or (reach == "wide") == (D > 64)
+
+
+PROBE_S = 90  # a variant that gives no answer in this time hangs
+BASELINE = [None]  # --baseline's source
+_WIDE = ([], True, BF16, "wide")
+
+
+def _variant_entry(name: str):
+    """The C entry of ``name``'s built library (``package``: the
+    package's)."""
+    if name == "package":
+        return fa._library().dsdiff_flash_attention
+    fn = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / f"{name}.so")
+                     ).dsdiff_flash_attention
+    fn.argtypes = fa._library().dsdiff_flash_attention.argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _probe_shapes(name: str) -> list:
+    # the --clock build is not in VARIANTS here: a D > 64 bf16 variant
+    reach = "all" if name == "package" else VARIANTS.get(name, _WIDE)[3]
+    dims = {"narrow": [48], "wide": [192, 256], "all": [48, 192, 256]}[reach]
+    return [(2, 1024, 2, D) for D in dims] + [(1, 200, 1, D) for D in dims]
+
+
+def probe(name: str) -> None:
+    """One call of ``name`` at each of its probe shapes, synchronised (run
+    in a subprocess of its own, so that a variant that hangs is found)."""
+    run = launcher(_variant_entry(name))
+    dtype = (BF16 if name == "package" else VARIANTS.get(name, _WIDE)[2]) or BF16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, N, H, D in _probe_shapes(name):
+        qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
+                          dtype=dtype)
+        run(*qkv.unbind(2))
+        torch.cuda.synchronize()
+
+
+def probe_all(names) -> list:
+    """Probe every variant in ``names`` at once, each in a subprocess;
+    returns those that answered (the others are printed and dropped)."""
+    procs = {n: subprocess.Popen([sys.executable, __file__, "--probe", n],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n in names}
+    ok = []
+    for n, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=PROBE_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            print(f"[probe] {n}: no answer in {PROBE_S} s (it hangs): dropped")
+            continue
+        if proc.returncode:
+            print(f"[probe] {n}: failed, dropped: {out.strip()[-400:]}")
+            continue
+        ok.append(n)
+    return ok
 
 
 def build_variants() -> dict:
@@ -93,10 +347,10 @@ def build_variants() -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (edits, _, _) in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if text.count(old) != 1:
+    for name, (edits, _, _, _) in VARIANTS.items():
+        text = BASELINE[0] if name == "baseline" else source
+        for old, new, times in edits:
+            if text.count(old) != times:
                 raise SystemExit(f"variant {name}: edit no longer applies: {old!r}")
             text = text.replace(old, new)
         src = out_dir / f"{name}.cu"
@@ -105,19 +359,18 @@ def build_variants() -> dict:
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    entries = {"package": fa._library().dsdiff_flash_attention}
+    fa._library()  # the package's, built beside them
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {name} did not build:\n{log}")
         regs = [line.split(":", 1)[1].strip() for line in log.splitlines()
-                if "registers" in line][:1]
-        print(f"[build] {name}: {regs}")
-        fn = ctypes.CDLL(str(lib)).dsdiff_flash_attention
-        fn.argtypes = entries["package"].argtypes
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
+                if "registers" in line and "ws" in line][:1]
+        notes = sorted({line.split("(")[1].split(")")[0]
+                        for line in log.splitlines() if "(C75" in line})
+        print(f"[build] {name}: {regs}, ptxas notes {notes}")
+    return {name: _variant_entry(name)
+            for name in probe_all(["package", *procs])}
 
 
 def launcher(fn):
@@ -126,8 +379,9 @@ def launcher(fn):
         qs, ks, vs = fa._check(q, k, v)
         B, N, H, D = q.shape
         o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+        vec = fa._vec(q, k, v, (qs, ks, vs)) if q.dtype == BF16 else 0
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                fa._DTYPES[q.dtype], q.device.index, B, H, N, k.shape[1], D,
+                fa._DTYPES[q.dtype], vec, q.device.index, B, H, N, k.shape[1], D,
                 *qs[:3], *ks[:3], *vs[:3], N * H * D, H * D, D,
                 math.log2(math.e) / math.sqrt(D),
                 torch.cuda.current_stream().cuda_stream)
@@ -151,6 +405,32 @@ def host_us(f, calls: int = 2000, runs: int = 5) -> float:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wide", action="store_true",
+                    help="only the bf16 shapes above D = 64 and the variants "
+                         "that run there; no host timing")
+    ap.add_argument("--clock", action="store_true",
+                    help="only attn_fwd_ws's cycles by phase (CLOCK_EDITS)")
+    ap.add_argument("--baseline", metavar="PATH",
+                    help="also build PATH (another version of "
+                         "flash_attention.cu, e.g. the parent commit's) as the "
+                         "variant 'baseline' and time it at every shape")
+    ap.add_argument("--probe", help=argparse.SUPPRESS)  # one variant, once
+    args = ap.parse_args()
+    if args.baseline:
+        # no edits: the file itself; right at every shape of both dtypes
+        VARIANTS["baseline"] = ([], True, None, "all")
+        BASELINE[0] = Path(args.baseline).read_text()
+    if args.probe:
+        probe(args.probe)
+        return
+    if args.clock:
+        VARIANTS.clear()
+        VARIANTS["ws_clock"] = (CLOCK_EDITS, True, BF16, "wide")
+    if args.wide:
+        for name in [n for n, v in VARIANTS.items()
+                     if v[2] not in (BF16, None) or v[3] == "narrow"]:
+            del VARIANTS[name]
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         sys.exit(1)
@@ -160,11 +440,22 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     entries = build_variants()
+    if "package" not in entries:
+        raise SystemExit("the package's kernel did not answer its probe")
+    if args.clock:
+        clock_fn = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / "ws_clock.so")).dsdiff_clock
+        clock_fn.argtypes, clock_fn.restype = [ctypes.c_void_p], ctypes.c_int
+        if "ws_clock" not in entries:
+            raise SystemExit("the clocked kernel did not answer its probe")
+        clock_breakdown(entries["ws_clock"], clock_fn)
+        return
     runs = {name: launcher(fn) for name, fn in entries.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (BF16, F32):
-        names = ["package"] + [n for n, v in VARIANTS.items() if v[2] == dtype]
-        for B, N, H, D in SHAPES:
+    for dtype in (BF16,) if args.wide else (BF16, F32):
+        for B, N, H, D in [x for x in SHAPES if x[3] > 64 or not args.wide]:
+            names = ["package"] + [n for n, v in VARIANTS.items()
+                                   if v[2] in (dtype, None) and _runs_at(n, D)
+                                   and n in runs]
             qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
                               dtype=dtype)
             want = fa.reference_attention(*qkv.unbind(2)).float()
@@ -178,8 +469,11 @@ def main() -> None:
             sdpa_in = [tuple(t.transpose(1, 2).contiguous() for t in x.unbind(2))
                        for (x,) in qkvs]
             sdpa = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
-            print(f"[{B},{N},{H},{D}] {str(dtype).split('.')[1]} graph ms (the "
-                  f"two turns): "
+            bound, by = attention_bound(B, N, H, D, dtype)
+            kernel = (fa.bf16_plan(B, N, H, D)["kernel"] if dtype == BF16
+                      else fa.ROUTES[dtype])
+            print(f"[{B},{N},{H},{D}] {str(dtype).split('.')[1]} ({kernel}; "
+                  f"bound {bound:.5f} ms by {by}) graph ms (the two turns): "
                   + ", ".join(f"{n} {t[0]:.5f}/{t[1]:.5f}" for n, t in times.items())
                   + f"; sdpa {sdpa:.5f}; max_abs_err "
                   + ", ".join(f"{n} {e:.3e}" + ("" if n == "package" or VARIANTS[n][1]
@@ -187,6 +481,8 @@ def main() -> None:
                               for n, e in errs.items()))
             del qkvs, sdpa_in
 
+    if args.wide:
+        return
     fn = entries["package"]
     stream = torch.cuda.current_stream().cuda_stream
     for dtype in (torch.bfloat16, torch.float32):
@@ -194,7 +490,7 @@ def main() -> None:
                               dtype=dtype).unbind(2)
         o = torch.empty(4, 64, 6, 48, device="cuda", dtype=dtype)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                fa._DTYPES[dtype], 0, 4, 6, 64, 64, 48, *q.stride()[:3],
+                fa._DTYPES[dtype], 0, 0, 4, 6, 64, 64, 48, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0.2, stream)
         print(f"[host] C entry, {dtype} [4,64,6,48]: "
               f"{host_us(lambda: fn(*args)):.2f} us per call")

@@ -522,3 +522,87 @@ def test_cuda_medseg_forward_matches_plain_attention(name):
         assert torch.isfinite(got).all()
         err = (got - ref).abs().max().item()
         assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (name, err)
+
+
+WS_HEAD_DIMS = [65, 72, 128, 192, 256]
+RAGGED = [1, 63, 64, 65, 1000, 1024]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", RAGGED)
+@pytest.mark.parametrize("N", RAGGED)
+@pytest.mark.parametrize("D", WS_HEAD_DIMS)
+def test_cuda_warp_specialised_route_matches_plain_version(D, N, M):
+    """bf16 above D = 64 on TMA layouts (``wgmma_ws``: 128 Q rows a block,
+    two consumer warpgroups sharing each K/V tile, two-stage K and V
+    rings): q a strided third of one qkv tensor, k and v of another (heads
+    padded to a multiple of 8 elements, as a tensor map needs), N and M on
+    both sides of the 64-row tile and of the 128-row Q tile (a Q tile
+    whose second warpgroup holds no row at N <= 64, one key tile, a ragged
+    last key tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, H, padded = 1, 2, -(-D // 8) * 8
+    g = torch.Generator(device="cuda").manual_seed(D * 10007 + N * 131 + M)
+    q = torch.randn(B, N, 3, H, padded, generator=g, device="cuda",
+                    dtype=torch.bfloat16)[..., :D].unbind(2)[0]
+    _, k, v = torch.randn(B, M, 3, H, padded, generator=g, device="cuda",
+                          dtype=torch.bfloat16)[..., :D].unbind(2)
+    assert PF.route(q, k, v) == "wgmma_ws"
+    before = PF.LAUNCHES
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (B, N, H, D) and err <= GPU_TOL[torch.bfloat16], err
+
+
+def _padded_heads(B, N, H, D, stride, offset, gen):
+    """[B, N, H, D] bf16 cut from heads of ``stride`` elements, the buffer
+    starting ``offset`` elements past an aligned address."""
+    flat = torch.randn(offset + B * N * H * stride, generator=gen,
+                       device="cuda", dtype=torch.bfloat16)
+    return flat[offset:].view(B, N, H, stride)[..., :D]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "D, stride, offset, load",
+    [(100, 100, 0, "cp.async 8 B"), (72, 76, 0, "cp.async 8 B"),
+     (130, 130, 0, "cp.async 4 B"), (192, 200, 1, "ld 2 B"),
+     (256, 260, 0, "cp.async 8 B")],
+)
+def test_cuda_thread_loaded_layouts_above_64_keep_the_one_warpgroup_kernel(
+        D, stride, offset, load):
+    """Layouts no TMA map describes above D = 64 (a head stride that is not
+    a multiple of 8 elements, or an unaligned base) keep ``wgmma``, the
+    kernel whose threads load the tiles, at ragged N and M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(D + stride + offset)
+    q = _padded_heads(2, 130, 2, D, stride, offset, g)
+    k = _padded_heads(2, 77, 2, D, stride, offset, g)
+    v = _padded_heads(2, 77, 2, D, stride, offset, g)
+    assert PF.bf16_load(q, k, v) == load
+    assert PF.route(q, k, v) == "wgmma"
+    got = PF.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = PF.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == (2, 130, 2, D) and err <= GPU_TOL[torch.bfloat16], err
+
+
+@pytest.mark.gpu
+def test_library_plan_matches_the_wrappers_description():
+    """``dsdiff_flash_attention_bf16_plan`` in the built library against
+    ``bf16_plan`` at every head dim and load: kernel, Q rows, stages,
+    threads, shared memory and grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys = ("kernel", "q_rows", "stages", "threads", "smem_bytes", "grid")
+    for vec in (0, 4, 2, 1):
+        for D in range(1, PF.MAX_HEAD_DIM + 1):
+            want = PF.bf16_plan(3, 1000, 5, D, vec)
+            got = PF.native_bf16_plan(3, 1000, 5, D, vec)
+            assert got == {k: want[k] for k in keys}, (vec, D)
