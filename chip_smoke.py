@@ -303,6 +303,9 @@ HEAD_DIM_HELD = [("DiT-XL/8 at 256²", (1024, 16, 72)),
 # 16 heads of 72 at 256² and the route's widest head, 256
 WIDE_HEAD_ROWS = [("DiT-XL/8 at 256²", (1024, 16, 72)),
                   ("D = 256", (1024, 4, 256))]
+# f32 above D = 64 as Dense(H*D) outputs viewed as heads of a width no TMA
+# map takes (a head stride of 130 floats), timed at batch 4
+UNALIGNED_F32_ROW = (1024, 2, 130)
 
 # the latent pipeline: the KL-VAE of configs/autoencoder_kl.yaml, whose
 # bottleneck attention (encoder and decoder, one call each) is one head over
@@ -591,9 +594,10 @@ def _attention_inputs(gen, batch, N, H, D, dtype, M=None,
 
 
 def _load(q, k, v) -> str:
-    """How the kernel loads these inputs: the bf16 route's TMA or its
-    threads' copies; the f32 route's cp.async."""
-    return fa.bf16_load(q, k, v) if q.dtype == torch.bfloat16 else "cp.async"
+    """How the kernel loads these inputs: TMA or the kernel's threads'
+    copies (``bf16_load``, ``f32_load``)."""
+    return (fa.bf16_load(q, k, v) if q.dtype == torch.bfloat16
+            else fa.f32_load(q, k, v))
 
 
 def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
@@ -607,18 +611,22 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
     qkv = views(*bufs)
     load = _load(*qkv)
     route = fa.route(*qkv)
-    plan = ""
+    # the library's launch is the one the wrapper describes
+    strides = tuple(x.stride() for x in qkv)
     if dtype == torch.bfloat16:
-        # the library's launch is the one the wrapper describes
-        vec = fa._vec(*qkv, tuple(x.stride() for x in qkv))
+        vec = fa._vec(*qkv, strides)
         want_plan = fa.bf16_plan(batch, N, H, D, vec)
         got_plan = fa.native_bf16_plan(batch, N, H, D, vec)
-        check(got_plan == {k: want_plan[k] for k in got_plan},
-              f"flash_attention {[batch, N, H, D]}: the library plans "
-              f"{got_plan}, the wrapper {want_plan}")
-        plan = (f", {want_plan['q_rows']} Q rows x {want_plan['stages']} "
-                f"stage(s), {want_plan['threads']} threads, "
-                f"{want_plan['smem_bytes']} B")
+    else:
+        vec = fa._f32_vec(*qkv, strides)
+        want_plan = fa.f32_plan(batch, N, H, D, vec)
+        got_plan = fa.native_f32_plan(batch, N, H, D, vec)
+    check(got_plan == {k: want_plan[k] for k in got_plan},
+          f"flash_attention {[batch, N, H, D]}: the library plans "
+          f"{got_plan}, the wrapper {want_plan}")
+    plan = (f", {want_plan['q_rows']} Q rows x {want_plan['stages']} "
+            f"stage(s), {want_plan['threads']} threads, "
+            f"{want_plan['smem_bytes']} B")
     got = fa.flash_attention(*qkv)
     torch.cuda.synchronize()
     want = fa.reference_attention(*qkv)
@@ -663,11 +671,13 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
 def phase_kernels(card: str):
     """Kernel vs plain at the flagship attention shapes, with the calls of
     one flagship forward, and at the other families' (head dims 192 and 64),
-    with ``families``: {family: calls of one forward}, then bf16 at
-    WIDE_HEAD_ROWS (no config launches them: 0 calls); returns the rows.
-    bf16 runs the kernel's wgmma route (its warp-specialised kernel above
-    D = 64: each row names the launch, checked against the library's own
-    plan), f32 its tf32x3 route."""
+    with ``families``: {family: calls of one forward}, then both dtypes at
+    WIDE_HEAD_ROWS (no config launches them: 0 calls) and f32 at
+    UNALIGNED_F32_ROW; prints attention's device time in one f32 disc_diff
+    forward beside SDPA's; returns the rows. bf16 runs the kernel's wgmma
+    route (its warp-specialised kernel above D = 64), f32 its tf32x3 route
+    (above D = 64 on TMA layouts ``tf32x3_ws``); each row names the launch,
+    checked against the library's own plan."""
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -689,10 +699,31 @@ def phase_kernels(card: str):
             for (N, H, D), families in family_shapes.items():
                 row = _attention_row(gen, batch, N, H, D, dtype, None, card)
                 rows.append(dict(row, families=families))
-    for name, (N, H, D) in WIDE_HEAD_ROWS:
-        row = _attention_row(gen, SERVE_BATCH, N, H, D, torch.bfloat16, None,
-                             card)
-        rows.append(dict(row, families={name: 0}))
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (N, H, D) in WIDE_HEAD_ROWS:
+            row = _attention_row(gen, SERVE_BATCH, N, H, D, dtype, None, card)
+            rows.append(dict(row, families={name: 0}))
+    # f32 above D = 64 on a layout no TMA map describes (Dense heads of 130
+    # floats): the kernel f32_plan names for it, the mma.sync one
+    N, H, D = UNALIGNED_F32_ROW
+    row = _attention_row(gen, SERVE_BATCH, N, H, D, torch.float32, None, card,
+                         layout="dense")
+    check(row["route"] == "tf32x3", f"f32 {row['shape']} dense: route "
+          f"{row['route']}, not the mma.sync kernel")
+    rows.append(dict(row, families={"unaligned f32 heads": 0}))
+    # attention's device time in one f32 disc_diff forward (its 12 calls at
+    # [SERVE_BATCH, 1024, 4, 192]) against SDPA's
+    for family, _, shapes in FAMILIES:
+        if family == "disc_diff":
+            at = {tuple(r["shape"][1:]): r for r in rows
+                  if r["shape"][0] == SERVE_BATCH and r["dtype"] == "float32"}
+            sums = {k: sum(at[(N, H, D)][k] * c for N, H, D, c in shapes)
+                    for k in ("graph_ms", "library_graph_ms", "bound_ms")}
+            print(f"[kernel] attention in one f32 {family} forward (batch "
+                  f"{SERVE_BATCH}, {sum(c for *_, c in shapes)} calls, "
+                  f"{at[shapes[0][:3]]['route']}): kernel {sums['graph_ms']:.5f} "
+                  f"ms, sdpa {sums['library_graph_ms']:.5f} ms, bound "
+                  f"{sums['bound_ms']:.5f} ms (CUDA graphs) [{card}]")
     # error only: the adaptive request's shapes (partial tiles in every
     # one), the other configs' (N mostly not a multiple of the 64-row
     # tile, 32-channel heads) and the other head dims the kernel takes
@@ -4092,6 +4123,16 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "name": "flash_attention",
         "route": "cuda",
         "routes_by_dtype": {str(d).split(".")[1]: r for d, r in fa.ROUTES.items()},
+        "kernels_by_dtype": {"bfloat16": list(fa.BF16_KERNELS),
+                             "float32": list(fa.F32_KERNELS)},
+        # the f32 rows above D = 64 (tf32x3_ws on TMA layouts)
+        "f32_rows_above_64": [
+            {k: r[k] for k in ("shape", "keys", "layout", "load", "route",
+                               "max_abs_err", "ms", "graph_ms", "plain_ms",
+                               "library_ms", "library_graph_ms", "bound_ms",
+                               "bound_by", "share_of_bound")}
+            for r in attn_rows + latent_rows + transformer_rows + weights_rows
+            if r["dtype"] == "float32" and r["shape"][3] > 64],
         "source": "dsdiff_torch/ops/csrc/flash_attention.cu",
         "replaces": "dsdiff_tpu/ops/flash_attention.py:80",
         "launches": sum(attn_launches.values()),

@@ -10,7 +10,8 @@
 // thirds of the attention block's qkv projection and nothing is copied or
 // transposed. The output is written [B, N, H, D] in the input type.
 //
-// Two routes, chosen by dtype in the C entry at the bottom:
+// Two routes, chosen by dtype in the C entry at the bottom, and within each
+// a kernel by head dim and layout (bf16_plan, f32_plan):
 //
 // bf16: tensor cores through wgmma, K/V tiles through TMA. Two kernels, the
 // C entry's bf16_plan picking one: attn_fwd_ws for 64 < D <= 256 where TMA
@@ -131,20 +132,73 @@
 // P enters the second product in bf16, as in jax.nn.dot_product_attention
 // (probabilities cast to the value dtype).
 //
-// f32: three TF32 passes on the tensor cores (attn_fwd_tf32x3), mma.sync:
+// f32: three TF32 passes on the tensor cores. A single TF32 pass keeps ~11
+// bits (an error of ~1e-3 at unit scale), so each operand is split,
+// a = hi + lo, and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b (lo lo, below
+// 2^-22 relative, dropped), in both products: S = Q K^T and O += P V, P in
+// f32. The C entry's f32_plan picks one of three kernels.
+//
+// attn_fwd_tf32x3_ws (64 < D <= 512, layouts a TMA map describes: 16-byte
+// aligned bases, batch, row and head strides multiples of 4 floats):
+// wgmma .tf32, warp specialised, each K/V element split once a block.
+// - 384 threads: warpgroups 0 and 1 consume; warpgroup 2 produces (warp 0's
+//   first thread issues every TMA load, warps 1..3 split each atom once it
+//   lands); setmaxnreg 72 / 216. Up to D = 256 consumer w owns Q rows
+//   64w..64w+63 of a 128-row Q tile, so each K/V byte brought into shared
+//   memory serves 128 rows; above 256 (SPLIT) O for 64 rows would take 256
+//   registers a thread, so both own the same 64 rows, consumer w the O
+//   columns and QK^T k-steps of the 32-column atoms a % 2 == w, and the two
+//   add their partial scores through shared memory (no block or warpgroup
+//   computes a score twice).
+// - Tiles as 32-float (128-byte swizzle) atoms: Q by TMA once (NA atoms of
+//   its rows), K and V through one ring of FW_STAGES = 8 atoms in the
+//   order K_j's atoms, V_j's, K_(j+1)'s, with full (TMA), ready (the 96
+//   splitting threads) and empty (one arrival a consumer warp)
+//   mbarriers a stage. The TMA warp issues each load as soon as its slot is
+//   free, so the loads run up to 8 atoms ahead of the consumers.
+// - The split: the tensor cores read an f32 word as TF32 by dropping its
+//   low 13 bits, so a raw atom as TMA wrote it serves as the hi operand and
+//   lo = x - trunc(x) is exact in f32. A K atom's lo is written beside it
+//   (the stage's second half), so [K; K_lo] is one B operand of 2 KT rows.
+//   A V atom is transposed in place into V^T (keys contiguous: .tf32 wgmma
+//   reads only K-major B operands, and V is MN-major for PV), each 8-key
+//   step in the order S's accumulator hands P's A fragment its keys (0, 2,
+//   4, 6, 1, 3, 5, 7), its lo beside it. The split works on 4 KB pieces (32
+//   rows), an atom's loads before its stores; a consumer's Q lo and P lo
+//   are split in its registers (Q's an atom at a time from shared memory,
+//   which holds no Q lo).
+// - Per key tile (KT = 64 keys up to D = 192; 32 above, where O's 128
+//   registers a thread leave room for the scores of 32 keys only), a
+//   consumer issues, an atom at a time, S += [Q_hi K^T | Q_hi K_lo^T] (ss,
+//   m64n(2KT)k8 x 4 k-steps) then S += Q_lo K^T (rs, m64n(KT)k8), releasing
+//   the previous atom once its products are done; S = the two halves' sum
+//   (+ the other consumer's, SPLIT), keys past M -inf, an f32 online
+//   softmax in log2 units (scale after the product, ex2.approx.ftz); then
+//   O += P_lo V^T + P_hi V_lo^T + P_hi V^T (rs, m64n32k8 an atom of O's
+//   columns, KT / 8 k-steps). A consumer holds at most two atoms, and both
+//   see every atom in the ring's order (SPLIT: each releases the other's
+//   unread): one that waited on its own only could wait on a slot's next
+//   round before the current one completed, where the parity test passes.
+// - Shared memory (Q + score exchange + 8 stages of raw and split atoms +
+//   1 KB to align; 232,448 B a block): D <= 96: 48 + 0 + 128 KB; <= 128:
+//   64 + 128 KB; <= 192: 96 + 128 KB (230,400 B); <= 256: 128 + 64 KB
+//   (32-key atoms); <= 384: 96 + 32 + 64 KB; <= 512: 128 + 32 + 64 KB
+//   (230,400 B). One block an SM.
+// - FW_PV_WGMMA false puts PV on mma.sync over the raw V atom and its
+//   element-wise lo (design (b); no transpose), FW_V_SPLIT_ONCE false has
+//   every consumer warp split the V values it reads instead;
+//   scripts/torch_attention_variants.py --f32 times both, the duplicated
+//   scores above 256 (FW_SHARE_SCORES false) and the ablations, and
+//   --f32 --clock prints the cycles of each phase (the FW_CLK hooks).
+//
+// attn_fwd_tf32x3 (D <= 64, and up to 256 the layouts no TMA map
+// describes), mma.sync m16n8k8:
 // - 4 warps (128 threads) per 64-row Q tile, one 16-row slab per warp; grid
 //   (ceil(N/64), B*H). D is padded to a multiple of 8 (48 stays 48): DK =
 //   ceil(D/8) k-steps of QK^T and n-tiles of PV.
-// - A single TF32 pass keeps ~11 bits (an error of ~1e-3 at unit scale), so
-//   each operand is split, a = hi + lo with hi = a rounded to TF32 (as
-//   cvt.rna.tf32.f32 rounds) and lo = a - hi, and a b ~ lo_a hi_b + hi_a lo_b
-//   + hi_a hi_b (small terms first), in both products: S = Q K^T and
-//   O += P V, P in f32.
-//   Operands are split in registers after a load of raw f32 from shared
-//   memory, so shared memory holds one f32 copy of each tile.
-// - mma.sync m16n8k8 rather than wgmma: .tf32 wgmma reads only K-major
-//   operands from shared memory, and V is MN-major for PV; a B operand read
-//   from shared memory would also need its lo half stored beside it.
+// - hi = a rounded to TF32 (as cvt.rna.tf32.f32 rounds), lo = a - hi, both
+//   split in registers after a load of raw f32 from shared memory, so
+//   shared memory holds one f32 copy of each tile.
 // - Q is pre-scaled by log2(e)/sqrt(D) before its split; the online softmax
 //   runs in f32 with ex2.approx.ftz, as the bf16 route.
 // - S's accumulator is P's A fragment up to a permutation of the 8 keys of
@@ -154,22 +208,15 @@
 //   multiples of 4 floats (the model's qkv thirds), else 4-byte copies; rows
 //   padded to 8*DK + 4 floats keep fragment loads free of bank conflicts.
 //   Shared memory: 5 tiles of 64 x (8*DK + 4) floats, 66,560 B at D=48.
-// - Above D=64 the same design would not fit: Q's split fragments alone
-//   would take 8 * DK registers a thread and five tiles 250,880 B at D=192,
-//   above the 232,448 B a block may have. There DK is rounded up to 12, 16,
-//   24 or 32 (fewer instantiations; the padding columns are zeros), Q stays
-//   in shared memory and each k-step's fragment is loaded and split once per
-//   K/V tile (the loop runs k-steps outside, the 8 key n-tiles inside), and
-//   the ring has one stage: three tiles, 150,528 B at D=192, 199,680 B at 256.
-// - Above D=256 (attn_fwd_tf32x3_wide) a Q tile and a K tile no longer fit
-//   beside each other (132,096 B each at D=512). DK is rounded up to 48 or 64;
-//   Q stays in shared memory, K is streamed in chunks of 64 columns (one
-//   17,408 B buffer, filled, waited on and consumed 8 k-steps at a time), and
-//   as on the bf16 route a block owns half of O's columns (DV = DK / 2 PV
-//   n-tiles, grid z over the two halves) and holds only that half of each V
-//   tile: 132,096 + 17,408 + 66,560 = 216,064 B at D=512 (166,912 B at 384).
-//   Both blocks of a Q tile compute the full scores; the copies are not
-//   overlapped with the products (a simple kernel first).
+// - Above D=64 (layouts no TMA map describes: 4-byte copies) DK is rounded
+//   up to 12, 16, 24 or 32, Q stays in shared memory and each k-step's
+//   fragment is loaded and split once per K/V tile, and the ring has one
+//   stage: three tiles, 150,528 B at D=192, 199,680 B at 256.
+// - Above D=256 (attn_fwd_tf32x3_wide, the same layouts) DK is rounded up to
+//   48 or 64; Q stays in shared memory, K is streamed in chunks of 64
+//   columns, and a block owns half of O's columns (grid z over the two
+//   halves): 216,064 B at D=512. Both blocks of a Q tile compute the full
+//   scores; the copies are not overlapped with the products.
 //
 // Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 495 TF32, 3.35 TB/s),
 // batch 16, per call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D;
@@ -187,10 +234,14 @@
 // f32: an f32-accurate product costs this card at least three TF32 passes,
 // so the bound is max(3 * FLOPs / 495e12, bytes / 3.35e12), not FLOPs at the
 // 67 TFLOP/s of the CUDA cores: [16, 1024, 4, 48] ~78 us (operations),
-// [16, 256, 6, 48] ~7.3 us (operations), [16, 64, 6, 48] ~1.4 us (bytes).
-// mma.sync reaches well under the wgmma rate, and each operand element costs
-// three CUDA-core instructions to split (once per warp that reads it), so
-// the split and the softmax, not the tensor cores, are expected to bound it.
+// [16, 256, 6, 48] ~7.3 us (operations), [16, 64, 6, 48] ~1.4 us (bytes);
+// above D = 64 [8, 1024, 4, 192] ~156 us and [8, 1024, 1, 512] ~104 us
+// (operations). On mma.sync every operand element costs three CUDA-core
+// instructions to split once per warp that reads it, so the split and the
+// softmax, not the tensor cores, bound attn_fwd_tf32x3. attn_fwd_tf32x3_ws
+// splits each K/V element once a block, but that split (three warps, an
+// atom's loads, then its stores) still paces the ring: it takes longer an
+// atom than the consumers' products (PERF.md, --f32 --clock).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1322,7 +1373,8 @@ Bf16Plan bf16_plan(int vec, int D) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: three TF32 passes on the tensor cores (mma.sync m16n8k8)
+// f32: three TF32 passes on the tensor cores, mma.sync m16n8k8 (D <= 64, and
+// the layouts no TMA map describes)
 // ---------------------------------------------------------------------------
 
 constexpr int F_WARPS = 4;  // one 16-row slab of the 64-row Q tile per warp
@@ -1761,15 +1813,665 @@ int launch_tf32x3(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// f32, 64 < D <= 512, TMA layouts: three TF32 passes on wgmma, warp
+// specialised (attn_fwd_tf32x3_ws; design, bound and budget in the header)
+// ---------------------------------------------------------------------------
+
+constexpr int FW_THREADS = 3 * WG;  // two consumer warpgroups and a producer
+constexpr int FW_STAGES = 8;        // atoms the ring holds
+// setmaxnreg: the producer's (TMA and the split pass) and each consumer's;
+// (72 + 2 * 216) * 128 = 64,512 registers, as a launch of 384 threads at
+// 168 registers holds them (the SM's 65,536 less 1,024)
+constexpr int FW_PRODUCER_REGS = 72, FW_CONSUMER_REGS = 216;
+static_assert((FW_PRODUCER_REGS + 2 * FW_CONSUMER_REGS) * WG <= 64512,
+              "registers past a 384-thread launch's");
+// above D = 256 (SPLIT) each consumer computes its half of QK^T's k-steps
+// and the two add their partial scores through shared memory; false: each
+// computes every k-step (the scores twice; scripts/torch_attention_variants.py
+// times it)
+constexpr bool FW_SHARE_SCORES = true;
+// PV on wgmma with V^T and V^T's lo written once a block by the producer
+// (true), or on mma.sync over the raw V tile and its lo (false); with
+// FW_V_SPLIT_ONCE false the mma.sync form splits V's fragments in every
+// consumer warp instead (scripts/torch_attention_variants.py --f32 times
+// each against the others)
+constexpr bool FW_PV_WGMMA = true, FW_V_SPLIT_ONCE = true;
+// clock64() stamps for scripts/torch_attention_variants.py --clock
+#ifndef FW_CLK
+#define FW_CLK(j, k)   // consumer 0's thread 0, key tile j, phase k
+#define FW_CLK_P(i, k) // the producer's thread 0, ring atom i, phase k
+#endif
+
+// the producer's threads that split the atoms (its warps 1..3; warp 0
+// issues the loads)
+constexpr int FW_SPLITTERS = 3 * 32;
+
+// Q rows a block: two consumer warpgroups of 64, or 64 (SPLIT: both on the
+// same rows, each owning half of O's columns)
+__host__ __device__ constexpr int fw_q_rows(bool split) {
+  return split ? TILE : 2 * TILE;
+}
+// one atom: kt rows of 32 floats (128 bytes, one swizzle row), a TMA box
+__host__ __device__ constexpr int fw_atom_bytes(int kt) { return kt * 128; }
+// SPLIT: each consumer's partial scores, two tiles deep
+__host__ __device__ constexpr int fw_xbuf_bytes(int kt, bool split) {
+  return split ? 2 * 2 * TILE * kt * 4 : 0;
+}
+// Q (na atoms of its rows), the score exchange, the ring (a stage: the raw
+// atom and its split half), + 1024 to align the base
+__host__ __device__ constexpr int fw_smem_bytes(int na, int kt, bool split) {
+  return fw_q_rows(split) * na * 128 + fw_xbuf_bytes(kt, split) +
+         FW_STAGES * 2 * fw_atom_bytes(kt) + 1024;
+}
+// the ring's mbarriers (Q's, then full, ready and empty a stage) ride in
+// static shared memory beside the dynamic tiles
+constexpr int FW_BAR_BYTES = 8 * (1 + 3 * FW_STAGES);
+static_assert(fw_smem_bytes(6, 64, false) + FW_BAR_BYTES <= 232448,
+              "D=192 tiles above the block limit");
+static_assert(fw_smem_bytes(8, 32, false) + FW_BAR_BYTES <= 232448,
+              "D=256 tiles above the block limit");
+static_assert(fw_smem_bytes(16, 32, true) + FW_BAR_BYTES <= 232448,
+              "D=512 tiles above the block limit");
+
+// x - trunc_tf32(x), exact in f32: the part of x the tensor cores drop
+// when they read x as TF32 (its low 13 mantissa bits)
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void fence_regs(float (&r)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// (d0, d1, d2, d3) += a b, mma.sync m16n8k8, TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32_4(float& d0, float& d1, float& d2,
+                                           float& d3, const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B, m64nNk8, TF32 in, f32 accumulate: A and B K-major in shared
+// memory (ss; d0 the accumulator's columns 0..N/2-1, d1 the rest), or A in
+// registers (rs; fragment of a k-step: a0 (g, t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4) of the warp's 16 rows). The tensor cores
+// read each f32 word as TF32 by dropping its low 13 bits.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d0)[N / 4],
+                                              float (&d1)[N / 4], uint64_t a,
+                                              uint64_t b);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b);
+
+#define FW_ACC8(d, o)                                                  \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),             \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define FW_ACC16(d) FW_ACC8(d, 0), FW_ACC8(d, 8)
+#define FW_ACC32(d) FW_ACC16(d), FW_ACC8(d, 16), FW_ACC8(d, 24)
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d0)[16],
+                                                  float (&d1)[16],
+                                                  uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : FW_ACC16(d0), FW_ACC16(d1)
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<128>(float (&d0)[32],
+                                                  float (&d1)[32],
+                                                  uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : FW_ACC32(d0), FW_ACC32(d1)
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : FW_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : FW_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef FW_ACC32
+#undef FW_ACC16
+#undef FW_ACC8
+
+// Warp-specialised block of FW_THREADS over QR = fw_q_rows(SPLIT) Q rows:
+// warpgroups 0 and 1 consume, warpgroup 2 produces. Q and K are read from
+// shared memory as NA atoms of 32 columns (128-byte swizzle, atom a holding
+// columns 32a..32a+31), K and V stream through one ring of FW_STAGES atoms
+// in the order K_j's atoms, V_j's atoms, K_(j+1)'s, ... (only atoms that
+// hold columns below D). A stage holds a raw atom as TMA wrote it and its
+// split half: for K the atom's lo = k - trunc(k) element for element, so
+// that [K; K_lo] is one 2*KT-row B operand; for V the atom transposed in
+// place into V^T (32 rows of O's columns, keys contiguous: the K-major B
+// operand PV needs, each 8-key step in the order 0, 2, 4, 6, 1, 3, 5, 7 that
+// S's accumulator gives P's A fragment) and its lo beside it. Barriers a
+// stage: full (TMA's bytes), ready (the 96 splitting threads)
+// and empty (one arrival a consumer warp: both consumers see every atom in
+// order, SPLIT's releasing the other's atoms unread).
+// Per key tile of KT keys a consumer computes
+//   S = Q K^T:  [Q_hi K^T | Q_hi K_lo^T] (ss, N = 2 KT) + Q_lo K^T (rs)
+//   O += P V:   P_lo V^T + P_hi V_lo^T + P_hi V^T (rs, N = 32 an atom)
+// with the hi operands the raw words (the tensor cores truncate them), Q_lo
+// split from shared memory into registers an atom at a time and P_lo from
+// the scores. Not SPLIT: consumer w owns rows 64w..64w+63 and every column.
+// SPLIT: both own rows 0..63; consumer w owns O's atoms a % 2 == w and
+// QK^T's k-steps in the same atoms, and the two add their partial S
+// through shared memory (each the same sum, so both take the same softmax).
+template <int NA, int KT, bool SPLIT>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+attn_fwd_tf32x3_ws(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   float* __restrict__ o, int H, int N, int M, int D,
+                   Strides ost, float scale_log2) {
+  constexpr int QR = fw_q_rows(SPLIT);
+  constexpr int NVA = SPLIT ? NA / 2 : NA;  // O's atoms a consumer owns
+  constexpr int ATOM = fw_atom_bytes(KT);
+  constexpr int STAGES = FW_STAGES;
+  constexpr int SR = KT / 2;  // S / P registers a thread after the sum
+  constexpr bool SHARE = SPLIT && FW_SHARE_SCORES;
+  static_assert(KT == 32 || KT == 64, "key tiles of 32 or 64");
+  static_assert(!SPLIT || NA % 2 == 0, "O's atoms in two halves");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_smem = base;  // atom a at q_smem + a * QR * 128
+  const uint32_t x_smem = base + QR * NA * 128;
+  const uint32_t ring = x_smem + fw_xbuf_bytes(KT, SPLIT);
+  const auto slot = [&](int s) { return ring + s * 2 * ATOM; };
+  const uint32_t q_full = smem_u32(bars);
+  const auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  const auto ready = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  const auto empty = [&](int s) {
+    return q_full + 8u * (1 + 2 * STAGES + s);
+  };
+
+  const int wg = threadIdx.x / WG;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int n0 = blockIdx.x * QR;
+  const int ntiles = (M + KT - 1) / KT;
+  const int nl = min(NA, (D + 31) / 32);  // atoms holding columns below D
+  const int per_tile = 2 * nl;            // ring atoms a key tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), FW_SPLITTERS);
+      mbar_init(empty(s), 4 * 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: warp 0's first thread issues every TMA load as soon as the
+    // atom's slot is free; warps 1..3 split each atom once it lands
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(FW_PRODUCER_REGS)
+                 : "memory");
+    const int pt = threadIdx.x - 2 * WG, lane = pt % 32, pw = pt / 32;
+    const int total = per_tile * ntiles;
+    if (pw == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(q_full, nl * QR * 128);
+        for (int a = 0; a < nl; ++a)  // one QR-row box an atom
+          tma_load(q_smem + a * QR * 128, &tq, q_full, 32 * a, h, n0, b);
+        for (int n = 0; n < total; ++n) {
+          const int s = n % STAGES, j = n / per_tile, r = n % per_tile;
+          // the slot's last atom released (the first round passes at once)
+          mbar_wait(empty(s), ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), ATOM);
+          tma_load(slot(s), r < nl ? &tk : &tv, full(s), 32 * (r % nl), h,
+                   j * KT, b);
+        }
+      }
+      return;
+    }
+    // The split works on 4 KB pieces (32 rows), one or two an atom, all of
+    // an atom's loads before its stores (24 registers of data a thread at
+    // 64-key tiles: the producer's 72 hold them; at 56 they spilled, and a
+    // load of the next atom ahead of the stores slowed 32-key tiles by 1-2
+    // %). K: 256 16-byte chunks a piece, three a thread; V: 8 chunks of 32
+    // keys a piece, three a warp.
+    constexpr int PIECES = KT / 32, PER = 3;
+    const int xt = pt - 32, vw = pw - 1;  // splitting thread, warp
+    // key u of an 8-key step sits at position 4 (u % 2) + u / 2 in V^T
+    const int u = lane % 8;
+    const int p = (lane & ~7) + 4 * (u % 2) + u / 2;
+    const auto is_k = [&](int i) { return i % per_tile < nl; };
+    // which splits an atom takes: K's lo; V's transpose and lo (PV on
+    // wgmma) or V's lo (mma.sync), or none (its warps split V themselves)
+    const auto kind = [&](int i) {
+      return is_k(i) || (!FW_PV_WGMMA && FW_V_SPLIT_ONCE) ? 1
+             : FW_PV_WGMMA                                ? 2
+                                                          : 0;
+    };
+    const auto load = [&](int k, float4(&x)[PER]) {
+      const int i = k / PIECES, hh = k % PIECES, s = i % STAGES;
+      const uint32_t raw = slot(s) + hh * 4096;
+      if (hh == 0) {
+        mbar_wait(full(s), (i / STAGES) & 1);
+        FW_CLK_P(i, 0)
+      }
+      if (kind(i) == 1) {
+#pragma unroll
+        for (int m = 0; m < PER; ++m)
+          if (xt + FW_SPLITTERS * m < 256)
+            x[m] = ld_shared_f4(raw + 16 * (xt + FW_SPLITTERS * m));
+      } else if (kind(i) == 2) {
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          const int c = vw + 3 * m;
+          if (c < 8) x[m] = ld_shared_f4(raw + lane * 128 + ((c ^ (lane % 8)) << 4));
+        }
+      }
+    };
+    const auto store = [&](int k, const float4(&x)[PER]) {
+      const int i = k / PIECES, hh = k % PIECES, s = i % STAGES;
+      const uint32_t raw = slot(s) + hh * 4096, lo = raw + ATOM;
+      if (kind(i) == 1) {
+        // lo beside the raw atom, 16 bytes for 16 bytes (same swizzle)
+#pragma unroll
+        for (int m = 0; m < PER; ++m)
+          if (xt + FW_SPLITTERS * m < 256)
+            st_shared_f4(lo + 16 * (xt + FW_SPLITTERS * m),
+                         make_float4(tf32_lo(x[m].x), tf32_lo(x[m].y),
+                                     tf32_lo(x[m].z), tf32_lo(x[m].w)));
+      } else if (kind(i) == 2) {
+        // V: [32 keys x 32 columns] -> V^T [32 columns x 32 keys] in place
+        // (the piece's 4 KB), V^T's lo beside it. Lane l read key l, warp
+        // w's step m the 16-byte chunk c: every warp's reads and writes
+        // fall on 32 distinct banks. All reads land before any write.
+        named_sync(3, FW_SPLITTERS);
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          const int c = vw + 3 * m;
+          if (c >= 8) continue;
+          const float e4[4] = {x[m].x, x[m].y, x[m].z, x[m].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = 4 * c + e;
+            const uint32_t off =
+                d * 128 + (((p / 4) ^ (d % 8)) << 4) + (p % 4) * 4;
+            st_shared_f32(raw + off, e4[e]);
+            st_shared_f32(lo + off, tf32_lo(e4[e]));
+          }
+        }
+      }
+      if (hh == PIECES - 1) {
+        FW_CLK_P(i, 2)
+        // the threads' generic-proxy writes, visible to wgmma's async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        FW_CLK_P(i, 3)
+        mbar_arrive(ready(s));
+        FW_CLK_P(i, 1)
+      }
+    };
+    float4 x[PIECES][PER];
+#pragma unroll 1
+    for (int i = 0; i < total; ++i) {  // an atom's loads before its stores
+#pragma unroll
+      for (int hh = 0; hh < PIECES; ++hh) load(i * PIECES + hh, x[hh]);
+#pragma unroll
+      for (int hh = 0; hh < PIECES; ++hh) store(i * PIECES + hh, x[hh]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(FW_CONSUMER_REGS)
+               : "memory");
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = SPLIT ? 0 : TILE * wg;  // this warpgroup's first Q row
+  // Q's lo fragments: rows 16 warp + g and + 8 of this warpgroup's, column
+  // t of a 16-byte chunk (the swizzle XORs the chunk with the row % 8 = g)
+  const uint32_t q_frag = q_smem + (row0 + 16 * warp + g) * 128 + 4 * t;
+  // ring atom i, which this warpgroup does not read: seen, then released
+  const auto pass = [&](int i) {
+    const int s = i % STAGES;
+    mbar_wait(ready(s), (i / STAGES) & 1);
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+
+  // O's atom la (SPLIT: 2 la + wg): its 32 columns
+  float acc[NVA][16];
+#pragma unroll
+  for (int la = 0; la < NVA; ++la)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[la][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  mbar_wait(q_full, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < ntiles; ++j) {
+    // S = Q K^T, an atom (4 k-steps) at a time: sc Q_hi K^T + Q_lo K^T,
+    // sl Q_hi K_lo^T. SPLIT: consumer w multiplies the atoms a % 2 == w
+    // (so the two run side by side down the ring) and releases the other's
+    // unread; each sees every atom in the ring's order: one that waited on
+    // its own atoms only could wait on a slot's next round before the
+    // current one completed, where the parity test passes at once
+    FW_CLK(j, 0)
+    float sc[SR], sl[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) sc[i] = sl[i] = 0.f;
+    int prev = -1;  // the stage of the last atom whose products are issued
+#pragma unroll 1
+    for (int a = 0; a < nl; ++a) {
+      const int i = per_tile * j + a, s = i % STAGES;
+      if (SHARE && a % 2 != wg) {
+        pass(i);
+        continue;
+      }
+      const uint32_t q_atom = q_smem + a * QR * 128 + row0 * 128;
+      const uint32_t k_atom = slot(s);
+      mbar_wait(ready(s), (i / STAGES) & 1);
+      fence_regs(sc);
+      fence_regs(sl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_ss<2 * KT>(sc, sl, make_desc(q_atom + 32 * kk, 16, 1024),
+                              make_desc(k_atom + 32 * kk, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the last atom's products (and Q_lo's reads) done
+      if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+      uint32_t ql[4][4];
+      const uint32_t qf = q_frag + a * QR * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t c0 = ((2 * kk) ^ g) << 4, c1 = ((2 * kk + 1) ^ g) << 4;
+        ql[kk][0] = __float_as_uint(tf32_lo(ld_shared_f32(qf + c0)));
+        ql[kk][1] = __float_as_uint(tf32_lo(ld_shared_f32(qf + 1024 + c0)));
+        ql[kk][2] = __float_as_uint(tf32_lo(ld_shared_f32(qf + c1)));
+        ql[kk][3] = __float_as_uint(tf32_lo(ld_shared_f32(qf + 1024 + c1)));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_rs<KT>(sc, ql[kk], make_desc(k_atom + 32 * kk, 16, 1024));
+      wgmma_commit();
+      prev = s;
+    }
+    FW_CLK(j, 1)
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(sl);
+    FW_CLK(j, 2)
+    if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+
+    float p[SR];  // the scores, then P: element 4i + 2r + e is (row g + 8r,
+                  // key 8i + 2t + e) of the warp's 16 rows
+#pragma unroll
+    for (int i = 0; i < SR; ++i) p[i] = sc[i] + sl[i];
+    if constexpr (SHARE) {
+      // add the other consumer's partial scores: each writes its own, both
+      // read the other's (a + b == b + a: the two sums are the same bits)
+      const uint32_t part = TILE * KT * 4;
+      const uint32_t mine = x_smem + ((j & 1) * 2 + wg) * part;
+      const uint32_t theirs = x_smem + ((j & 1) * 2 + 1 - wg) * part;
+#pragma unroll
+      for (int i = 0; i < SR; ++i) st_shared_f32(mine + (i * WG + tid) * 4, p[i]);
+      named_sync(4, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        p[i] += ld_shared_f32(theirs + (i * WG + tid) * 4);
+    }
+    FW_CLK(j, 3)
+    if ((j + 1) * KT > M) {  // ragged last tile: keys past M get -inf
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * KT + 8 * i + 2 * t + e >= M)
+            p[4 * i + e] = p[4 * i + 2 + e] = -INFINITY;
+    }
+    // online softmax in log2 units: every row's first tile holds key 0, so
+    // m_run is finite from the first tile on and alpha = exp2(-inf) = 0
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i)
+        mt = fmaxf(mt, fmaxf(p[4 * i + 2 * r], p[4 * i + 2 * r + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m_run[r], scale_log2 * mt);
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int r = (i / 2) % 2;
+      p[i] = exp2_ftz(fmaf(p[i], scale_log2, -m_run[r]));
+      l_run[r] += p[i];
+    }
+#pragma unroll
+    for (int la = 0; la < NVA; ++la)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[la][i] *= alpha[(i / 2) % 2];
+    // P's A fragment of k-step kk: keys 2t and 2t + 1 of the step as its
+    // k = t and t + 4 (V^T holds the keys in that order)
+    uint32_t ph[KT / 8][4], pl[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      const int idx[4] = {4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ph[kk][e] = __float_as_uint(p[idx[e]]);
+        pl[kk][e] = __float_as_uint(tf32_lo(p[idx[e]]));
+      }
+    }
+
+    FW_CLK(j, 4)
+    // O += P V, one atom of O's columns at a time (SPLIT: consumer w's are
+    // the atoms a % 2 == w)
+    prev = -1;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      constexpr int STEP = SPLIT ? 2 : 1;
+      const int la = a / STEP;
+      if (a < nl && SPLIT && a % 2 != wg) {
+        pass(per_tile * j + nl + a);
+      } else if (a < nl && !FW_PV_WGMMA) {
+        // mma.sync over the raw atom [KT keys x 32 columns] and its lo: B
+        // fragment b0 (k = t, n = g), b1 (k = t + 4, n = g) of key step kk
+        // and n-tile nt is V[8 kk + 2t (+1)][8 nt + g], P's keys' order
+        const int i = per_tile * j + nl + a, s = i % STAGES;
+        const uint32_t vr = slot(s);
+        mbar_wait(ready(s), (i / STAGES) & 1);
+#pragma unroll
+        for (int kk = 0; kk < KT / 8; ++kk)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int r = 8 * kk + 2 * t, c = 8 * nt + g;
+            const uint32_t o0 = r * 128 + (((c / 4) ^ (r % 8)) << 4) + (c % 4) * 4;
+            const uint32_t o1 =
+                (r + 1) * 128 + (((c / 4) ^ ((r + 1) % 8)) << 4) + (c % 4) * 4;
+            const float v0 = ld_shared_f32(vr + o0), v1 = ld_shared_f32(vr + o1);
+            const float l0 = FW_V_SPLIT_ONCE ? ld_shared_f32(vr + ATOM + o0) : tf32_lo(v0);
+            const float l1 = FW_V_SPLIT_ONCE ? ld_shared_f32(vr + ATOM + o1) : tf32_lo(v1);
+            float(&d)[16] = acc[la];
+            mma_tf32_4(d[4 * nt], d[4 * nt + 1], d[4 * nt + 2], d[4 * nt + 3],
+                       pl[kk], __float_as_uint(v0), __float_as_uint(v1));
+            mma_tf32_4(d[4 * nt], d[4 * nt + 1], d[4 * nt + 2], d[4 * nt + 3],
+                       ph[kk], __float_as_uint(l0), __float_as_uint(l1));
+            mma_tf32_4(d[4 * nt], d[4 * nt + 1], d[4 * nt + 2], d[4 * nt + 3],
+                       ph[kk], __float_as_uint(v0), __float_as_uint(v1));
+          }
+        if (lane == 0) mbar_arrive(empty(s));  // its values are in registers
+      } else if (a < nl) {
+        const int i = per_tile * j + nl + a, s = i % STAGES;
+        const uint32_t vt = slot(s);
+        mbar_wait(ready(s), (i / STAGES) & 1);
+        fence_regs(acc[la]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KT / 8; ++kk) {
+          const uint32_t off = (kk / 4) * 4096 + (kk % 4) * 32;
+          const uint64_t v_hi = make_desc(vt + off, 16, 1024);
+          const uint64_t v_lo = make_desc(vt + ATOM + off, 16, 1024);
+          wgmma_tf32_rs<32>(acc[la], pl[kk], v_hi);
+          wgmma_tf32_rs<32>(acc[la], ph[kk], v_lo);
+          wgmma_tf32_rs<32>(acc[la], ph[kk], v_hi);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the last atom's products done
+        if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+        prev = s;
+      }
+    }
+    FW_CLK(j, 5)
+    wgmma_wait<0>();
+#pragma unroll
+    for (int la = 0; la < NVA; ++la) fence_regs(acc[la]);
+    if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+    FW_CLK(j, 6)
+  }
+
+  float* ob = o + b * ost.b + h * ost.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv_l = 1.f / l;
+    const int row = n0 + row0 + 16 * warp + g + 8 * r;
+    if (row >= N) continue;
+    float* orow = ob + row * ost.n;
+#pragma unroll
+    for (int la = 0; la < NVA; ++la)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 32 * (SPLIT ? 2 * la + wg : la) + 8 * i + 2 * t;
+        const float v0 = acc[la][4 * i + 2 * r] * inv_l;
+        const float v1 = acc[la][4 * i + 2 * r + 1] * inv_l;
+        if (D % 2 == 0) {  // col even and < D: col + 1 < D, 8-byte aligned
+          if (col < D) *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+        } else {
+          if (col < D) orow[col] = v0;
+          if (col + 1 < D) orow[col + 1] = v1;
+        }
+      }
+  }
+}
+
+// [B, rows, H, D] f32 with element strides s -> 4-D map (D, H, rows, B),
+// box (32, 1, box_rows, 1): one 128-byte swizzle atom of box_rows rows
+CUresult encode_f32(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
+                    int rows, int H, int D, Strides s, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 4, (cuuint64_t)s.n * 4,
+                                 (cuuint64_t)s.b * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int NA, int KT, bool SPLIT>
+int launch_tf32x3_ws(const void* q, const void* k, const void* v, float* o,
+                     int B, int H, int N, int M, int D, Strides qs,
+                     Strides ks, Strides vs, Strides os, float scale_log2,
+                     cudaStream_t st) {
+  constexpr int smem = fw_smem_bytes(NA, KT, SPLIT);
+  const auto kernel = attn_fwd_tf32x3_ws<NA, KT, SPLIT>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = allow_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  CUtensorMap tq, tk, tv;
+  CUresult res = encode_f32(fn, &tq, q, B, N, H, D, qs, fw_q_rows(SPLIT));
+  if (res == CUDA_SUCCESS) res = encode_f32(fn, &tk, k, B, M, H, D, ks, KT);
+  if (res == CUDA_SUCCESS) res = encode_f32(fn, &tv, v, B, M, H, D, vs, KT);
+  if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
+  const dim3 grid((N + fw_q_rows(SPLIT) - 1) / fw_q_rows(SPLIT), B * H);
+  kernel<<<grid, FW_THREADS, smem, st>>>(tq, tk, tv, o, H, N, M, D, os,
+                                         scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D <= 64: attn_fwd_tf32x3 with DK = ceil(D / 8) k-steps of QK^T and
+// n-tiles of PV
 template <bool VEC>
-int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int B, int H, int N, int M, int D, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale_log2, cudaStream_t st) {
+int launch_f32_narrow(const float* q, const float* k, const float* v,
+                      float* o, int B, int H, int N, int M, int D, Strides qs,
+                      Strides ks, Strides vs, Strides os, float scale_log2,
+                      cudaStream_t st) {
 #define F32_CASE(DK)                                                        \
   case DK:                                                                  \
     return launch_tf32x3<DK, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, \
                                   scale_log2, st);
-  switch ((D + 7) / 8) {  // k-steps of QK^T, n-tiles of PV
+  switch ((D + 7) / 8) {
     F32_CASE(1)
     F32_CASE(2)
     F32_CASE(3)
@@ -1777,32 +2479,87 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
     F32_CASE(5)
     F32_CASE(6)
     F32_CASE(7)
-    F32_CASE(8)
+    default:
+      F32_CASE(8)
   }
-  // above D=64, DK rounded up to 12, 16, 24 or 32
-#define F32_UP_TO(DK)                                                       \
-  if (D <= 8 * DK)                                                          \
-    return launch_tf32x3<DK, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, \
-                                  scale_log2, st);
-  F32_UP_TO(12)
-  F32_UP_TO(16)
-  F32_UP_TO(24)
-  F32_UP_TO(32)
-  // above D=256, DK rounded up to 48 or 64, O's columns in two halves
-  if (D <= 384)
-    return launch_tf32x3_wide<48, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs,
-                                       os, scale_log2, st);
-  return launch_tf32x3_wide<64, VEC>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
-                                     scale_log2, st);
-#undef F32_UP_TO
 #undef F32_CASE
 }
 
-// 16-byte copies need a 16-byte aligned base and batch, row and head
-// strides that are multiples of 4 floats
+// Which f32 kernel takes (tma, D), and its tiles: `kernel` 0 attn_fwd_tf32x3
+// (D <= 64, and up to 256 the layouts no TMA map describes), 1
+// attn_fwd_tf32x3_wide (those above 256), 2 attn_fwd_tf32x3_ws (TMA layouts
+// above 64); dk: D padded, in k-steps of 8 (the ws kernel's atoms are dk / 4);
+// kt: keys a tile; split: the ws kernel's two consumers on one 64-row Q tile
+struct F32Plan {
+  int kernel, dk, kt;
+  bool split;
+};
+
+F32Plan f32_plan(bool tma, int D) {
+  if (D <= 64) return {0, (D + 7) / 8, TILE, false};
+  if (!tma) {
+    if (D <= 256)
+      return {0, D <= 96 ? 12 : D <= 128 ? 16 : D <= 192 ? 24 : 32, TILE,
+              false};
+    return {1, D <= 384 ? 48 : 64, TILE, false};
+  }
+  if (D <= 96) return {2, 12, 64, false};
+  if (D <= 128) return {2, 16, 64, false};
+  if (D <= 192) return {2, 24, 64, false};
+  if (D <= 256) return {2, 32, 32, false};  // O's 128 registers: 32-key S
+  return {2, D <= 384 ? 48 : 64, 32, true};
+}
+
+int f32_smem_bytes(const F32Plan& p) {
+  if (p.kernel == 2) return fw_smem_bytes(p.dk / 4, p.kt, p.split);
+  return p.kernel == 1 ? f_wide_smem_bytes(p.dk) : f_smem_bytes(p.dk);
+}
+
+// 16-byte copies and TMA maps need a 16-byte aligned base and batch, row
+// and head strides that are multiples of 4 floats
 bool rows_aligned16(const void* p, Strides s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 &&
          s.n % 4 == 0 && s.h % 4 == 0;
+}
+
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int H, int N, int M, int D, Strides qs, Strides ks,
+               Strides vs, Strides os, float scale_log2, cudaStream_t st) {
+  const bool tma = rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
+                   rows_aligned16(v, vs);
+  const F32Plan p = f32_plan(tma, D);
+  if (p.kernel == 2) {
+    switch (p.dk) {
+#define WS_CASE(DK, NA, KT, SPLIT)                                          \
+  case DK:                                                                  \
+    return launch_tf32x3_ws<NA, KT, SPLIT>(q, k, v, o, B, H, N, M, D, qs, ks, \
+                                           vs, os, scale_log2, st);
+      WS_CASE(12, 3, 64, false)
+      WS_CASE(16, 4, 64, false)
+      WS_CASE(24, 6, 64, false)
+      WS_CASE(32, 8, 32, false)
+      WS_CASE(48, 12, 32, true)
+      default:
+        WS_CASE(64, 16, 32, true)
+#undef WS_CASE
+    }
+  }
+  if (D <= 64) {
+    if (tma && D % 4 == 0)
+      return launch_f32_narrow<true>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
+                                     scale_log2, st);
+    return launch_f32_narrow<false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
+                                    scale_log2, st);
+  }
+  // layouts no TMA map describes: 4-byte copies
+  switch (p.dk) {
+    case 12: return launch_tf32x3<12, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+    case 16: return launch_tf32x3<16, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+    case 24: return launch_tf32x3<24, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+    case 32: return launch_tf32x3<32, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+    case 48: return launch_tf32x3_wide<48, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+    default: return launch_tf32x3_wide<64, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+  }
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
@@ -1851,16 +2608,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
       default: return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
     }
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  if (D % 4 == 0 && rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
-      rows_aligned16(v, vs))
-    return launch_f32<true>(qf, kf, vf, of, B, H, N, M, D, qs, ks, vs, os,
-                            scale_log2, st);
-  return launch_f32<false>(qf, kf, vf, of, B, H, N, M, D, qs, ks, vs, os,
-                           scale_log2, st);
+  return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o), B, H,
+                    N, M, D, qs, ks, vs, os, scale_log2, st);
 }
 
 }  // namespace
@@ -1908,4 +2658,24 @@ extern "C" void dsdiff_flash_attention_bf16_plan(int vec, int B, int H, int N,
   out[5] = (N + rows - 1) / rows;
   out[6] = B * H;
   out[7] = p.na / p.nv;
+}
+
+// The f32 launch dsdiff_flash_attention makes for (vec, B, H, N, D), vec 0
+// for q, k, v a TMA map describes (16-byte aligned bases, b, n, h strides
+// multiples of 4 floats), into out[9]: kernel (0 attn_fwd_tf32x3, 1
+// attn_fwd_tf32x3_wide, 2 attn_fwd_tf32x3_ws), Q rows a block, keys a tile,
+// ring stages, threads a block, dynamic shared memory bytes, grid x, y, z.
+extern "C" void dsdiff_flash_attention_f32_plan(int vec, int B, int H, int N,
+                                                int D, int* out) {
+  const F32Plan p = f32_plan(vec == 0, D);
+  const int rows = p.kernel == 2 ? fw_q_rows(p.split) : TILE;
+  out[0] = p.kernel;
+  out[1] = rows;
+  out[2] = p.kt;
+  out[3] = p.kernel == 2 ? FW_STAGES : p.kernel == 1 ? 1 : f_stages(p.dk);
+  out[4] = p.kernel == 2 ? FW_THREADS : F_THREADS;
+  out[5] = f32_smem_bytes(p);
+  out[6] = (N + rows - 1) / rows;
+  out[7] = B * H;
+  out[8] = p.kernel == 1 ? 2 : 1;
 }

@@ -7,24 +7,28 @@ cast back to q's dtype), used for CPU tensors and to check the kernel.
 Layout: ``[B, N, heads, D]`` in and out, head dims 1 to 512: the TPU
 kernel's up to 256 (the flagship's 48, DiT-B's 64, DiT-XL's 72, the
 disc_diff and palette U-Nets' 192) and the KL-VAE's single 512-wide head,
-which the JAX package sends to XLA and the port to the kernel. Above 256
-each 64-row Q tile takes two blocks, each owning half of the output's
-columns (both compute the full scores).
+which the JAX package sends to XLA and the port to the kernel.
 
 The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
 bf16 through ``wgmma`` with K/V fed by TMA (``bf16_plan`` names its
 instantiation: above D = 64, on TMA layouts, a warp-specialised block of
 128 Q rows, two consumer warpgroups and a producer, ``wgmma_ws``), f32
-through ``mma.sync`` in three
-TF32 passes (``tf32x3``: each operand split into a TF32 high and low part,
-which keeps the products f32-accurate) with K/V fed by ``cp.async``. Both
-take any strides with a contiguous last dimension. The bf16 route reads q,
+in three TF32 passes (``tf32x3``: each operand split into a TF32 high and
+low part, which keeps the products f32-accurate). ``f32_plan`` names the
+f32 kernel: above D = 64, on layouts a TMA map describes, ``tf32x3_ws``
+(``wgmma``, two consumer warpgroups and a producer that loads K and V
+through TMA and splits each tile once); up to 64, and for the other
+layouts, ``tf32x3`` / ``tf32x3_wide`` (``mma.sync``, tiles by
+``cp.async``). Both routes take any strides with a contiguous last
+dimension. The bf16 route reads q,
 k and v through TMA tensor maps where they can describe the layout
 (16-byte aligned bases, batch, row and head strides that are multiples of 8
 elements); otherwise (a head of D = 36 has a 72-byte head stride) the
 kernel's threads load the same swizzled tiles themselves, 8, 4 or 2 bytes a
-copy (``bf16_load`` says which). The f32 route copies 16 bytes where the
-layout allows it and 4 otherwise.
+copy (``bf16_load`` says which). The f32 route reads through TMA above
+D = 64 where the bases are 16-byte aligned and the batch, row and head
+strides are multiples of 4 floats, else copies 16 bytes where the layout
+allows it and 4 otherwise (``f32_load``).
 
 The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
 an ``autograd.Function`` whose forward is the kernel and whose backward is
@@ -43,8 +47,9 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "reference_attention", "FlashAttention",
-           "bf16_load", "bf16_plan", "route", "LAUNCHES", "MAX_HEAD_DIM",
-           "ROUTES", "BF16_LOADS", "BF16_KERNELS", "SMEM_LIMIT"]
+           "bf16_load", "bf16_plan", "f32_load", "f32_plan", "route",
+           "LAUNCHES", "MAX_HEAD_DIM", "ROUTES", "BF16_LOADS", "BF16_KERNELS",
+           "F32_KERNELS", "SMEM_LIMIT"]
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
@@ -62,8 +67,17 @@ BF16_LOADS = {0: "tma", 4: "cp.async 8 B", 2: "cp.async 4 B", 1: "ld 2 B"}
 # 64-row Q tile (attn_fwd_wgmma), or, above D = 64 on TMA layouts, two
 # consumer warpgroups and a producer a 128-row Q tile (attn_fwd_ws)
 BF16_KERNELS = ("wgmma", "wgmma_ws")
+# the f32 route's three kernels (csrc/flash_attention.cu): mma.sync with
+# the threads' copies, one block a 64-row Q tile (attn_fwd_tf32x3; above
+# D = 256 two blocks, attn_fwd_tf32x3_wide), or, above D = 64 on TMA
+# layouts, wgmma with two consumer warpgroups and a producer
+# (attn_fwd_tf32x3_ws)
+F32_KERNELS = ("tf32x3", "tf32x3_wide", "tf32x3_ws")
 # shared memory a block may have on an H100
 SMEM_LIMIT = 232448
+# attn_fwd_tf32x3_ws: ring stages (atoms of 32 columns) and the registers
+# of its producer and of each consumer thread after setmaxnreg
+_FW_STAGES, _FW_PRODUCER_REGS, _FW_CONSUMER_REGS = 8, 72, 216
 
 # csrc/flash_attention.cu's tile constants: K/V tile and attn_fwd_wgmma's Q
 # rows, one 128-byte swizzle atom of a 64-row tile, attn_fwd_ws's consumer
@@ -167,14 +181,82 @@ def bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
                 smem_bytes=smem, grid=(-(-N // rows), B * H, na // nv))
 
 
+def _f32_vec(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             strides) -> int:
+    """The f32 route's ``vec``: 0 where TMA maps describe q, k and v
+    (16-byte aligned bases, batch, row and head strides multiples of 4
+    floats; the kernel's own test), else 1."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    aligned = (all(p % 16 == 0 for p in ptrs)
+               and all(st[i] % 4 == 0 for st in strides for i in range(3)))
+    return 0 if aligned else 1
+
+
+def f32_load(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """How the f32 route loads these q, k and v: "tma" above D = 64 where
+    a tensor map describes them, else its threads' "cp.async 16 B" (the
+    same alignment and D a multiple of 4) or "cp.async 4 B"."""
+    D = q.shape[3]
+    vec = _f32_vec(q, k, v, (q.stride(), k.stride(), v.stride()))
+    if vec == 0:
+        return "tma" if D > 64 else ("cp.async 16 B" if D % 4 == 0
+                                     else "cp.async 4 B")
+    return "cp.async 4 B"
+
+
+def f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+    """The f32 launch the C entry makes for [B, N, H, D] q and ``vec``
+    (``_f32_vec``; 0 = TMA maps describe the layout): its kernel
+    (``F32_KERNELS``), D padded in k-steps of 8 (``dk``; ``tf32x3_ws``
+    reads ``dk / 4`` atoms of 32 columns), the Q rows of a block, the keys
+    of a K/V tile, ring stages, consumer warpgroups, threads, its dynamic
+    shared memory in bytes and its grid; for ``tf32x3_ws`` also whether its
+    two consumers share one 64-row Q tile, each owning half of O's columns
+    (``split``), and the registers of its warpgroups (``producer_regs``,
+    ``consumer_regs``) and of a consumer thread's accumulators
+    (``accumulator_regs``: O, the fused S, Q's lo fragments of an atom).
+    ``dsdiff_flash_attention_f32_plan`` in the source returns the same
+    numbers."""
+    dk = (-(-D // 8) if D <= 64 else 12 if D <= 96 else 16 if D <= 128
+          else 24 if D <= 192 else 32 if D <= 256 else 48 if D <= 384 else 64)
+    kernel = ("tf32x3" if D <= 64 or (vec != 0 and D <= 256)
+              else "tf32x3_wide" if vec != 0 else "tf32x3_ws")
+    split = kernel == "tf32x3_ws" and D > 256
+    if kernel == "tf32x3_ws":
+        # O's 128 registers a thread at D = 256 and 512 leave room for the
+        # scores of 32 keys only
+        na, kt = dk // 4, 64 if dk <= 24 else 32
+        rows = _TILE if split else 2 * _TILE
+        xbuf = 2 * 2 * _TILE * kt * 4 if split else 0
+        smem = rows * na * 128 + xbuf + _FW_STAGES * 2 * kt * 128 + 1024
+        o_atoms = na // 2 if split else na
+        return dict(kernel=kernel, dk=dk, q_rows=rows, key_rows=kt,
+                    stages=_FW_STAGES, consumers=2, threads=384,
+                    smem_bytes=smem, grid=(-(-N // rows), B * H, 1),
+                    split=split, producer_regs=_FW_PRODUCER_REGS,
+                    consumer_regs=_FW_CONSUMER_REGS,
+                    accumulator_regs=16 * o_atoms + kt + 16)
+    ld = 8 * dk + 4  # a tile row in floats, padded against bank conflicts
+    if kernel == "tf32x3":
+        stages = 2 if dk <= 8 else 1
+        smem = (1 + 2 * stages) * _TILE * ld * 4
+    else:  # Q, a 64-column K chunk and half of V
+        stages = 1
+        smem = (_TILE * ld + _TILE * (8 * 8 + 4) + _TILE * (4 * dk + 4)) * 4
+    return dict(kernel=kernel, dk=dk, q_rows=_TILE, key_rows=_TILE,
+                stages=stages, consumers=1, threads=128, smem_bytes=smem,
+                grid=(-(-N // _TILE), B * H, 2 if kernel == "tf32x3_wide" else 1),
+                split=False)
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel these q, k, v take: ``tf32x3`` for f32, for bf16 the
-    ``bf16_plan`` kernel of their layout."""
-    if q.dtype != torch.bfloat16:
-        return ROUTES[q.dtype]
+    """The kernel these q, k, v take: the ``bf16_plan`` or ``f32_plan``
+    kernel of their dtype and layout."""
     B, N, H, D = q.shape
-    vec = _vec(q, k, v, (q.stride(), k.stride(), v.stride()))
-    return bf16_plan(B, N, H, D, vec)["kernel"]
+    strides = (q.stride(), k.stride(), v.stride())
+    if q.dtype != torch.bfloat16:
+        return f32_plan(B, N, H, D, _f32_vec(q, k, v, strides))["kernel"]
+    return bf16_plan(B, N, H, D, _vec(q, k, v, strides))["kernel"]
 
 
 def native_bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
@@ -186,6 +268,17 @@ def native_bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
     return dict(kernel=BF16_KERNELS[out[0]], q_rows=out[1], stages=out[2],
                 threads=out[3], smem_bytes=out[4],
                 grid=(out[5], out[6], out[7]))
+
+
+def native_f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+    """``f32_plan``'s numbers as the built kernel library gives them
+    (needs the library, so ``nvcc``)."""
+    fn = _library().dsdiff_flash_attention_f32_plan
+    out = (ctypes.c_int * 9)()
+    fn(vec, B, H, N, D, out)
+    return dict(kernel=F32_KERNELS[out[0]], q_rows=out[1], key_rows=out[2],
+                stages=out[3], threads=out[4], smem_bytes=out[5],
+                grid=(out[6], out[7], out[8]))
 
 
 def _library():
@@ -201,6 +294,9 @@ def _library():
         )
         fn.restype = ctypes.c_int
         plan = lib.dsdiff_flash_attention_bf16_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = None
+        plan = lib.dsdiff_flash_attention_f32_plan
         plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = None
         _lib = lib

@@ -21,12 +21,20 @@ the C entry with (bf16) and without (f32) the three tensor-map encodes, and
 SDPA's call; each the least of five runs of 2000 calls.
 
 ``--wide`` keeps the bf16 shapes above D = 64 and their variants only, and
-skips the host timing. ``--baseline PATH`` adds another version of the
-source (the parent commit's, say) as the variant ``baseline``, timed at
-every shape. ``--clock`` builds the source with ``clock64()`` stamps
-(``CLOCK_EDITS``) and prints the cycles of each phase of an ``attn_fwd_ws``
-key tile, its prologue and its epilogue. Exits non-zero without a CUDA
-device, or when an edit no longer applies to the kernel's source.
+skips the host timing; ``--f32`` the same for the f32 route above D = 64
+(``attn_fwd_tf32x3_ws``: ``F32_SHAPES``, the ``ws32_*`` variants).
+``--baseline PATH`` adds another version of the source (the parent
+commit's, say) as the variant ``baseline``, timed at every shape.
+``--clock`` builds the source with ``clock64()`` stamps (``CLOCK_EDITS``)
+and prints the cycles of each phase of an ``attn_fwd_ws`` key tile, its
+prologue and its epilogue; ``--clock --f32`` those of an
+``attn_fwd_tf32x3_ws`` key tile and of its producer's split of an atom
+(``F32_CLOCK_EDITS``, the kernel's ``FW_CLK`` hooks). Exits non-zero
+without a CUDA device, or when an edit no longer applies to the kernel's
+source.
+
+    python scripts/torch_attention_variants.py --f32 [--baseline PATH]
+    python scripts/torch_attention_variants.py --f32 --clock
 """
 import argparse
 import ctypes
@@ -52,6 +60,15 @@ SHAPES = [(4, 1024, 4, 48), (8, 1024, 4, 48), (16, 1024, 4, 48),
           (4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 4, 128),
           (4, 1024, 16, 72), (4, 1024, 4, 256)]
 BF16, F32 = torch.bfloat16, torch.float32
+# the f32 rows above D = 64 (PERF.md): disc_diff / palette, the KL-VAE's
+# one head of 512, the guidance classifier, CLIP ViT-H/14's image tower,
+# DiT-XL/8's and D = 256
+F32_SHAPES = [(4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 1, 512),
+              (8, 1024, 1, 512), (4, 1024, 4, 128), (4, 257, 16, 80),
+              (4, 1024, 16, 72), (4, 1024, 4, 256)]
+# --f32 times the ws32_* variants at these only (the package's kernel and
+# --baseline at every F32_SHAPES row)
+F32_ABLATION_SHAPES = [(8, 1024, 4, 192), (4, 1024, 1, 512), (8, 1024, 1, 512)]
 
 # name -> (edits of the source as (old, new, times old occurs), whether the
 # output is still right, dtype of the route it edits, head dims it runs at:
@@ -166,16 +183,60 @@ VARIANTS = {
     # f32: one TF32 pass (hi * hi only), which prices the two extra passes;
     # its error shows why the route needs them
     "f32_one_pass": ([("  mma_tf32(d, a_lo, b0_hi, b1_hi);\n"
-                       "  mma_tf32(d, a_hi, b0_lo, b1_lo);\n", "", 1)], False, F32, "all"),
+                       "  mma_tf32(d, a_hi, b0_lo, b1_lo);\n", "", 1)], False, F32, "narrow"),
     # f32: the split through cvt.rna.tf32.f32 for hi and for lo
     "f32_cvt_rna": ([("  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n"
                       "  lo = __float_as_uint(x - __uint_as_float(hi));",
                       '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
                       '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) '
-                      ': "f"(x - __uint_as_float(hi)));', 1)], True, F32, "all"),
+                      ': "f"(x - __uint_as_float(hi)));', 1)], True, F32, "narrow"),
     # f32: K/V tiles loaded once into the ring and reused
     "f32_no_refill": ([("if (j + F_STAGES < ntiles) {",
-                        "if (j + F_STAGES < ntiles && D < 0) {", 1)], False, F32, "all"),
+                        "if (j + F_STAGES < ntiles && D < 0) {", 1)], False, F32, "narrow"),
+    # attn_fwd_tf32x3_ws (f32 above D = 64). Ablations: the loads (the
+    # ring's first FW_STAGES atoms loaded once and split again and again),
+    # QK^T's products, PV's products, the lo passes (one TF32 pass: S from
+    # Q_hi K^T alone, PV from P_hi V^T alone)
+    "ws32_no_loads": ([("        for (int n = 0; n < total; ++n) {\n"
+                        "          const int s = n % STAGES, j = n / per_tile",
+                        "        for (int n = 0; n < total && n < STAGES; ++n) {\n"
+                        "          const int s = n % STAGES, j = n / per_tile", 1),
+                       ("        mbar_wait(full(s), (i / STAGES) & 1);\n        FW_CLK_P(i, 0)",
+                        "        mbar_wait(full(s), 0);\n        FW_CLK_P(i, 0)", 1)],
+                      False, F32, "wide"),
+    "ws32_no_qk": ([("        wgmma_tf32_ss<2 * KT>(sc, sl,",
+                     "        if (D < 0) wgmma_tf32_ss<2 * KT>(sc, sl,", 1),
+                    ("        wgmma_tf32_rs<KT>(sc, ql[kk],",
+                     "        if (D < 0) wgmma_tf32_rs<KT>(sc, ql[kk],", 1)],
+                   False, F32, "wide"),
+    "ws32_no_pv": ([("          wgmma_tf32_rs<32>(acc[la], ",
+                     "          if (D < 0) wgmma_tf32_rs<32>(acc[la], ", 3)],
+                   False, F32, "wide"),
+    "ws32_one_pass": ([("        wgmma_tf32_rs<KT>(sc, ql[kk],",
+                        "        if (D < 0) wgmma_tf32_rs<KT>(sc, ql[kk],", 1),
+                       ("    for (int i = 0; i < SR; ++i) p[i] = sc[i] + sl[i];",
+                        "    for (int i = 0; i < SR; ++i) p[i] = sc[i];", 1),
+                       ("          wgmma_tf32_rs<32>(acc[la], pl[kk], v_hi);\n"
+                        "          wgmma_tf32_rs<32>(acc[la], ph[kk], v_lo);\n", "", 1)],
+                      False, F32, "wide"),
+    # the ring at its least depth: a consumer holds up to two atoms and
+    # the split reads the next atom before it releases the one it splits
+    "ws32_stages_4": ([("constexpr int FW_STAGES = 8;", "constexpr int FW_STAGES = 4;", 1)],
+                      True, F32, "wide"),
+    # PV design (b): mma.sync over the raw V atom and its lo, split once a
+    # block; and the same with every consumer warp splitting the V values
+    # it reads (as the mma.sync kernel before split every operand)
+    "ws32_pv_mma_sync": ([("constexpr bool FW_PV_WGMMA = true, FW_V_SPLIT_ONCE = true;",
+                           "constexpr bool FW_PV_WGMMA = false, FW_V_SPLIT_ONCE = true;", 1)],
+                         True, F32, "wide"),
+    "ws32_pv_mma_sync_warp_split": (
+        [("constexpr bool FW_PV_WGMMA = true, FW_V_SPLIT_ONCE = true;",
+          "constexpr bool FW_PV_WGMMA = false, FW_V_SPLIT_ONCE = false;", 1)],
+        True, F32, "wide"),
+    # above D = 256: both consumers compute every k-step of QK^T (the
+    # scores twice) instead of each half and a sum through shared memory
+    "ws32_dup_scores": ([("constexpr bool FW_SHARE_SCORES = true;",
+                          "constexpr bool FW_SHARE_SCORES = false;", 1)], True, F32, "wide"),
 }
 
 # --clock: attn_fwd_ws with clock64() stamps of block (0, 0), its consumer
@@ -231,6 +292,71 @@ CLOCK_EDITS = [
      "extern \"C\" void dsdiff_flash_attention_bf16_plan(", 1),
 ]
 CLOCK_SHAPES = [(4, 1024, 4, 192), (8, 1024, 4, 192), (4, 1024, 4, 128)]
+
+# --clock --f32: attn_fwd_tf32x3_ws's FW_CLK hooks defined, block (0, 0):
+# consumer 0's thread 0 at each phase of key tile j (tile start, QK^T
+# issued, QK^T done, scores summed (SPLIT: the other consumer's added),
+# softmax done, PV issued, PV done) and the producer's first splitting
+# thread at each atom i (landed, split and released, stores issued, fenced)
+F32_CLOCK_PHASES = ("issue QK", "wait QK", "sum S", "softmax", "issue PV",
+                    "wait PV", "to next tile")
+F32_CLOCK_EDITS = [
+    ("namespace {\n",
+     "namespace {\n__device__ long long g_fw_clock[17][8];\n"
+     "__device__ long long g_fw_prod[64][4];\n"
+     "#define FW_CLK(j, k) if (blockIdx.x == 0 && blockIdx.y == 0 && "
+     "threadIdx.x == 0 && (j) < 17) g_fw_clock[j][k] = clock64();\n"
+     "#define FW_CLK_P(i, k) if (blockIdx.x == 0 && blockIdx.y == 0 && "
+     "threadIdx.x == 2 * WG + 32 && (i) < 64) g_fw_prod[i][k] = clock64();\n", 1),
+    ("extern \"C\" void dsdiff_flash_attention_bf16_plan(",
+     "extern \"C\" int dsdiff_fw_clock(void* tiles, void* atoms) {\n"
+     "  int e = (int)cudaMemcpyFromSymbol(tiles, g_fw_clock, sizeof(g_fw_clock));\n"
+     "  return e ? e : (int)cudaMemcpyFromSymbol(atoms, g_fw_prod, sizeof(g_fw_prod));\n}\n\n"
+     "extern \"C\" void dsdiff_flash_attention_bf16_plan(", 1),
+]
+F32_CLOCK_SHAPES = [(8, 1024, 4, 192), (4, 1024, 4, 128), (4, 1024, 4, 256),
+                    (8, 1024, 1, 512)]
+
+
+def f32_clock_breakdown(lib_fn, clock_fn) -> None:
+    """Cycles of each phase of an attn_fwd_tf32x3_ws key tile (block
+    (0, 0), consumer 0, the mean over tiles 2..14) and of the producer's
+    split of an atom (landed to released) and wait for the next."""
+    run = launcher(lib_fn)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tiles = (ctypes.c_longlong * (17 * 8))()
+    atoms = (ctypes.c_longlong * (64 * 4))()
+    for B, N, H, D in F32_CLOCK_SHAPES:
+        qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
+                          dtype=F32)
+        for _ in range(3):
+            run(*qkv.unbind(2))
+        torch.cuda.synchronize()
+        if clock_fn(tiles, atoms):
+            raise RuntimeError("cudaMemcpyFromSymbol failed")
+        t = [[tiles[j * 8 + k] for k in range(8)] for j in range(17)]
+        phases = []
+        for k in range(7):
+            d = [(t[j][k + 1] if k < 6 else t[j + 1][0]) - t[j][k]
+                 for j in range(2, 15)]
+            phases.append(sum(d) / len(d))
+        plan = fa.f32_plan(B, N, H, D)
+        print(f"[clock] [{B},{N},{H},{D}] f32 tf32x3_ws ({plan['key_rows']}-key "
+              f"tiles, {plan['dk'] // 4} atoms, split {plan['split']}), consumer 0, "
+              f"cycles a key tile: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in zip(F32_CLOCK_PHASES, phases))
+              + f"; total {sum(phases):.0f}")
+        a = [[atoms[i * 4 + k] for k in range(4)] for i in range(64)]
+        mean = lambda x: sum(x) / len(x)  # noqa: E731
+        span = range(8, 56)
+        print(f"[clock]   producer's first splitting thread, cycles an atom "
+              f"(atoms 8..55): loads and stores "
+              f"{mean([a[i][2] - a[i][0] for i in span]):.0f}, fence "
+              f"{mean([a[i][3] - a[i][2] for i in span]):.0f}, arrival "
+              f"{mean([a[i][1] - a[i][3] for i in span]):.0f}; the next atom "
+              f"landed {mean([a[i + 1][0] - a[i][1] for i in span]):.0f} "
+              f"after (the wait for it)")
+        del qkv
 
 
 def clock_breakdown(lib_fn, clock_fn) -> None:
@@ -302,6 +428,8 @@ def _probe_shapes(name: str) -> list:
     # the --clock build is not in VARIANTS here: a D > 64 bf16 variant
     reach = "all" if name == "package" else VARIANTS.get(name, _WIDE)[3]
     dims = {"narrow": [48], "wide": [192, 256], "all": [48, 192, 256]}[reach]
+    if name != "package" and VARIANTS.get(name, _WIDE)[2] == F32 and reach == "wide":
+        dims = [192, 256, 512]
     return [(2, 1024, 2, D) for D in dims] + [(1, 200, 1, D) for D in dims]
 
 
@@ -409,8 +537,12 @@ def main() -> None:
     ap.add_argument("--wide", action="store_true",
                     help="only the bf16 shapes above D = 64 and the variants "
                          "that run there; no host timing")
+    ap.add_argument("--f32", action="store_true",
+                    help="only the f32 shapes above D = 64 (F32_SHAPES) and "
+                         "the variants that run there; no host timing")
     ap.add_argument("--clock", action="store_true",
-                    help="only attn_fwd_ws's cycles by phase (CLOCK_EDITS)")
+                    help="only attn_fwd_ws's cycles by phase (CLOCK_EDITS); "
+                         "with --f32 attn_fwd_tf32x3_ws's (F32_CLOCK_EDITS)")
     ap.add_argument("--baseline", metavar="PATH",
                     help="also build PATH (another version of "
                          "flash_attention.cu, e.g. the parent commit's) as the "
@@ -424,12 +556,15 @@ def main() -> None:
     if args.probe:
         probe(args.probe)
         return
+    clock_name = "ws32_clock" if args.f32 else "ws_clock"
     if args.clock:
         VARIANTS.clear()
-        VARIANTS["ws_clock"] = (CLOCK_EDITS, True, BF16, "wide")
-    if args.wide:
+        VARIANTS[clock_name] = ((F32_CLOCK_EDITS, True, F32, "wide") if args.f32
+                                else (CLOCK_EDITS, True, BF16, "wide"))
+    if args.wide or args.f32:
+        keep = F32 if args.f32 else BF16
         for name in [n for n, v in VARIANTS.items()
-                     if v[2] not in (BF16, None) or v[3] == "narrow"]:
+                     if v[2] not in (keep, None) or v[3] == "narrow"]:
             del VARIANTS[name]
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -443,19 +578,29 @@ def main() -> None:
     if "package" not in entries:
         raise SystemExit("the package's kernel did not answer its probe")
     if args.clock:
-        clock_fn = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / "ws_clock.so")).dsdiff_clock
-        clock_fn.argtypes, clock_fn.restype = [ctypes.c_void_p], ctypes.c_int
-        if "ws_clock" not in entries:
+        lib = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / f"{clock_name}.so"))
+        if clock_name not in entries:
             raise SystemExit("the clocked kernel did not answer its probe")
-        clock_breakdown(entries["ws_clock"], clock_fn)
+        if args.f32:
+            clock_fn = lib.dsdiff_fw_clock
+            clock_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            clock_fn.restype = ctypes.c_int
+            f32_clock_breakdown(entries[clock_name], clock_fn)
+        else:
+            clock_fn = lib.dsdiff_clock
+            clock_fn.argtypes, clock_fn.restype = [ctypes.c_void_p], ctypes.c_int
+            clock_breakdown(entries[clock_name], clock_fn)
         return
     runs = {name: launcher(fn) for name, fn in entries.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (BF16,) if args.wide else (BF16, F32):
-        for B, N, H, D in [x for x in SHAPES if x[3] > 64 or not args.wide]:
+    for dtype in (F32,) if args.f32 else (BF16,) if args.wide else (BF16, F32):
+        for B, N, H, D in (F32_SHAPES if args.f32 else
+                           [x for x in SHAPES if x[3] > 64 or not args.wide]):
             names = ["package"] + [n for n, v in VARIANTS.items()
                                    if v[2] in (dtype, None) and _runs_at(n, D)
                                    and n in runs]
+            if args.f32 and (B, N, H, D) not in F32_ABLATION_SHAPES:
+                names = [n for n in names if n in ("package", "baseline")]
             qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda",
                               dtype=dtype)
             want = fa.reference_attention(*qkv.unbind(2)).float()
@@ -471,7 +616,7 @@ def main() -> None:
             sdpa = time_ms_graph(F.scaled_dot_product_attention, sdpa_in)
             bound, by = attention_bound(B, N, H, D, dtype)
             kernel = (fa.bf16_plan(B, N, H, D)["kernel"] if dtype == BF16
-                      else fa.ROUTES[dtype])
+                      else fa.f32_plan(B, N, H, D)["kernel"])
             print(f"[{B},{N},{H},{D}] {str(dtype).split('.')[1]} ({kernel}; "
                   f"bound {bound:.5f} ms by {by}) graph ms (the two turns): "
                   + ", ".join(f"{n} {t[0]:.5f}/{t[1]:.5f}" for n, t in times.items())
@@ -481,7 +626,7 @@ def main() -> None:
                               for n, e in errs.items()))
             del qkvs, sdpa_in
 
-    if args.wide:
+    if args.wide or args.f32:
         return
     fn = entries["package"]
     stream = torch.cuda.current_stream().cuda_stream

@@ -74,11 +74,14 @@ def _tf32(x, nearest=True):
     return bits.astype(np.uint32).view(np.float32)
 
 
-def _tf32_product(eq, a, b, passes):
+def _tf32_product(eq, a, b, passes, nearest=True):
     """einsum of f32 a and b as the f32 route's tensor cores compute it:
-    one pass hi*hi, or three (lo*hi + hi*lo + hi*hi), with a = hi + lo.
-    A product of two TF32 values is exact in f32; the sums run in f64."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
+    one pass hi*hi, or three (lo*hi + hi*lo + hi*hi), with a = hi + lo, hi
+    rounded to nearest (the mma.sync kernels' split) or truncated (the raw
+    word, as tf32x3_ws hands the tensor cores its hi operands), lo read
+    truncated. A product of two TF32 values is exact in f32; the sums run
+    in f64."""
+    a_hi, b_hi = _tf32(a, nearest), _tf32(b, nearest)
     a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
     out = np.einsum(eq, a_hi.astype(np.float64), b_hi.astype(np.float64))
     if passes == 3:
@@ -88,18 +91,31 @@ def _tf32_product(eq, a, b, passes):
     return out.astype(np.float32)
 
 
-@pytest.mark.parametrize("passes, within_tol", [(3, True), (1, False)])
+@pytest.mark.parametrize(
+    "passes, within_tol, hi, D",
+    [pytest.param(3, True, "nearest", 48, id="3-True"),
+     pytest.param(1, False, "nearest", 48, id="1-False")]
+    + [pytest.param(passes, passes == 3, "truncated", D,
+                    id=f"{passes}-{passes == 3}-truncated-{D}")
+       for D in (48, 192, 512) for passes in (3, 1)])
 def test_three_tf32_passes_hold_the_f32_tolerance_and_one_does_not(
-        passes, within_tol):
-    """The f32 route's arithmetic, emulated: q pre-scaled by log2(e)/sqrt(D),
-    S = q k^T and O = P v through TF32 products, softmax in f32. Three passes
-    match reference_attention within ATOL; one pass misses it by over 1e-4,
+        passes, within_tol, hi, D):
+    """The f32 route's arithmetic, emulated: S = q k^T and O = P v through
+    TF32 products, softmax in f32. ``nearest``: the mma.sync kernels (D up
+    to 64, and layouts no tensor map describes), q pre-scaled by
+    log2(e)/sqrt(D) and every hi rounded to nearest; ``truncated``:
+    tf32x3_ws (above 64), q k^T of the raw words scaled in the softmax,
+    every hi the raw word truncated. Three passes match
+    reference_attention within ATOL; one pass misses it by over 1e-4,
     which is why the route splits every operand."""
-    q, k, v = _qkv((1, 64, 2, 48), seed=3)
-    scale = np.float32(np.log2(np.e) / np.sqrt(48))
-    s = _tf32_product("bnhd,bmhd->bhnm", q * scale, k, passes)
+    q, k, v = _qkv((1, 64, 2, D), seed=3)
+    scale = np.float32(np.log2(np.e) / np.sqrt(D))
+    if hi == "nearest":
+        s = _tf32_product("bnhd,bmhd->bhnm", q * scale, k, passes)
+    else:
+        s = _tf32_product("bnhd,bmhd->bhnm", q, k, passes, False) * scale
     p = np.exp2(s - s.max(-1, keepdims=True))
-    o = _tf32_product("bhnm,bmhd->bnhd", p, v, passes)
+    o = _tf32_product("bhnm,bmhd->bnhd", p, v, passes, hi == "nearest")
     got = o / np.moveaxis(p.sum(-1, keepdims=True), 1, 2)
     want = PF.reference_attention(*map(torch.from_numpy, (q, k, v))).numpy()
     err = np.abs(got - want).max()
