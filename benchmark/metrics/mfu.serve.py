@@ -1,0 +1,3 @@
+"""The whole model step's share of the card's bf16 dense peak, in the
+flagship's batch-8 serving cell."""
+from benchmark.harness.readers import mfu_serve as read  # noqa: F401
