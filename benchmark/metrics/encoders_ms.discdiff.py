@@ -1,0 +1,3 @@
+"""Device ms a model call launched inside the stream encoders (the program's
+`model.encoders` span), in the DisC-Diff batch-8 serving cell."""
+from benchmark.harness.spans import encoders_ms as read  # noqa: F401

@@ -26,11 +26,19 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .attention import AttentionBlock, SpatialTransformer
 from .layers import Conv, Downsample, GroupNorm32, ResBlock, Upsample, zero_init
 
 __all__ = ["UNetEncoder", "StackedUNetEncoder", "UNetMiddle", "UNetDecoder",
            "OutHead"]
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` in a ``model.remat`` span: ``checkpoint`` runs it in the
+    forward and again when the backward recomputes the block."""
+    with span("model.remat"):
+        return fn(*args)
 
 
 class _Common(nn.Module):
@@ -118,9 +126,9 @@ class _Common(nn.Module):
             if self.stacked:
                 # the stream's slices, bound again when backward recomputes
                 params = dict(block.named_parameters())
-                return checkpoint(functional_call, block, params,
+                return checkpoint(_remat, functional_call, block, params,
                                   (h, emb, mask), use_reentrant=False)
-            return checkpoint(block, h, emb, mask, use_reentrant=False)
+            return checkpoint(_remat, block, h, emb, mask, use_reentrant=False)
         return block(h, emb, mask)
 
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .backbone import (
     OutHead,
     StackedUNetEncoder,
@@ -125,11 +126,12 @@ class DiscUNet(nn.Module):
         xc = x.permute(0, 3, 1, 2)
         streams = [xc[:, i : i + 1] for i in range(n)]
         emb = self.time_embed(t)
-        if self.stream_mode == "sequential":
-            outs = [getattr(self, f"encoder_{s}")(streams[s], emb)
-                    for s in range(n)]
-        else:
-            outs = self.encoders.encode_streams(streams, emb)
+        with span("model.encoders"):
+            if self.stream_mode == "sequential":
+                outs = [getattr(self, f"encoder_{s}")(streams[s], emb)
+                        for s in range(n)]
+            else:
+                outs = self.encoders.encode_streams(streams, emb)
         # the shared heads run once over all streams folded into the batch
         h_all = torch.cat([o[0] for o in outs], dim=0)
         com = self.conv_common(h_all)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .backbone import (
     OutHead,
     StackedUNetEncoder,
@@ -282,13 +283,14 @@ class DSUNet(DSTrunk):
         own width)."""
         streams = self._streams(x.permute(0, 3, 1, 2))
         emb = self.time_embed(t)
-        if self.stream_mode == "sequential":
-            outs = [
-                getattr(self, f"encoder_{s}")(streams[s], emb, context)
-                for s in range(N_STREAMS)
-            ]
-        else:
-            outs = self.encoders.encode_streams(streams, emb, context)
+        with span("model.encoders"):
+            if self.stream_mode == "sequential":
+                outs = [
+                    getattr(self, f"encoder_{s}")(streams[s], emb, context)
+                    for s in range(N_STREAMS)
+                ]
+            else:
+                outs = self.encoders.encode_streams(streams, emb, context)
         h_n = self.middle(outs[0][0], emb, context)
         # decoder with mean-of-streams skips
         skips = [torch.stack(parts).mean(dim=0)

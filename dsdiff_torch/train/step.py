@@ -48,12 +48,14 @@ from ..core.schedules import DiffusionSchedule
 from ..eval.metrics import ssim
 from ..models.layers import dropout_generator
 from ..parallel import dist as pdist
+from ..utils.profiling import count_idle, span
 from . import schedule_sampler as ss
 from .state import TrainState, global_norm
 
-__all__ = ["TaskConfig", "train_loss", "make_train_step", "draw_x_T",
-           "run_sampler_loop", "make_sample_fn", "make_val_metrics",
-           "make_palette_train_step", "make_palette_sample_fn"]
+__all__ = ["TaskConfig", "model_call", "train_loss", "make_train_step",
+           "draw_x_T", "run_sampler_loop", "make_sample_fn",
+           "make_val_metrics", "make_palette_train_step",
+           "make_palette_sample_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +81,19 @@ class TaskConfig:
     cfg_scale: float = 1.0
 
 
+def model_call(fn: Callable) -> Callable:
+    """``fn(x, t)``, one call of the model, in a ``model.forward`` span
+    whose entry counts ``model.found_idle`` where the card had run out of
+    queued work."""
+
+    def call(x, t):
+        with span("model.forward"):
+            count_idle("model.found_idle", x)
+            return fn(x, t)
+
+    return call
+
+
 def _denoiser(model: nn.Module, cond: torch.Tensor | None):
     """concat-conditioned denoiser closure: (x_t, t_model) -> raw output."""
 
@@ -86,7 +101,7 @@ def _denoiser(model: nn.Module, cond: torch.Tensor | None):
         xin = x if cond is None else torch.cat([x, cond], dim=-1)
         return model(xin, t_model)
 
-    return fn
+    return model_call(fn)
 
 
 # the feature views each disentangle loss reads, stream-major [n, B, ...]
@@ -226,7 +241,8 @@ def _optimizer_step(state: TrainState, objective: Callable,
     model.zero_grad(set_to_none=True)
     with dropout_generator(model, _rank_generator(generator, mesh)):
         loss, aux, metrics = objective(model)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in state.params]
     if _distributed(mesh):
@@ -273,8 +289,8 @@ def make_palette_train_step(sched: palette.GammaSchedule,
 
         def objective(model):
             loss = palette.training_loss(
-                sched, lambda x, g: model(x, g * 1000.0), x0, batch["image"],
-                t, noise) * (B / n_total)
+                sched, model_call(lambda x, g: model(x, g * 1000.0)), x0,
+                batch["image"], t, noise) * (B / n_total)
             if n_total == B:
                 return loss, None, {"loss": loss, "loss_simple": loss}
             main = loss.detach().clone()
@@ -296,6 +312,7 @@ def make_palette_sample_fn(model: nn.Module, sched: palette.GammaSchedule,
     'ddim', the ancestral loop over every step for any other name. ``x_T``
     and the per-step ``noise`` are drawn from ``generator`` unless given."""
 
+    @model_call
     def denoise(x, gamma):
         return model(x, gamma * 1000.0)
 

@@ -72,6 +72,7 @@ from ..models.layers import hold_in_compute_dtype
 from ..ops import quant
 from ..parallel import dist as pdist
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import flax_to_state_dict, train_state_from_flax
 from ..utils.logging import KVLogger, journal
@@ -88,6 +89,7 @@ from .step import (
     make_sample_fn,
     make_train_step,
     make_val_metrics,
+    model_call,
     run_sampler_loop,
 )
 
@@ -117,6 +119,9 @@ OPENAI_SCHEDULE_MODES = frozenset(
 
 # data_store -> the dataset class over it (same constructor, same rows)
 DATA_STORES = {"h5": SliceDataset, "npy": NpyCaseDataset}
+
+# the end of an epoch's batches
+_END = object()
 
 # unet_config keys that describe the reference's torch module, not ours
 _DROPPED_MODEL_KEYS = (
@@ -239,6 +244,11 @@ class Trainer:
     - ``val_metrics(pred, target, valid=None)``: SSIM, MAE, PSNR.
     - ``fit``, ``validate``, ``predict`` and ``ckpt`` (a
       ``CheckpointManager``): as the JAX package's.
+
+    ``trace_spans: true`` turns the program's tracer on
+    (``utils.profiling``); ``fit``'s log then adds ``train_batch_wait_ms``
+    and ``train_to_device_ms``, the mean host ms a step spent taking its
+    batch and moving it to the card.
     """
 
     def __init__(self, cfg: Mapping, workdir=None, device=None, mesh=None):
@@ -249,6 +259,8 @@ class Trainer:
         self.ranks = mesh.world if mesh is not None and mesh.distributed else 1
         self.rank = mesh.rank if self.ranks > 1 else 0
         self.is_main = pdist.is_main()
+        if cfg.get("trace_spans", False):
+            profiling.enable()
         self.workdir = self.logger = self.ckpt = None
         if workdir is not None:
             self.workdir = Path(workdir)
@@ -556,27 +568,36 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         t_rate = time.time()
         steps_at_rate = step
+        span_s = profiling.scope_totals()
 
         def epoch_batches(epoch):
-            if cache_fn is None:
-                yield from self.train_loader.epoch(epoch)
-            else:  # the batch is made on the card below
-                yield from [None] * len(self.train_loader)
+            # without a loader the batch is made on the card below
+            batches = iter(self.train_loader.epoch(epoch) if cache_fn is None
+                           else [None] * len(self.train_loader))
+            while True:
+                with profiling.span("fit.batch_wait"):
+                    batch = next(batches, _END)
+                if batch is _END:
+                    return
+                yield batch
 
         for epoch in range(epoch0, num_epochs):
             t_ep = time.time()
             for batch in epoch_batches(epoch):
                 if curriculum is not None and step < warmup_steps:
-                    batch = curriculum.batch(
-                        self.train_loader.batch_size, step, warmup_steps,
-                        self._np_rng,
-                    )
-                if batch is None:
-                    cache_gen.manual_seed(_step_seed(seed, fit_call, step, 1))
-                    dev_batch = cache_fn(cache_gen, rows)
-                else:
-                    dev_batch = {k: self._to_device(batch[k])
-                                 for k in ("image", "target")}
+                    with profiling.span("fit.batch_wait"):
+                        batch = curriculum.batch(
+                            self.train_loader.batch_size, step, warmup_steps,
+                            self._np_rng,
+                        )
+                with profiling.span("fit.to_device"):
+                    if batch is None:
+                        cache_gen.manual_seed(
+                            _step_seed(seed, fit_call, step, 1))
+                        dev_batch = cache_fn(cache_gen, rows)
+                    else:
+                        dev_batch = {k: self._to_device(batch[k])
+                                     for k in ("image", "target")}
                 gen.manual_seed(_step_seed(seed, fit_call, step))
                 if self.first_stage is not None:
                     dev_batch = self.first_stage.encode_batch(dev_batch, gen)
@@ -588,6 +609,15 @@ class Trainer:
                     if dt > 0 and step > steps_at_rate:
                         m["steps_per_sec_per_chip"] = (
                             (step - steps_at_rate) / dt / self.ranks)
+                    if profiling.enabled():
+                        # host ms a step spent in each span since the last log
+                        now = profiling.scope_totals()
+                        for key, name in (("batch_wait_ms", "fit.batch_wait"),
+                                          ("to_device_ms", "fit.to_device")):
+                            m[key] = 1e3 * (now.get(name, 0.0)
+                                            - span_s.get(name, 0.0)) / (
+                                                step - steps_at_rate)
+                        span_s = now
                     t_rate = time.time()
                     steps_at_rate = step
                     m["step"] = step
@@ -781,7 +811,7 @@ class Trainer:
 
         @torch.inference_mode()
         def fn(cond, generator=None, x_T=None, noise=None):
-            denoise = make_cached_denoiser(model, cond)
+            denoise = model_call(make_cached_denoiser(model, cond))
             if x_T is None:
                 x_T = draw_x_T(cond, out_ch, generator)
             return run_sampler_loop(loop, rsched, denoise, x_T, task, eta,
@@ -843,8 +873,10 @@ class Trainer:
         """Samples [B, H, W, output_ch] from the EMA weights. ``x_T`` and a
         stochastic sampler's per-step ``noise`` (a list, one tensor per
         step) are drawn from ``generator`` unless given."""
-        self._refresh_sample_model()
-        return self._sample(cond, generator, x_T, noise)
+        with profiling.span("serve.request", batch=cond.shape[0],
+                            steps=self.sample_steps):
+            self._refresh_sample_model()
+            return self._sample(cond, generator, x_T, noise)
 
     def sample_images(self, cond: torch.Tensor,
                       generator: torch.Generator | None = None,
@@ -1047,9 +1079,10 @@ class Trainer:
                    t: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None) -> dict:
         """One optimizer step; returns the metrics as 0-d f32 tensors."""
-        _, self.sampler_state, metrics = self._train_step(
-            self.state, self.sampler_state, batch, generator, t, noise
-        )
+        with profiling.span("train.step"):
+            _, self.sampler_state, metrics = self._train_step(
+                self.state, self.sampler_state, batch, generator, t, noise
+            )
         return metrics
 
     def reset_state(self) -> None:

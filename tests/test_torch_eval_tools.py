@@ -137,10 +137,15 @@ def _not_dicom(tmp_path):
 # -------------------------------------------------------------- profiling
 def test_step_timer_and_scopes():
     timer = PPr.StepTimer(device="cpu")
-    for _ in range(3):
-        with PPr.profile_scope("unit_test_scope"):
-            time.sleep(0.01)
-        timer.tick()
+    PPr.enable()  # a scope is a span of the tracer, timed while it is on
+    try:
+        for _ in range(3):
+            with PPr.profile_scope("unit_test_scope"):
+                time.sleep(0.01)
+            timer.tick()
+    finally:
+        PPr.disable()
+        PPr.drain()
     rate = timer.rate()
     assert 0 < rate < 100
     assert PPr.scope_totals()["unit_test_scope"] >= 0.03
@@ -156,7 +161,9 @@ def test_trace_writes_a_chrome_trace(tmp_path):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "traced_scope" in names
+    assert "dsdiff/traced_scope" in names
+    assert not PPr.enabled()  # on for the block alone
+    PPr.drain()
 
 
 def test_compiled_flops_match_xla():
