@@ -286,4 +286,4 @@ class OutHead(nn.Module):
         )
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.silu(self.norm(h))).float()
+        return self.conv(self.norm.silu(h)).float()

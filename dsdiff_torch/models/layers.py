@@ -8,7 +8,9 @@ are the Flax module names, so ``utils.flax_bridge`` maps weights one to one.
 Compute dtype: parameters are f32 (the master copy an optimizer updates);
 ``Dense`` and ``Conv`` cast their weight, bias and input to the block's
 ``dtype`` at call, as Flax's ``dtype`` attribute does with f32 params.
-``GroupNorm32`` computes its statistics and affine in f32, then casts back.
+``GroupNorm32`` computes its statistics and affine in f32, then casts back;
+its ``silu`` is a norm site (GroupNorm, the ResBlock's FiLM, SiLU), one op
+(``ops.group_norm_film_silu``) while no gradient is recorded.
 ``SpectralNormConv`` (the adversarial discriminator's conv) and
 ``ModulatedResBlock`` (a ResBlock whose out-norm a context map modulates)
 are the JAX module's blocks of the same names.
@@ -25,6 +27,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import group_norm_film_silu
+from ..ops.fused_norm import needs_grad
+from ..utils.profiling import count
 
 __all__ = [
     "timestep_embedding",
@@ -144,6 +150,24 @@ class GroupNorm32(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x.float()).to(x.dtype)
 
+    def silu(self, x: torch.Tensor, scale: torch.Tensor | None = None,
+             shift: torch.Tensor | None = None) -> torch.Tensor:
+        """``SiLU(self(x) * (1 + scale) + shift)``, or ``SiLU(self(x))``
+        without scale and shift. Where a gradient is recorded for an input
+        (training, its remat recompute) it is that chain of eager ops; else
+        (serving, the samplers, ``torch.inference_mode``) one op,
+        ``ops.group_norm_film_silu``: on a card its kernels, on the CPU its
+        plain version, in f32 rounded once. Counts ``model.norm_fused``."""
+        norm = self.norm
+        if needs_grad(x, norm.weight, norm.bias, scale, shift):
+            h = self(x)
+            if scale is not None:
+                h = h * (1.0 + scale) + shift
+            return F.silu(h)
+        count("model.norm_fused")
+        return group_norm_film_silu(x, norm.weight, norm.bias,
+                                    norm.num_groups, scale, shift, self.EPS)
+
 
 def _upsample(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
@@ -240,7 +264,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
-        h = F.silu(self.in_norm(x))
+        h = self.in_norm.silu(x)
         if self.up:
             h, x = _upsample(h), _upsample(x)
         elif self.down:
@@ -249,7 +273,7 @@ class ResBlock(nn.Module):
         emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = F.silu(self.out_norm(h) * (1.0 + scale) + shift)
+            h = self.out_norm.silu(h, scale, shift)
         else:
             h = F.silu(self.out_norm(h + emb_out))
         if self.drops():

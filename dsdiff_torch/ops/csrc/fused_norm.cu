@@ -1,47 +1,74 @@
 // Fused GroupNorm + SiLU for Hopper (sm_90a): y = SiLU(GroupNorm(x)), the
-// whole function, statistics included, in two kernels.
+// whole function, statistics included, and the same op with a FiLM between
+// the norm and the SiLU, y = SiLU(GroupNorm(x) * (1 + scale) + shift).
 //
-// Replaces the JAX package's Pallas TPU kernel ops/fused_norm.py:54
-// group_norm_silu: its group statistics (XLA ops, :64-71) and its apply
-// pass (body _affine_silu_kernel :47-51). With mean and E[x^2] per (batch,
-// group), var = E[x^2] - mean^2, a = gamma * rsqrt(var + eps) and
-// b = beta - mean * a per (batch, channel), y = SiLU(x * a + b).
+// Entry 1, dsdiff_group_norm_silu, replaces the JAX package's Pallas TPU
+// kernel ops/fused_norm.py:54 group_norm_silu: its group statistics (XLA
+// ops, :64-71) and its apply pass (body _affine_silu_kernel :47-51). With
+// mean and E[x^2] per (batch, group), var = E[x^2] - mean^2,
+// a = gamma * rsqrt(var + eps) and b = beta - mean * a per (batch,
+// channel), y = SiLU(x * a + b).
 //
-// Layout: x and y [B, H*W, C], contiguous, f32 or bf16 (y has x's type);
-// gamma and beta [C] f32. Both kernels run on grid (chunks, B): block
+// Entry 2, dsdiff_group_norm_film_silu, replaces no TPU kernel: it is the
+// port's ResBlock norm site (models/layers.py GroupNorm32.silu; the JAX
+// package runs GroupNorm32, the FiLM and SiLU as XLA ops, its
+// models/layers.py:165-188), added because that chain of eager
+// ops (an f32 up-cast, moments, apply, a bf16 down-cast, the FiLM's mul
+// and add, SiLU) was the largest share of the serving forward's device
+// time. The FiLM's per-(batch, channel) scale s and shift t fold into the
+// same a and b: a = gamma * rsqrt(var + eps) * (1 + s), b = (beta - mean *
+// gamma * rsqrt(var + eps)) * (1 + s) + t; y is rounded once. It takes the
+// map in either memory format the model hands it:
+//   - channels last, x [B, H*W, C]: the two kernels of entry 1
+//     (group_norm_partial_stats, group_norm_silu_apply), the apply given s
+//     and t;
+//   - NCHW, x [B, C, H*W]: a (batch, group) is one contiguous run of
+//     C/G * H*W elements, cut into chunks of `len` elements (a multiple of
+//     8, so every chunk starts 16-byte aligned). Where the run is one chunk
+//     (the small maps), one launch: group_norm_film_silu_nchw sums the run,
+//     forms a and b and applies, reading the run twice (the second time
+//     from L1/L2). Elsewhere two: group_norm_nchw_partial_stats writes one
+//     f64 (sum, sum of squares) per chunk, then group_norm_film_silu_nchw
+//     reduces its run's chunks in a fixed order and applies to its chunk.
+//     A 16-byte vector lies in one channel (H*W is a multiple of the vector
+//     width), so each takes one (a, b) pair from shared memory.
+//
+// Channels last: x and y [B, H*W, C], contiguous, f32 or bf16 (y has x's
+// type); gamma and beta [C] f32. Both kernels run on grid (chunks, B): block
 // (i, b) owns spatial rows [i * rows, (i + 1) * rows) of batch row b, the
 // last chunk ragged. The wrapper picks rows (a multiple of 8, so every
 // chunk starts 16-byte aligned) and chunks: about two blocks per SM over
 // the batch, fewer where a chunk would give a thread under two vectors.
 //
-// 1. gn_partial_stats: each thread reads 16-byte vectors (8 bf16 or 4 f32;
-//    one element where the row is not 16-byte aligned) of its chunk with a
-//    step of TP vectors, TP a multiple of C / gcd(C, vector), so its
-//    vector's channels stay the same on every step: it keeps one f32 sum
-//    and sum of squares per vector slot in registers (C / G is 3, 6 or 9 on
-//    the flagship, so a vector straddles groups). The block folds its
+// 1. group_norm_partial_stats: each thread reads 16-byte vectors (8 bf16
+//    or 4 f32; one element where the row is not 16-byte aligned) of its
+//    chunk with a step of TP vectors, TP a multiple of C / gcd(C, vector),
+//    so its vector's channels stay the same on every step: it keeps one f32
+//    sum and sum of squares per vector slot in registers (C / G is 3, 6 or
+//    9 on the flagship, so a vector straddles groups). The block folds its
 //    threads' slots into channels, then groups, in shared memory in f64,
 //    and writes [B, chunks, G, 2] f64 partials (sum, sum of squares) to a
 //    scratch tensor from the wrapper.
-// 2. gn_apply: each block first reduces its batch row's partials (a few KB,
-//    in L2) in f64, forms mean, var, a and b for the row's C channels in
-//    shared memory, then runs the 16-byte apply loop over its chunk
-//    (coefficients read as float4 where C is a multiple of the vector
-//    width; SiLU through ex2 and rcp, which the bf16 apply needs to keep up
-//    with the memory).
+// 2. group_norm_silu_apply: each block first reduces its batch row's
+//    partials (a few KB, in L2) in f64, forms mean, var, a and b (entry 2:
+//    with the FiLM folded in) for the row's C channels in shared memory,
+//    then runs the 16-byte apply loop over its chunk (coefficients read as
+//    float4 where C is a multiple of the vector width; SiLU through ex2 and
+//    rcp, which the bf16 apply needs to keep up with the memory).
 // Every sum is taken in a fixed order and there are no float atomics, so
 // two calls on one input give bitwise-equal output. The sums are f64 from
 // the threads' f32 partials up, so E[x^2] - mean^2 keeps its digits where
 // |mean| >> std better than the f32 formula it computes.
 //
-// Bound on an H100 SXM at 700 W (3.35 TB/s): bytes. x read once and y
-// written once: [4, 256, 256, 96] bf16 moves 100.7 MB, ~0.030 ms; the
-// arithmetic (about 9 FLOPs and one exp per element) is two orders of
+// Bound on an H100 SXM at 700 W (3.35 TB/s), both entries: bytes. x read
+// once and y written once: [4, 256, 256, 96] bf16 moves 100.7 MB, ~0.030
+// ms; the arithmetic (about 9 FLOPs and one exp per element) is two orders of
 // magnitude under the f32 CUDA-core rate. Kernel 2 reads x again: from L2
 // where x fits it (50 MB), from device memory where it does not
 // ([4, 256, 256, 96] bf16 is 50.3 MB, every batch-16 256^2 row more), so
 // there at most about 2/3 of the bound (three passes over x-sized data
-// against two) can be reached.
+// against two) can be reached. Every kernel's name holds "group_norm", so
+// that a profile sorts its time under GroupNorm.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +81,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int STATS_UNROLL = 4;  // vectors in flight per thread, kernel 1
 constexpr int APPLY_UNROLL = 4;  // and kernel 2
+constexpr int NCHW_UNROLL = 4;   // and both NCHW kernels
+constexpr int WARPS = THREADS / 32;
 
 template <typename T>
 struct Vec;
@@ -99,7 +128,7 @@ __host__ __device__ constexpr int width() {
 // of channels; threads [0, TP), TP a multiple of P, load; the rest idle.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-gn_partial_stats(const T* __restrict__ x, double* __restrict__ partials,
+group_norm_partial_stats(const T* __restrict__ x, double* __restrict__ partials,
                  int HW, int C, int G, int rows, int P, int TP) {
   using R = Raw<T, VEC>;
   constexpr int V = width<T, VEC>();
@@ -171,9 +200,13 @@ gn_partial_stats(const T* __restrict__ x, double* __restrict__ partials,
 // (group, statistic) sums over the row's chunks.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-gn_apply(const T* __restrict__ x, const double* __restrict__ partials,
-         const float* __restrict__ gamma, const float* __restrict__ beta,
-         T* __restrict__ y, int HW, int C, int G, int rows, float eps) {
+group_norm_silu_apply(const T* __restrict__ x,
+                      const double* __restrict__ partials,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta,
+                      const T* __restrict__ scale, const T* __restrict__ shift,
+                      int film_stride, T* __restrict__ y, int HW, int C,
+                      int G, int rows, float eps) {
   using R = Raw<T, VEC>;
   constexpr int V = width<T, VEC>();
   const int items = 2 * G, RP = max(1, THREADS / items);
@@ -214,9 +247,16 @@ gn_apply(const T* __restrict__ x, const double* __restrict__ partials,
     const int grp = c / cpg;
     const double mean = red[2 * grp] / n;
     const double var = red[2 * grp + 1] / n - mean * mean;
-    const float a = (float)(1.0 / sqrt(var + (double)eps)) * gamma[c];
+    float a = (float)(1.0 / sqrt(var + (double)eps)) * gamma[c];
+    float b = beta[c] - (float)mean * a;
+    if (scale != nullptr) {  // entry 2: the FiLM of this batch row
+      const long long f = (long long)batch * film_stride + c;
+      const float s1 = 1.f + to_float(scale[f]);
+      a *= s1;
+      b = fmaf(b, s1, to_float(shift[f]));
+    }
     sa[c] = a;
-    sb[c] = beta[c] - (float)mean * a;
+    sb[c] = b;
   }
   __syncthreads();
 
@@ -275,6 +315,172 @@ gn_apply(const T* __restrict__ x, const double* __restrict__ partials,
   }
 }
 
+// ---- NCHW: x and y [B, C, H*W]; grid (chunks, B * G), block (i, bg)
+// owns elements [i * len, (i + 1) * len) of run bg = batch * G + group.
+
+// this thread's f32 sum and sum of squares over the n elements at p (n a
+// multiple of the vector width): one slot per vector element, so no sum
+// waits on the one before it, folded in a fixed order at the end
+template <typename T, bool VEC>
+__device__ __forceinline__ float2 thread_sums(const T* __restrict__ p,
+                                              long long n) {
+  using R = Raw<T, VEC>;
+  constexpr int V = width<T, VEC>();
+  const R* pv = reinterpret_cast<const R*>(p);
+  const long long nv = n / V;
+  float s[V], q[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) s[j] = q[j] = 0.f;
+  for (long long k = threadIdx.x; k < nv;
+       k += (long long)NCHW_UNROLL * THREADS) {
+    R raw[NCHW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NCHW_UNROLL; ++u)
+      if (k + u * THREADS < nv) raw[u] = pv[k + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < NCHW_UNROLL; ++u) {
+      if (k + u * THREADS >= nv) break;
+      const T* in = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = to_float(in[j]);
+        s[j] += f;
+        q[j] = fmaf(f, f, q[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 1; j < V; ++j) {
+    s[0] += s[j];
+    q[0] += q[j];
+  }
+  return make_float2(s[0], q[0]);
+}
+
+// the block's sum of every thread's (s, q) in f64, in a fixed order: a
+// warp's butterfly, then the warps in order; every thread gets it
+__device__ __forceinline__ double2 block_sum(double s, double q,
+                                             double2* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    q += __shfl_xor_sync(0xffffffffu, q, o);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_double2(s, q);
+  __syncthreads();
+  double2 t = red[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    t.x += red[w].x;
+    t.y += red[w].y;
+  }
+  return t;
+}
+
+// kernel 1 of two: one f64 (sum, sum of squares) per chunk of each run
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+group_norm_nchw_partial_stats(const T* __restrict__ x,
+                              double2* __restrict__ partials, int run,
+                              int len) {
+  __shared__ double2 red[WARPS];
+  const long long s0 = (long long)blockIdx.x * len;
+  const float2 p = thread_sums<T, VEC>(x + (long long)blockIdx.y * run + s0,
+                                       min((long long)len, run - s0));
+  const double2 t = block_sum(p.x, p.y, red);
+  if (threadIdx.x == 0)
+    partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = t;
+}
+
+// the apply, and with one chunk a run (gridDim.x == 1) the statistics too:
+// the group's a and b for its C / G channels in shared memory, in f64 from
+// the sums, then y = SiLU(x * a + b) over the block's chunk
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+group_norm_film_silu_nchw(const T* __restrict__ x,
+                          const double2* __restrict__ partials,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          const T* __restrict__ scale,
+                          const T* __restrict__ shift, int film_stride,
+                          T* __restrict__ y, int C, int G, int HW, int len,
+                          float eps) {
+  using R = Raw<T, VEC>;
+  constexpr int V = width<T, VEC>();
+  __shared__ double2 red[WARPS];
+  extern __shared__ float coef[];  // a[C / G], then b[C / G]
+  const int chunks = gridDim.x, bg = blockIdx.y, cpg = C / G;
+  const int batch = bg / G, c0 = (bg % G) * cpg;
+  const int run = cpg * HW;
+  const T* xr = x + (long long)bg * run;
+
+  double2 t;
+  if (chunks == 1) {
+    const float2 p = thread_sums<T, VEC>(xr, run);
+    t = block_sum(p.x, p.y, red);
+  } else {  // warp 0 reduces the run's chunks: lane-strided, then butterfly
+    if (threadIdx.x < 32) {
+      double s = 0.0, q = 0.0;
+      for (int i = threadIdx.x; i < chunks; i += 32) {
+        const double2 v = partials[(long long)bg * chunks + i];
+        s += v.x;
+        q += v.y;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        q += __shfl_xor_sync(0xffffffffu, q, o);
+      }
+      if (threadIdx.x == 0) red[0] = make_double2(s, q);
+    }
+    __syncthreads();
+    t = red[0];
+  }
+  const double mean = t.x / run;
+  const double var = fmax(t.y / run - mean * mean, 0.0);
+  const double inv = 1.0 / sqrt(var + (double)eps);
+  for (int j = threadIdx.x; j < cpg; j += THREADS) {
+    const int c = c0 + j;
+    const double ga = inv * gamma[c];
+    double a = ga, b = beta[c] - mean * ga;
+    if (scale != nullptr) {
+      const long long f = (long long)batch * film_stride + c;
+      const double s1 = 1.0 + (double)to_float(scale[f]);
+      a *= s1;
+      b = b * s1 + (double)to_float(shift[f]);
+    }
+    coef[j] = (float)a;
+    coef[cpg + j] = (float)b;
+  }
+  __syncthreads();
+
+  const int s0 = blockIdx.x * len;
+  const int nv = min(len, run - s0) / V;
+  const R* xc = reinterpret_cast<const R*>(xr + s0);
+  R* yc = reinterpret_cast<R*>(y + (long long)bg * run + s0);
+  for (int k = threadIdx.x; k < nv; k += NCHW_UNROLL * THREADS) {
+    R raw[NCHW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NCHW_UNROLL; ++u)
+      if (k + u * THREADS < nv) raw[u] = xc[k + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < NCHW_UNROLL; ++u) {
+      const int kv = k + u * THREADS;
+      if (kv >= nv) break;
+      // the vector's channel (all V elements: H*W is a multiple of V)
+      const int j = (unsigned)(s0 + kv * V) / (unsigned)HW;
+      const float a = coef[j], b = coef[cpg + j];
+      const T* in = reinterpret_cast<const T*>(&raw[u]);
+      R res;
+      T* outv = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        outv[e] = from_float<T>(silu(fmaf(to_float(in[e]), a, b)));
+      yc[kv] = res;
+    }
+  }
+}
+
 int gcd(int a, int b) {
   while (b) {
     const int t = a % b;
@@ -284,8 +490,10 @@ int gcd(int a, int b) {
   return a;
 }
 
+// channels last: both kernels of entry 1; scale and shift null for no FiLM
 template <typename T, bool VEC>
 cudaError_t launch(const void* x, const float* gamma, const float* beta,
+                   const void* scale, const void* shift, int film_stride,
                    double* partials, void* y, int B, int HW, int C, int G,
                    int rows, int chunks, float eps, cudaStream_t st) {
   constexpr int V = width<T, VEC>();
@@ -295,7 +503,7 @@ cudaError_t launch(const void* x, const float* gamma, const float* beta,
   const dim3 grid(chunks, B);
   const size_t smem1 = (size_t)P * V * sizeof(double2) +
                        (size_t)TP * V * sizeof(float2);
-  gn_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(
+  group_norm_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(
       static_cast<const T*>(x), partials, HW, C, G, rows, P, TP);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -304,54 +512,115 @@ cudaError_t launch(const void* x, const float* gamma, const float* beta,
   const int rp = THREADS / items > 1 ? THREADS / items : 1;
   const size_t smem2 = (size_t)items * rp * sizeof(double) +
                        2 * (size_t)C * sizeof(float);
-  auto apply = gn_apply<T, VEC>;
+  auto apply = group_norm_silu_apply<T, VEC>;
   if (smem2 > 48 * 1024) {
     err = cudaFuncSetAttribute(
         apply, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
     if (err != cudaSuccess) return err;
   }
-  apply<<<grid, THREADS, smem2, st>>>(static_cast<const T*>(x), partials,
-                                      gamma, beta, static_cast<T*>(y), HW, C,
-                                      G, rows, eps);
+  apply<<<grid, THREADS, smem2, st>>>(
+      static_cast<const T*>(x), partials, gamma, beta,
+      static_cast<const T*>(scale), static_cast<const T*>(shift), film_stride,
+      static_cast<T*>(y), HW, C, G, rows, eps);
   return cudaGetLastError();
+}
+
+// NCHW: the statistics kernel where a run has more than one chunk, then
+// the apply
+template <typename T, bool VEC>
+cudaError_t launch_nchw(const void* x, const float* gamma, const float* beta,
+                        const void* scale, const void* shift, int film_stride,
+                        double* partials, void* y, int B, int HW, int C,
+                        int G, int len, int chunks, float eps,
+                        cudaStream_t st) {
+  const dim3 grid(chunks, B * G);
+  const int run = C / G * HW;
+  auto* sums = reinterpret_cast<double2*>(partials);
+  if (chunks > 1) {
+    group_norm_nchw_partial_stats<T, VEC><<<grid, THREADS, 0, st>>>(
+        static_cast<const T*>(x), sums, run, len);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = 2 * (size_t)(C / G) * sizeof(float);
+  group_norm_film_silu_nchw<T, VEC><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(x), sums, gamma, beta,
+      static_cast<const T*>(scale), static_cast<const T*>(shift), film_stride,
+      static_cast<T*>(y), C, G, HW, len, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(bool vec, bool channels_last, const void* x,
+                     const float* gamma, const float* beta, const void* scale,
+                     const void* shift, int film_stride, double* partials,
+                     void* y, int B, int HW, int C, int G, int chunk,
+                     int chunks, float eps, cudaStream_t st) {
+  if (channels_last)
+    return (vec ? launch<T, true> : launch<T, false>)(
+        x, gamma, beta, scale, shift, film_stride, partials, y, B, HW, C, G,
+        chunk, chunks, eps, st);
+  return (vec ? launch_nchw<T, true> : launch_nchw<T, false>)(
+      x, gamma, beta, scale, shift, film_stride, partials, y, B, HW, C, G,
+      chunk, chunks, eps, st);
+}
+
+// runs `dispatch` on `device` (switching the calling thread's current
+// device for the launches only when it differs); cudaGetLastError() or 0
+int on_device(int device, int is_bf16, bool vec, bool channels_last,
+              const void* x, const void* gamma, const void* beta,
+              const void* scale, const void* shift, int film_stride,
+              void* partials, void* y, int B, int HW, int C, int G, int chunk,
+              int chunks, float eps, void* stream) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto run = is_bf16 ? dispatch<__nv_bfloat16> : dispatch<float>;
+  err = run(vec, channels_last, x, static_cast<const float*>(gamma),
+            static_cast<const float*>(beta), scale, shift, film_stride,
+            static_cast<double*>(partials), y, B, HW, C, G, chunk, chunks,
+            eps, static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Launches both kernels on `device` and its `stream` (switching the calling
-// thread's current device for the launches only when it differs) and
-// returns cudaGetLastError() (0 on success). The caller checks: x and y
-// contiguous [B, HW, C], 1 <= B <= 65535, G divides C, gamma and beta
-// contiguous f32 [C], partials f64 [B, chunks, G, 2], chunks = ceil(HW /
-// rows) with rows a multiple of 8; `vec` only where x and y start 16-byte
-// aligned and HW*C*elem is a multiple of 16, and C / gcd(C, vector width)
-// <= 256; the shared memory of kernel 2, 8*2G*max(1, 256/(2G)) + 8C bytes,
-// at most 227 KB.
+// Entry 1: SiLU(GroupNorm(x)), channels last; launches both kernels on
+// `device` and its `stream` and returns cudaGetLastError() (0 on success).
+// The caller checks: x and y contiguous [B, HW, C], 1 <= B <= 65535, G
+// divides C, gamma and beta contiguous f32 [C], partials f64 [B, chunks, G,
+// 2], chunks = ceil(HW / rows) with rows a multiple of 8; `vec` only where
+// x and y start 16-byte aligned and HW*C*elem is a multiple of 16, and C /
+// gcd(C, vector width) <= 256; the shared memory of kernel 2,
+// 8*2G*max(1, 256/(2G)) + 8C bytes, at most 227 KB.
 extern "C" int dsdiff_group_norm_silu(const void* x, const void* gamma,
                                       const void* beta, void* partials,
                                       void* y, int is_bf16, int vec,
                                       int device, int B, int HW, int C, int G,
                                       int rows, int chunks, float eps,
                                       void* stream) {
-  int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  double* p = static_cast<double*>(partials);
-  if (is_bf16) {
-    err = vec ? launch<__nv_bfloat16, true>(x, g, b, p, y, B, HW, C, G, rows,
-                                            chunks, eps, st)
-              : launch<__nv_bfloat16, false>(x, g, b, p, y, B, HW, C, G, rows,
-                                             chunks, eps, st);
-  } else {
-    err = vec ? launch<float, true>(x, g, b, p, y, B, HW, C, G, rows, chunks,
-                                    eps, st)
-              : launch<float, false>(x, g, b, p, y, B, HW, C, G, rows, chunks,
-                                     eps, st);
-  }
-  if (current != device) cudaSetDevice(current);
-  return static_cast<int>(err);
+  return on_device(device, is_bf16, vec, true, x, gamma, beta, nullptr,
+                   nullptr, 0, partials, y, B, HW, C, G, rows, chunks, eps,
+                   stream);
+}
+
+// Entry 2: SiLU(GroupNorm(x) * (1 + scale) + shift), or SiLU(GroupNorm(x))
+// where scale and shift are null; scale and shift have x's type, element
+// (b, c) at b * film_stride + c. channels_last: as entry 1, `chunk` the
+// rows. Otherwise x and y contiguous [B, C, HW], 1 <= B * G <= 65535, C / G
+// * HW < 2^31, `chunk` the elements of a chunk (a multiple of 8), chunks =
+// ceil(C / G * HW / chunk), partials f64 [B * G, chunks, 2] (unused where
+// chunks is 1); `vec` only where x and y start 16-byte aligned and HW is a
+// multiple of the vector width; 8 * C / G bytes of shared memory, at most
+// 48 KB.
+extern "C" int dsdiff_group_norm_film_silu(
+    const void* x, const void* gamma, const void* beta, const void* scale,
+    const void* shift, int film_stride, void* partials, void* y, int is_bf16,
+    int vec, int channels_last, int device, int B, int HW, int C, int G,
+    int chunk, int chunks, float eps, void* stream) {
+  return on_device(device, is_bf16, vec, channels_last, x, gamma, beta,
+                   scale, shift, film_stride, partials, y, B, HW, C, G, chunk,
+                   chunks, eps, stream);
 }

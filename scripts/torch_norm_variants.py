@@ -35,8 +35,8 @@ SHAPES = [(4, 256, 96), (4, 128, 96), (4, 64, 192), (4, 8, 288),
 # name -> (edits of the source, whether the output is still right)
 VARIANTS = {
     # partial statistics not computed: kernel 2 alone
-    "no_stats": ([("  gn_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(",
-                   "  if (C < 0) gn_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(")],
+    "no_stats": ([("  group_norm_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(",
+                   "  if (C < 0) group_norm_partial_stats<T, VEC><<<grid, THREADS, smem1, st>>>(")],
                  False),
     # kernel 2 without its apply loop: the partials' reduction alone
     "no_apply": ([("  const long long nv = (long long)(r1 - r0) * C / V;\n  // the chunk",
@@ -59,9 +59,10 @@ VARIANTS = {
              ("  const double* pb = partials + (long long)batch * chunks * items;\n",
               "  const double* pb = partials + (long long)batch * chunks * items;\n"
               '  asm volatile("griddepcontrol.wait;" ::: "memory");\n'),
-             ("  apply<<<grid, THREADS, smem2, st>>>(static_cast<const T*>(x), partials,\n"
-              "                                      gamma, beta, static_cast<T*>(y), HW, C,\n"
-              "                                      G, rows, eps);\n",
+             ("  apply<<<grid, THREADS, smem2, st>>>(\n"
+              "      static_cast<const T*>(x), partials, gamma, beta,\n"
+              "      static_cast<const T*>(scale), static_cast<const T*>(shift), film_stride,\n"
+              "      static_cast<T*>(y), HW, C, G, rows, eps);\n",
               "  cudaLaunchAttribute attr;\n"
               "  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;\n"
               "  attr.val.programmaticStreamSerializationAllowed = 1;\n"
@@ -74,7 +75,9 @@ VARIANTS = {
               "  cfg.numAttrs = 1;\n"
               "  err = cudaLaunchKernelEx(&cfg, apply, static_cast<const T*>(x),\n"
               "                           static_cast<const double*>(partials), gamma,\n"
-              "                           beta, static_cast<T*>(y), HW, C, G, rows, eps);\n"
+              "                           beta, static_cast<const T*>(scale),\n"
+              "                           static_cast<const T*>(shift), film_stride,\n"
+              "                           static_cast<T*>(y), HW, C, G, rows, eps);\n"
               "  if (err != cudaSuccess) return err;\n")], True),
     # coefficients read one float at a time, with the channel wrap
     "scalar_coefficients": ([("        if (C % V == 0) {  // the vector's",
@@ -148,7 +151,7 @@ def kernel_us(run, x, scale, bias, calls: int = 20) -> str:
         for _ in range(calls):
             run(x, scale, bias)
         torch.cuda.synchronize()
-    out = {"gn_partial_stats": 0.0, "gn_apply": 0.0}
+    out = {"group_norm_partial_stats": 0.0, "group_norm_silu_apply": 0.0}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
