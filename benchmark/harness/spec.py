@@ -4,9 +4,11 @@ A cell names a configuration (``configs`` entry -> its ``file``), a traffic
 mix (``benchmark/traffic/<traffic>.json``) and the limits its comparison is
 held to (``benchmark/limits/<cell>.json``); its metrics are the entries of
 ``end_to_end`` and ``per_layer`` that list it under ``workloads`` (or list
-no cells). Each per-layer metric is read by ``benchmark/metrics/<name>.py``.
-Everything is found by name: a new cell, mix, configuration or metric is
-new files and new entries.
+no cells). Each per-layer metric is read by ``benchmark/metrics/<name>.py``;
+a configuration's reference denoiser is ``benchmark/reference/denoisers/
+<model>.py`` (``benchmark.reference.models``). Everything is found by name:
+a new cell, mix, configuration, model kind or metric is new files and new
+entries.
 """
 from __future__ import annotations
 

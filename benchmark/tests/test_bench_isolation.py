@@ -33,9 +33,11 @@ def test_harness_and_program_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = _loaded("import benchmark.reference.models, "
+    loaded = _loaded("import benchmark.reference.models as m, "
                      "benchmark.reference.diffusion, benchmark.reference.optim, "
-                     "benchmark.reference.flops")
+                     "benchmark.reference.flops, json\n"
+                     "for c in json.load(open('BENCHMARK.json'))['configs']:\n"
+                     "    m.denoiser(json.load(open(c['file']))['model'])")
     assert not loaded & (FORBIDDEN | {"dsdiff_torch"})
 
 
