@@ -2015,7 +2015,10 @@ def phase_families(smi: str) -> dict:
               f"{trainer.n_params / 1e6:.2f} M params, bf16, {calls} "
               f"attention calls a forward")
         launches[f"{net_mode}_serve"] = _family_request(trainer, calls, smi)
-        launches[f"{net_mode}_train"] = _family_train(trainer, calls, smi)
+        # under remat a DiT block is recomputed whole, its attention with it
+        recomputed = net_mode == "dit" and trainer.model.remat
+        launches[f"{net_mode}_train"] = _family_train(
+            trainer, calls * (2 if recomputed else 1), smi)
         del trainer
         torch.cuda.empty_cache()
         print(f"[families] {net_mode} done in {time.perf_counter() - t0:.1f} s")

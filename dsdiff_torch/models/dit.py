@@ -18,6 +18,9 @@ and ``make_dit``.
   ``layers.dropout_generator`` binds.
 - The final adaLN + zero-initialised linear head, unpatchified in the JAX
   order ([B, g, g, p, p, C] -> rows (g, p), columns (g, p)); f32 out.
+- With ``remat``, each block runs under activation checkpointing while the
+  module trains with grad enabled (in a ``model.remat`` span, as the
+  U-Nets' ResBlocks); the arithmetic is the same either way.
 
 Attention goes through ``ops.scaled_attention`` ([B, N, heads, D]: the qkv
 projection's thirds as strided views).
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import scaled_attention
+from .backbone import _remat
 from .layers import Conv, Dense, timestep_embedding, zero_init
 
 __all__ = ["DiT", "DIT_CONFIGS", "make_dit"]
@@ -99,6 +104,7 @@ class DiT(nn.Module):
         mlp_ratio: float = 4.0,
         num_classes: int | None = None,
         class_dropout_prob: float = 0.1,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -109,6 +115,7 @@ class DiT(nn.Module):
         self.out_channels = out_channels
         self.num_classes = num_classes
         self.class_dropout_prob = class_dropout_prob
+        self.remat = remat
         self.dtype = dtype
         # bound by ``dropout_generator`` for a train step
         self.generator: torch.Generator | None = None
@@ -168,8 +175,11 @@ class DiT(nn.Module):
                 y = torch.where(drop, torch.full_like(y, self.num_classes), y)
             c = c + self.label_emb(y).to(cd)
 
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, c)
+            block = getattr(self, f"block_{i}")
+            h = (checkpoint(_remat, block, h, c, use_reentrant=False)
+                 if remat else block(h, c))
 
         sh, sc = self.final_adaLN(F.silu(c)).chunk(2, dim=-1)
         h = self.final_proj(_modulate(_layer_norm(h), sh, sc))

@@ -32,10 +32,12 @@ allows it and 4 otherwise (``f32_load``).
 
 The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
 an ``autograd.Function`` whose forward is the kernel and whose backward is
-the VJP of ``reference_attention``, recomputed from the saved q, k and v.
-There is no backward kernel (ROADMAP B1). When no input needs a gradient
-(serving, ``torch.inference_mode``) the kernel is launched directly and
-nothing is saved.
+the VJP of ``reference_attention``, recomputed from the saved q, k and v
+(``attention_vjp``: the plain math's gradient in f32, written out). There
+is no backward kernel (ROADMAP B1). The backward runs in an
+``attention.backward`` span (``utils.profiling``; attributes B, N, heads,
+D). When no input needs a gradient (serving, ``torch.inference_mode``) the
+kernel is launched directly and nothing is saved.
 """
 from __future__ import annotations
 
@@ -44,9 +46,11 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
-__all__ = ["flash_attention", "reference_attention", "FlashAttention",
+__all__ = ["flash_attention", "reference_attention", "attention_vjp",
+           "FlashAttention",
            "bf16_load", "bf16_plan", "f32_load", "f32_plan", "route",
            "LAUNCHES", "MAX_HEAD_DIM", "ROUTES", "BF16_LOADS", "BF16_KERNELS",
            "F32_KERNELS", "SMEM_LIMIT"]
@@ -94,6 +98,45 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(D)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  grad_out: torch.Tensor, needs=(True, True, True)):
+    """The VJP of ``reference_attention`` at q, k, v ([B, N|M, heads, D])
+    for the cotangent ``grad_out``: (dq, dk, dv) in the inputs' dtypes,
+    None where ``needs`` is False. The plain math's gradient, f32
+    throughout, as autograd through it gives it to rounding, in five
+    batched products over [B·heads, rows, D] copies: S = (q / sqrt(D)) kᵀ,
+    P = softmax(S), dv = Pᵀ dO, dP = dO vᵀ, dS = softmax's backward,
+    dq = dS k / sqrt(D), dk = dSᵀ (q / sqrt(D)). The scale rides on q and
+    dq (no pass over the scores for it), and the forward's second product,
+    which no gradient reads, is not made."""
+    B, N, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+
+    def heads(x):  # a fresh f32 [B·heads, rows, D] copy, in one pass
+        out = torch.empty((B, H, x.shape[1], D), dtype=torch.float32,
+                          device=x.device)
+        return out.copy_(x.transpose(1, 2)).view(B * H, -1, D)
+
+    def back(x, like):
+        return x.view(B, H, -1, D).transpose(1, 2).to(like.dtype)
+
+    qs = heads(q).mul_(scale)
+    kf, vf, g = heads(k), heads(v), heads(grad_out)
+    p = torch.softmax(torch.bmm(qs, kf.transpose(1, 2)), dim=-1)
+    dq = dk = dv = None
+    if needs[2]:
+        dv = back(torch.bmm(p.transpose(1, 2), g), v)
+    if needs[0] or needs[1]:
+        ds = torch._softmax_backward_data(torch.bmm(g, vf.transpose(1, 2)),
+                                          p, -1, torch.float32)
+        del p
+        if needs[0]:
+            dq = back(torch.bmm(ds, kf).mul_(scale), q)
+        if needs[1]:
+            dk = back(torch.bmm(ds.transpose(1, 2), qs), k)
+    return dq, dk, dv
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -337,8 +380,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 class FlashAttention(torch.autograd.Function):
     """Forward: the CUDA kernel. Backward: the VJP of
-    ``reference_attention`` at the saved inputs, as the JAX package's
-    ``_fa_bwd`` differentiates its plain math."""
+    ``reference_attention`` at the saved inputs (``attention_vjp``), as the
+    JAX package's ``_fa_bwd`` differentiates its plain math."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -347,13 +390,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [x.detach().requires_grad_(need)
-                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [x for x in inputs if x.requires_grad]
-        with torch.enable_grad():
-            out = reference_attention(*inputs)
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if x.requires_grad else None for x in inputs)
+        q, k, v = ctx.saved_tensors
+        B, N, H, D = q.shape
+        with span("attention.backward", B=B, N=N, heads=H, D=D):
+            return attention_vjp(q, k, v, grad_out, ctx.needs_input_grad)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -150,9 +150,10 @@ def model_params(cfg: Config, model_name: str, n_cond: int,
     ``latent``, doubled by ``learn_sigma``), the compute dtype (bf16 over
     f32 master parameters unless ``bf16: false``; norms in f32) and, by
     model, as the JAX trainer builds it: for ``dit`` the ``ViT_config``
-    sizes; for the U-Nets the ``unet_config`` parameters that describe this
-    package's module and ``remat``, except ``disc_unet``, which takes one
-    stream per input channel and no ``remat``."""
+    sizes (and ``remat``, which the JAX trainer leaves out); for the U-Nets
+    the ``unet_config`` parameters that describe this package's module and
+    ``remat``, except ``disc_unet``, which takes one stream per input
+    channel and no ``remat``."""
     in_ch, out_ch = io_channels(cfg, n_cond)
     out_ch *= 2 if bool(cfg.get("learn_sigma", False)) else 1
     dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
@@ -165,6 +166,7 @@ def model_params(cfg: Config, model_name: str, n_cond: int,
             hidden_size=int(vit.get("hidden_size", 768)),
             depth=int(vit.get("depth", 12)),
             num_heads=int(vit.get("num_heads", 12)),
+            remat=bool(cfg.get("remat", False)),
         )
     params = dict(cfg.get_path("unet_config.params", {}) or {})
     for drop in _DROPPED_MODEL_KEYS:

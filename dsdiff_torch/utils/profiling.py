@@ -23,7 +23,10 @@ The program's spans and counters, and what reads each:
   objective's model call (host dispatch a model call); its entry counts
   ``model.found_idle`` where the card had finished all that was queued;
 - ``model.encoders``: DSUNet's and DiscUNet's encoding of all streams;
-- ``model.remat``: a checkpointed ResBlock, opened again by its recompute;
+- ``model.remat``: a checkpointed ResBlock or DiT block, opened again by
+  its recompute;
+- ``attention.backward`` (``B``, ``N``, ``heads``, ``D``): the VJP of one
+  ``ops.flash_attention`` call, its plain f32 recompute and ``grad``;
 - ``train.step`` (root): ``Trainer.train_step``; ``train.backward``: the
   step's ``loss.backward()``;
 - ``fit.batch_wait`` and ``fit.to_device``: ``Trainer.fit`` taking its next
