@@ -12,6 +12,11 @@ then drives the main path in both directions:
   against the same forwards with plain attention, in f32 (the kernel's
   tf32x3 route) and in bf16 (its wgmma route), then three DDIM-20 requests
   at 256² through ``Trainer.sample_fn``;
+- the attention backward kernels (``attn_bwd``): at DiT-XL/8's
+  [32,1024,16,72] and the flagship's three shapes at batch 32 against
+  ``attention_vjp`` (error, and both timed beside SDPA's backward and the
+  five products' bound), then one DiT-XL/8 train step at batch 32 with its
+  28 backward launches (``flash_attention.BACKWARD_LAUNCHES``);
 - the fused GroupNorm + SiLU op (two kernels, statistics included) through
   ``dsdiff_torch.ops`` at the flagship ResBlock norm shapes, and the
   ResBlock norm site's op (GroupNorm32 -> FiLM -> SiLU) at the flagship's
@@ -772,6 +777,112 @@ def phase_kernels(card: str):
                   f"flash_attention {shape} {name}: non-finite output")
             check(err <= tol,
                   f"flash_attention {shape} {name}: error {err} over {tol}")
+    return rows
+
+
+# the attention backward kernels' rows: DiT-XL/8's [32,1024,16,72]
+# (28 calls a step) and the flagship's three shapes at its train batch 32
+# (11, 11 and 12 calls a step), bf16, q, k, v the qkv thirds
+BWD_ROWS = [(32, 1024, 16, 72, "dit-xl-8: 28 a step"),
+            (32, 1024, 4, 48, "flagship: 11 a step"),
+            (32, 256, 6, 48, "flagship: 11 a step"),
+            (32, 64, 6, 48, "flagship: 12 a step")]
+BWD_TOL = 2**-7  # of max(1, max |ref|), as attention_vjp's bf16 outputs
+DIT_XL_CONFIG = Path(__file__).resolve().parent / "benchmark/configs/dit-xl-8.json"
+
+
+def _bwd_row(B, N, H, D, calls: str, smi: str) -> dict:
+    """The backward kernels at one shape against ``attention_vjp``: error,
+    the library's plan against the wrapper's, and the kernels', the plain
+    VJP's and SDPA's backward ms (events), beside the bound: the five
+    products at the bf16 peak or the inputs and gradients moved once."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + D)
+    qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dout = torch.randn(B, N, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want_plan = fa.bwd_plan(B, N, N, H, D)
+    got_plan = fa.native_bwd_plan(B, N, N, H, D)
+    check(got_plan == {key: want_plan[key] for key in got_plan},
+          f"attention backward {[B, N, H, D]}: the library plans {got_plan}, "
+          f"the wrapper {want_plan}")
+    lse = fa._launch_lse(q, k, v)[1]
+    got = fa._launch_backward(q, k, v, dout, lse)
+    torch.cuda.synchronize()
+    want = fa.attention_vjp(q, k, v, dout)
+    err = max(float((a.float() - b.float()).abs().max())
+              / max(1.0, float(b.float().abs().max()))
+              for a, b in zip(got, want))
+    del got, want
+    iters = 20 if N >= 1024 else 100
+    ms = time_ms_cycling(fa._launch_backward, [(q, k, v, dout, lse)], iters)
+    plain_ms = time_ms_cycling(fa.attention_vjp, [(q, k, v, dout)],
+                               max(3, iters // 10))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    dt = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms_cycling(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dt, retain_graph=True), [()], iters)
+    # the five products at the bf16 peak, or q, k, v, dO read and dq, dk,
+    # dv written once at the memory rate
+    t_ops = 5 * 2 * B * H * N * N * D / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = 7 * B * N * H * D * 2 / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops > t_bytes else "bytes"
+    row = dict(shape=[B, N, H, D], calls=calls, max_rel_err=err, tol=BWD_TOL,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms, plan=want_plan)
+    print(f"[attn_bwd] {row['shape']} bf16 ({calls}; {want_plan['ksteps']} "
+          f"k-steps, n {want_plan['n']}, {want_plan['smem_bytes']} B): error "
+          f"{err:.3e} of max(1, |ref|) (tol {BWD_TOL:.1e}), kernels {ms:.5f} "
+          f"ms, attention_vjp {plain_ms:.5f} ms, sdpa backward {lib_ms:.5f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.2f} % of bound [{smi}]")
+    check(err <= BWD_TOL, f"attention backward {row['shape']}: error {err}")
+    return row
+
+
+def phase_attn_bwd(smi: str) -> list:
+    """The backward kernels at ``BWD_ROWS``, then one DiT-XL/8 train step
+    (the benchmark's ``dit-xl-8`` trainer, batch 32, random weights): 28
+    backward launches (``fa.BACKWARD_LAUNCHES``), one a block, and 56
+    forward launches under remat."""
+    disable_tf32()
+    rows = [_bwd_row(*r, smi) for r in BWD_ROWS]
+    config = json.loads(DIT_XL_CONFIG.read_text())
+    trainer = _serving_trainer(config["trainer"])
+    depth = config["trainer"]["ViT_config"]["params"]["depth"]
+    batch_size = config["trainer"]["train_batch_size"]
+    size = config["trainer"]["image_size"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    batch = {
+        "target": torch.rand(batch_size, size, size, 1, generator=gen,
+                             device="cuda") * 2 - 1,
+        "image": torch.randn(batch_size, size, size, trainer.n_cond,
+                             generator=gen, device="cuda"),
+    }
+    torch.backends.cudnn.allow_tf32 = True
+    trainer.train_step(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    fa.LAUNCHES = fa.BACKWARD_LAUNCHES = 0  # count one step's from here
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+    print(f"[attn_bwd] one DiT-XL/8 train step at batch {batch_size}: "
+          f"{step_ms:.1f} ms, loss {loss:.6f}, {fa.BACKWARD_LAUNCHES} backward "
+          f"launches (expected {depth}), {fa.LAUNCHES} forward launches "
+          f"[{smi}]")
+    check(math.isfinite(loss), f"DiT-XL/8 step: loss {loss}")
+    check(fa.BACKWARD_LAUNCHES == depth, f"DiT-XL/8 step: "
+          f"{fa.BACKWARD_LAUNCHES} backward launches, not {depth}")
+    check(fa.LAUNCHES == 2 * depth, f"DiT-XL/8 step: {fa.LAUNCHES} forward "
+          f"launches, not {2 * depth} (remat)")
+    del trainer
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1573,22 +1684,27 @@ def phase_train(smi: str):
     fa.LAUNCHES = 0  # count only the main path from here
     times = []
     for i in range(TRAIN_STEPS):
-        before = fa.LAUNCHES
+        before, bwd_before = fa.LAUNCHES, fa.BACKWARD_LAUNCHES
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         launched = fa.LAUNCHES - before
+        bwd_launched = fa.BACKWARD_LAUNCHES - bwd_before
         vals = {k: v.item() for k, v in metrics.items()}
         print(f"[train] step {i + 1}: {times[-1] * 1e3:.2f} ms, "
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(vals.items()))
-              + f", {launched} attention launches")
+              + f", {launched} attention launches, {bwd_launched} backward")
         check(all(math.isfinite(v) for v in vals.values()),
               f"non-finite metric at step {i + 1}: {vals}")
         check(vals["grad_norm"] > 0, "zero gradient norm")
         check(launched == CALLS_PER_FORWARD,
               f"{launched} attention launches in a train step, not "
               f"{CALLS_PER_FORWARD}")
+        # bf16 heads of 48: every call's backward through the kernels
+        check(bwd_launched == CALLS_PER_FORWARD,
+              f"{bwd_launched} attention backward launches in a train step, "
+              f"not {CALLS_PER_FORWARD}")
         if i == 0:
             p1 = trainer.state.params[index].detach()
             want = 0.1 * p0 + 0.9 * p1
@@ -4535,7 +4651,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
     }]}
 
 
-PHASES = ("kernels", "norm", "serve", "split", "train", "fit", "int8",
+PHASES = ("kernels", "attn_bwd", "norm", "serve", "split", "train", "fit", "int8",
           "cache", "dist", "families", "latent", "transformer_kernels",
           "transformer", "patched", "guided", "medseg", "adversarial", "eval",
           "mesh", "weights")
@@ -4565,6 +4681,8 @@ def main(argv=None) -> None:
     walls = peaks = ()
     if "kernels" in phases:
         attn_rows = phase_kernels(smi)
+    if "attn_bwd" in phases:
+        print("[attn_bwd] rows " + json.dumps(phase_attn_bwd(smi)))
     if "norm" in phases:
         norm_rows = phase_norm_kernels(smi)
         norm_launches = phase_norm_op()

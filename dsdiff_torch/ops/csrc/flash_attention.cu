@@ -242,6 +242,48 @@
 // splits each K/V element once a block, but that split (three warps, an
 // atom's loads, then its stores) still paces the ring: it takes longer an
 // atom than the consumers' products (PERF.md, --f32 --clock).
+//
+// Backward, bf16 and D <= 128 (every trained head of the shipped models
+// below DisC-Diff's): attn_bwd_dq, then attn_bwd_dkdv. The JAX package has
+// no backward kernel (ops/flash_attention.py:141 _fa_bwd differentiates the
+// plain XLA math); these compute that math's VJP, the f32 one, with the
+// scores kept on chip and every product on the tensor cores:
+// - The gradient path's forward (the LSE template variant of the kernels
+//   above, dsdiff_flash_attention_lse) also writes each row's log-sum-exp
+//   in log2 units, so P = 2^(S log2(e)/sqrt(D) - LSE) is formed tile by tile
+//   with no pass over a row. The serving launch keeps its instantiation.
+// - attn_bwd_dq owns 128 query rows a block (Q and dO loaded once) and walks
+//   the K/V tiles twice: first delta = rowsum(P dP) with dP = dO V^T, which
+//   is the f32 math's value (a delta from the bf16 O cancels where dP is
+//   nearly constant along a row), written for attn_bwd_dkdv; then
+//   dQ = scale * sum_j dS_j K_j with dS = P (dP - delta), in f32 registers.
+//   No atomics: dq is a sum in a fixed order, the same bits on every call.
+// - attn_bwd_dkdv owns 128 key rows a block (K and V loaded once) and walks
+//   the Q/dO tiles with their LSE and delta: S^T = K Q^T, dP^T = V dO^T,
+//   dV += P^T dO and dK += scale * dS^T Q in f32 registers.
+// - Both: 384 threads, two consumer warpgroups of 64 rows and a producer
+//   warpgroup whose one thread issues every TMA load (a ring of 3 stages of
+//   two 64-row tiles, full and empty mbarriers; the LSE and delta of a
+//   column tile by bulk copy), setmaxnreg 24 / 240. S and dP are m64n64k16
+//   wgmma with both operands in shared memory (128-byte swizzled atoms,
+//   k-steps of 16 over D padded to 16: 5 at DiT-XL's 72, not the forward's
+//   8); the outputs are m64n(D)k16 with the bf16 A operand in registers and
+//   the tile MN-major, n = 72 at D = 72.
+// - Precision: q, k, v and dO are bf16, so S and dP are exact products with
+//   f32 sums. P and dS are f32 values; each enters its product as a bf16
+//   high part and a bf16 low part (hi = bf16(x), lo = bf16(x - hi), |x - hi
+//   - lo| <= 2^-17 |x|), two passes against the exact bf16 tile, as the f32
+//   forward's tf32x3 keeps its products f32-accurate. A single bf16 P or dS
+//   would be a lower precision than the configuration states.
+// - The wrapper hands TMA-describable q, k, v, dO (D a multiple of 8,
+//   16-byte aligned bases, strides multiples of 8 elements: the qkv thirds
+//   at D = 72 and 48 as they are); others, such as a head of 36 whose
+//   72-byte stride no map describes, as copies padded to a multiple of 8.
+// Bound: the five products are 5 * 2 * B*H*N*M*D FLOPs (0.387 TFLOP at
+// [32, 1024, 16, 72]: 0.39 ms at 989 TFLOP/s bf16); the kernels issue 12
+// bf16 passes of 2 * B*H*N*M*D' (D' the padded reduction or n): S and dP
+// twice in attn_bwd_dq and once in attn_bwd_dkdv, and two split passes of
+// each output product, ~2.3 times the bound's operations.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -515,19 +557,21 @@ __device__ __forceinline__ void ld_tile(uint32_t dst, const Operand& x,
 // block owns (NA, or NA / 2 above D=256, blockIdx.z picking the slice);
 // KSTEPS: k-steps of QK^T. TMA: tiles through the tensor maps tq, tk, tv;
 // otherwise loaded by the threads from xq, xk, xv, `vec` elements a copy.
-template <int NA, int NV, int KSTEPS, bool TMA>
+template <int NA, int NV, int KSTEPS, bool TMA, bool LSE>
 __global__ void __launch_bounds__(WG)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, Operand xq,
                Operand xk, Operand xv, int vec,
                __nv_bfloat16* __restrict__ o, int H, int N, int M, int D,
-               Strides ost, float scale_log2) {
+               Strides ost, float scale_log2, float* __restrict__ lse,
+               int npad) {
   constexpr int STAGES = wg_stages(NA);
   constexpr int TILE_BYTES = NA * ATOM_BYTES;
   constexpr int V_BYTES = NV * ATOM_BYTES;
   static_assert(KSTEPS <= 4 * NA, "k-steps past the tile");
   static_assert(NV == NA || 2 * NV == NA, "O's columns in one or two slices");
+  static_assert(!LSE || NV == NA, "the row LSE from a block that owns all of O");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES + 1];  // K/V stages, then Q
 
@@ -722,6 +766,9 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv_l = 1.f / l;
     const int row = n0 + 16 * warp + lane / 4 + 8 * r;
+    if (LSE && lane % 4 == 0 && row < npad)
+      lse[static_cast<long long>(blockIdx.y) * npad + row] =
+          row < N ? m_run[r] + log2f(l) : INFINITY;
     if (row >= N) continue;
     __nv_bfloat16* orow = ob + row * ost.n;
 #pragma unroll
@@ -797,29 +844,30 @@ struct WgmmaArgs {
   int o_tma;
 };
 
-template <int NA, int KSTEPS, int NV, bool TMA>
+template <int NA, int KSTEPS, int NV, bool TMA, bool LSE = false>
 int launch_wgmma_as(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H,
                     int N, int M, int D, Strides os, float scale_log2,
-                    cudaStream_t st) {
+                    cudaStream_t st, float* lse = nullptr, int npad = 0) {
   constexpr int smem = wg_smem_bytes(NA, NV);
-  const auto kernel = attn_fwd_wgmma<NA, NV, KSTEPS, TMA>;
+  const auto kernel = attn_fwd_wgmma<NA, NV, KSTEPS, TMA, LSE>;
   static uint64_t opted_in = 0;
   const cudaError_t err = allow_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TILE - 1) / TILE, B * H, NA / NV);
   kernel<<<grid, WG, smem, st>>>(a.tq, a.tk, a.tv, a.q, a.k, a.v, a.vec, o, H,
-                                 N, M, D, os, scale_log2);
+                                 N, M, D, os, scale_log2, lse, npad);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NA, int KSTEPS, int NV = NA>
+template <int NA, int KSTEPS, int NV = NA, bool LSE = false>
 int launch_wgmma(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
-                 int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+                 int M, int D, Strides os, float scale_log2, cudaStream_t st,
+                 float* lse = nullptr, int npad = 0) {
   if (a.vec == 0)
-    return launch_wgmma_as<NA, KSTEPS, NV, true>(a, o, B, H, N, M, D, os,
-                                                 scale_log2, st);
-  return launch_wgmma_as<NA, KSTEPS, NV, false>(a, o, B, H, N, M, D, os,
-                                                scale_log2, st);
+    return launch_wgmma_as<NA, KSTEPS, NV, true, LSE>(a, o, B, H, N, M, D, os,
+                                                      scale_log2, st, lse, npad);
+  return launch_wgmma_as<NA, KSTEPS, NV, false, LSE>(a, o, B, H, N, M, D, os,
+                                                     scale_log2, st, lse, npad);
 }
 
 // ---------------------------------------------------------------------------
@@ -1079,14 +1127,15 @@ __device__ __forceinline__ void ws_pack(const float (&sc)[32],
 // O += P_(j-1) V_(j-1) together, waits for S_j only and runs tile j's
 // softmax in place on S while the tensor cores finish PV; the next
 // iteration waits for PV, rescales O and packs P_j.
-template <int NA, int KSTEPS>
+template <int NA, int KSTEPS, bool LSE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 attn_fwd_ws(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
             const __grid_constant__ CUtensorMap to, int o_tma,
             __nv_bfloat16* __restrict__ o, int H, int N, int M, int D,
-            Strides ost, float scale_log2) {
+            Strides ost, float scale_log2, float* __restrict__ lse,
+            int npad) {
   constexpr int STAGES = ws_stages(NA);
   constexpr int KV_BYTES = NA * ATOM_BYTES;  // a K or V tile; Q is two
   static_assert(4 * NA - 4 < KSTEPS && KSTEPS <= 4 * NA,
@@ -1269,6 +1318,10 @@ attn_fwd_ws(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv_l[r] = 1.f / l;
+      const int row = n0 + TILE * wg + 16 * warp + lane / 4 + 8 * r;
+      if (LSE && lane % 4 == 0 && row < npad)
+        lse[static_cast<long long>(blockIdx.y) * npad + row] =
+          row < N ? m_run[r] + log2f(l) : INFINITY;
     }
     if (o_tma) {
       // O through shared memory and TMA stores of whole 128-byte rows (the
@@ -1337,17 +1390,19 @@ attn_fwd_ws(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int NA, int KSTEPS>
+template <int NA, int KSTEPS, bool LSE = false>
 int launch_ws(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
-              int M, int D, Strides os, float scale_log2, cudaStream_t st) {
+              int M, int D, Strides os, float scale_log2, cudaStream_t st,
+              float* lse = nullptr, int npad = 0) {
   constexpr int smem = ws_smem_bytes(NA);
-  const auto kernel = attn_fwd_ws<NA, KSTEPS>;
+  const auto kernel = attn_fwd_ws<NA, KSTEPS, LSE>;
   static uint64_t opted_in = 0;
   const cudaError_t err = allow_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + WS_ROWS - 1) / WS_ROWS, B * H);
   kernel<<<grid, WS_THREADS, smem, st>>>(a.tq, a.tk, a.tv, a.to, a.o_tma, o,
-                                         H, N, M, D, os, scale_log2);
+                                         H, N, M, D, os, scale_log2, lse,
+                                         npad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2562,9 +2617,492 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward, D <= 128: attn_bwd_dq, then attn_bwd_dkdv
+// ---------------------------------------------------------------------------
+
+constexpr int BW_CONSUMERS = 2;                      // warpgroups, 64 rows each
+constexpr int BW_ROWS = BW_CONSUMERS * TILE;         // a block's rows
+constexpr int BW_THREADS = (BW_CONSUMERS + 1) * WG;  // + the producer's
+constexpr int BW_STAGES = 3;                         // column tiles in flight
+constexpr int BW_STATS_BYTES = 2 * TILE * 4;         // a column tile's LSE, delta
+// two row operands (BW_ROWS rows) and BW_STAGES stages of two column tiles
+// (TILE rows), `nat` 128-byte atoms a row; the stages' statistics; 1024 to
+// align the base
+__host__ __device__ constexpr int bw_smem_bytes(int nat) {
+  return 2 * nat * BW_CONSUMERS * ATOM_BYTES +
+         BW_STAGES * (2 * nat * ATOM_BYTES + BW_STATS_BYTES) + 1024;
+}
+static_assert(bw_smem_bytes(2) <= 232448, "D=128 tiles above the block limit");
+
+// D (a multiple of 8, the wrapper pads) -> k-steps of 16 of S and dP, and
+// the n of the output products (72 stays 72: DiT-XL's heads)
+struct BwPlan {
+  int ksteps, nout;
+};
+BwPlan bw_plan(int D) {
+  if (D <= 32) return {2, 32};
+  if (D <= 48) return {3, 48};
+  if (D <= 64) return {4, 64};
+  if (D <= 72) return {5, 72};
+  if (D <= 80) return {5, 80};
+  if (D <= 96) return {6, 96};
+  return {8, 128};
+}
+
+// d += A B, m64n<N>k16: A the bf16 register fragment a[0..3], B MN-major in
+// shared memory (64-column atoms ATOM_BYTES apart, the descriptor's LBO)
+template <int N>
+__device__ __forceinline__ void bw_mma_rs(float (&d)[N / 2], const uint32_t* a,
+                                          uint64_t b);
+#define BW_F4(o) "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3])
+template <>
+__device__ __forceinline__ void bw_mma_rs<32>(float (&d)[16],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<48>(float (&d)[24],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<64>(float (&d)[32],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20), BW_F4(24), BW_F4(28)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<72>(float (&d)[36],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20), BW_F4(24), BW_F4(28), BW_F4(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<80>(float (&d)[40],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20), BW_F4(24), BW_F4(28), BW_F4(32), BW_F4(36)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<96>(float (&d)[48],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20), BW_F4(24), BW_F4(28), BW_F4(32), BW_F4(36), BW_F4(40), BW_F4(44)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void bw_mma_rs<128>(float (&d)[64],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : BW_F4(0), BW_F4(4), BW_F4(8), BW_F4(12), BW_F4(16), BW_F4(20), BW_F4(24), BW_F4(28), BW_F4(32), BW_F4(36), BW_F4(40), BW_F4(44), BW_F4(48), BW_F4(52), BW_F4(56), BW_F4(60)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef BW_F4
+
+template <int N>
+__device__ __forceinline__ void bw_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void bw_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// x0, x1 as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): hi + lo is
+// x to 2^-17 of |x|, and a product of each with an exact bf16 partner,
+// summed in f32, is the f32 product to that precision
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, completing on
+// the mbarrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One backward kernel's inputs. Row operands a1, a2 (boxes of BW_ROWS rows)
+// are loaded once a block, column operands b1, b2 (boxes of TILE rows) a
+// tile at a time: attn_bwd_dq (a1, a2, b1, b2) = (Q, dO, K, V), rows the
+// N queries; attn_bwd_dkdv (K, V, Q, dO), rows the M keys. All four are
+// [B, rows, H, D] bf16 with D a multiple of 8 and TMA-describable strides.
+struct BwArgs {
+  CUtensorMap a1, a2, b1, b2;
+  const float* lse;     // [B * H, npad], log2 units (dsdiff_flash_attention_lse)
+  float* delta;         // [B * H, npad]: written by attn_bwd_dq, read by dkdv
+  __nv_bfloat16* out1;  // dq, or dk: contiguous [B, rows, H, D]
+  __nv_bfloat16* out2;  // dv (attn_bwd_dkdv)
+  int H, rows, cols, D, npad;
+  float scale_log2, scale;
+};
+
+// The block's 2 x 64 rows against every column tile. Per tile, each consumer
+// warpgroup forms S = A1 B1^T and dP = A2 B2^T (wgmma, both operands in
+// shared memory, f32 accumulators: S^T and dP^T in attn_bwd_dkdv), then in
+// registers P = 2^(S scale_log2 - LSE) and dS = P (dP - delta) in f32, the
+// statistics per row (dq) or per column (dkdv), and adds dS B1 (and, dkdv,
+// P B2) into its f32 output accumulators, each f32 operand as a bf16 hi and
+// lo pass against the exact bf16 tile (B1, B2 read MN-major). attn_bwd_dq
+// walks the columns twice: first delta = rowsum(P dP), written for dkdv,
+// then dQ.
+template <bool DQ, int KSTEPS, int NOUT>
+__device__ __forceinline__ void bw_body(const BwArgs& a) {
+  constexpr int NAT = (KSTEPS + 3) / 4;             // atoms a row
+  constexpr int ROW_BYTES = NAT * BW_CONSUMERS * ATOM_BYTES;
+  constexpr int COL_BYTES = NAT * ATOM_BYTES;       // one column tile
+  constexpr int STAGE_BYTES = 2 * COL_BYTES;
+  static_assert(NOUT <= 64 * NAT && NOUT > 64 * NAT - 64, "n past the atoms");
+  extern __shared__ uint8_t smem_raw[];
+  // the row operands, then per stage a full and an empty barrier
+  __shared__ __align__(8) uint64_t bars[1 + 2 * BW_STAGES];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t row1 = base, row2 = base + ROW_BYTES;
+  const auto col1 = [&](int s) { return base + 2 * ROW_BYTES + s * STAGE_BYTES; };
+  const auto col2 = [&](int s) { return col1(s) + COL_BYTES; };
+  const auto stats = [&](int s) {
+    return base + 2 * ROW_BYTES + BW_STAGES * STAGE_BYTES + s * BW_STATS_BYTES;
+  };
+  const uint32_t row_full = smem_u32(bars);
+  const auto full = [&](int s) { return row_full + 8u * (1 + s); };
+  const auto empty = [&](int s) { return row_full + 8u * (1 + BW_STAGES + s); };
+
+  const int wg = threadIdx.x / WG;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int r0 = blockIdx.x * BW_ROWS;
+  const int ncol = (a.cols + TILE - 1) / TILE;
+  const int total = (DQ ? 2 : 1) * ncol;  // dq: the delta walk, then dQ's
+
+  if (threadIdx.x == 0) {
+    mbar_init(row_full, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * BW_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == BW_CONSUMERS) {
+    // producer: the row operands, then each column tile as soon as its
+    // stage is released (the first round passes at once)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == BW_CONSUMERS * WG) {
+      mbar_expect_tx(row_full, 2 * ROW_BYTES);
+      for (int at = 0; at < NAT; ++at) {
+        const uint32_t off = at * BW_CONSUMERS * ATOM_BYTES;
+        tma_load(row1 + off, &a.a1, row_full, 64 * at, h, r0, b);
+        tma_load(row2 + off, &a.a2, row_full, 64 * at, h, r0, b);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int s = it % BW_STAGES, j = it % ncol;
+        mbar_wait(empty(s), ((it / BW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), STAGE_BYTES + (DQ ? 0 : BW_STATS_BYTES));
+        tma_load_tile(col1(s), &a.b1, full(s), 0, NAT, h, j * TILE, b);
+        tma_load_tile(col2(s), &a.b2, full(s), 0, NAT, h, j * TILE, b);
+        if constexpr (!DQ) {
+          const long long off = static_cast<long long>(bh) * a.npad + j * TILE;
+          bulk_load(stats(s), a.lse + off, TILE * 4, full(s));
+          bulk_load(stats(s) + TILE * 4, a.delta + off, TILE * 4, full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int c = 2 * (lane % 4);
+  // this warpgroup's 64 rows: 8 KB into each 16 KB atom of a row operand
+  const uint64_t a1 = make_desc(row1 + wg * ATOM_BYTES, 16, 1024);
+  const uint64_t a2 = make_desc(row2 + wg * ATOM_BYTES, 16, 1024);
+  int row[2];
+  float lse_r[2], dl[2] = {0.f, 0.f};  // dq: the rows' LSE and delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = r0 + TILE * wg + 16 * warp + lane / 4 + 8 * r;
+    if constexpr (DQ)
+      lse_r[r] = row[r] < a.rows
+                     ? a.lse[static_cast<long long>(bh) * a.npad + row[r]]
+                     : INFINITY;
+  }
+  float o1[NOUT / 2], o2[DQ ? 1 : NOUT / 2], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NOUT / 2; ++i) {
+    o1[i] = 0.f;
+    if constexpr (!DQ) o2[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(row_full, 0);
+
+#pragma unroll 1
+  for (int it = 0; it < total; ++it) {
+    const int s = it % BW_STAGES;
+    mbar_wait(full(s), (it / BW_STAGES) & 1);
+    // S (or S^T) and dP (or dP^T): k-steps of 16 columns, 32 bytes inside
+    // an atom; the row operands' atoms 16 KB apart, the tiles' 8 KB
+    const uint64_t b1 = make_desc(col1(s), 16, 1024);
+    const uint64_t b2 = make_desc(col2(s), 16, 1024);
+    bw_fence(sc);
+    bw_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss(sc, a1 + 1024 * (kk / 4) + 2 * (kk % 4),
+               b1 + 512 * (kk / 4) + 2 * (kk % 4), kk);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss(dp, a2 + 1024 * (kk / 4) + 2 * (kk % 4),
+               b2 + 512 * (kk / 4) + 2 * (kk % 4), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    bw_fence(sc);
+    bw_fence(dp);
+
+    if (DQ && it < ncol) {
+      // the delta walk: this thread's share of rowsum(P dP)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = i % 2;
+        const float p0 = exp2_ftz(fmaf(sc[2 * i], a.scale_log2, -lse_r[r]));
+        const float p1 = exp2_ftz(fmaf(sc[2 * i + 1], a.scale_log2, -lse_r[r]));
+        dl[r] = fmaf(p1, dp[2 * i + 1], fmaf(p0, dp[2 * i], dl[r]));
+      }
+      if (lane == 0) mbar_arrive(empty(s));
+      if (it == ncol - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+          dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+          if (lane % 4 == 0 && row[r] < a.npad)
+            a.delta[static_cast<long long>(bh) * a.npad + row[r]] = dl[r];
+        }
+      }
+      continue;
+    }
+
+    // P and dS = P (dP - delta) in f32, each split into bf16 hi and lo A
+    // fragments (the accumulator's pairs: p[4kk..4kk+3] the columns of k-step
+    // kk of the next products)
+    uint32_t dsh[16], dsl[16], ph[DQ ? 1 : 16], pl[DQ ? 1 : 16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = i % 2;
+      float l0, l1, d0, d1;
+      if constexpr (DQ) {
+        l0 = l1 = lse_r[r];
+        d0 = d1 = dl[r];
+      } else {  // the columns' statistics: columns 8 (i / 2) + c, + 1
+        const uint32_t at = stats(s) + 4 * (8 * (i / 2) + c);
+        const float2 lv = ld_shared_f2(at), dv = ld_shared_f2(at + TILE * 4);
+        l0 = lv.x, l1 = lv.y, d0 = dv.x, d1 = dv.y;
+      }
+      const float p0 = exp2_ftz(fmaf(sc[2 * i], a.scale_log2, -l0));
+      const float p1 = exp2_ftz(fmaf(sc[2 * i + 1], a.scale_log2, -l1));
+      if constexpr (!DQ) split_bf16(p0, p1, ph[i], pl[i]);
+      split_bf16(p0 * (dp[2 * i] - d0), p1 * (dp[2 * i + 1] - d1), dsh[i],
+                 dsl[i]);
+    }
+
+    // out1 += dS B1, out2 += P B2: B MN-major, a k-step of 16 tile rows 2 KB
+    const uint64_t t1 = make_desc(col1(s), ATOM_BYTES, 1024);
+    bw_fence(o1);
+    bw_fence(dsh);
+    bw_fence(dsl);
+    if constexpr (!DQ) {
+      bw_fence(o2);
+      bw_fence(ph);
+      bw_fence(pl);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      bw_mma_rs<NOUT>(o1, dsl + 4 * kk, t1 + 128 * kk);
+      bw_mma_rs<NOUT>(o1, dsh + 4 * kk, t1 + 128 * kk);
+    }
+    if constexpr (!DQ) {
+      const uint64_t t2 = make_desc(col2(s), ATOM_BYTES, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        bw_mma_rs<NOUT>(o2, pl + 4 * kk, t2 + 128 * kk);
+        bw_mma_rs<NOUT>(o2, ph + 4 * kk, t2 + 128 * kk);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    bw_fence(o1);
+    if constexpr (!DQ) bw_fence(o2);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // out1 * scale (dq, dk) and out2 (dv) in bf16; rows past `rows` and
+  // columns past D are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= a.rows) continue;
+    const long long at =
+        (static_cast<long long>(b) * a.rows + row[r]) * a.H * a.D + h * a.D;
+#pragma unroll
+    for (int i = 0; i < NOUT / 8; ++i) {
+      const int col = 8 * i + c;
+      if (col >= a.D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(a.out1 + at + col) =
+          __floats2bfloat162_rn(o1[4 * i + 2 * r] * a.scale,
+                                o1[4 * i + 2 * r + 1] * a.scale);
+      if constexpr (!DQ)
+        *reinterpret_cast<__nv_bfloat162*>(a.out2 + at + col) =
+            __floats2bfloat162_rn(o2[4 * i + 2 * r], o2[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+template <int KSTEPS, int NOUT>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+attn_bwd_dq(const __grid_constant__ BwArgs a) {
+  bw_body<true, KSTEPS, NOUT>(a);
+}
+
+template <int KSTEPS, int NOUT>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+attn_bwd_dkdv(const __grid_constant__ BwArgs a) {
+  bw_body<false, KSTEPS, NOUT>(a);
+}
+
+// attn_bwd_dq (delta and dq) then attn_bwd_dkdv, each where asked for
+template <int KSTEPS, int NOUT>
+int launch_bwd(const BwArgs& dq, const BwArgs& dkdv, int B, int H, int N,
+               int M, bool run_dq, bool run_dkdv, cudaStream_t st) {
+  constexpr int smem = bw_smem_bytes((KSTEPS + 3) / 4);
+  static uint64_t opted_dq = 0, opted_dkdv = 0;
+  const auto k_dq = attn_bwd_dq<KSTEPS, NOUT>;
+  const auto k_dkdv = attn_bwd_dkdv<KSTEPS, NOUT>;
+  cudaError_t err = allow_smem(k_dq, smem, opted_dq);
+  if (err == cudaSuccess) err = allow_smem(k_dkdv, smem, opted_dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (run_dq) {
+    k_dq<<<dim3((N + BW_ROWS - 1) / BW_ROWS, B * H), BW_THREADS, smem, st>>>(dq);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (run_dkdv) {
+    k_dkdv<<<dim3((M + BW_ROWS - 1) / BW_ROWS, B * H), BW_THREADS, smem, st>>>(
+        dkdv);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// The bf16 launch for `plan`; LSE: the gradient path's variant, which also
+// writes each row's log-sum-exp (D <= 128 only)
+template <bool LSE>
+int launch_bf16(const WgmmaArgs& a, const Bf16Plan& plan, __nv_bfloat16* ob,
+                int B, int H, int N, int M, int D, Strides os, float scale_log2,
+                cudaStream_t st, float* lse, int npad) {
+  if (plan.ws) {
+    if (plan.ksteps == 5)
+      return launch_ws<2, 5, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    if (plan.na == 2)
+      return launch_ws<2, 8, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    if constexpr (!LSE) {
+      if (plan.na == 3) return launch_ws<3, 12>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      return launch_ws<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    }
+  }
+  switch (plan.ksteps) {  // k-steps of QK^T; above 64, 4 an atom
+    case 1: return launch_wgmma<1, 1, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    case 2: return launch_wgmma<1, 2, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    case 3: return launch_wgmma<1, 3, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    case 4: return launch_wgmma<1, 4, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+    // 64 < D <= 256 reaches attn_fwd_wgmma only from the threads' loads
+    case 8: return launch_wgmma_as<2, 8, 2, false, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
+  }
+  if constexpr (!LSE) {
+    switch (plan.ksteps) {
+      case 12: return launch_wgmma_as<3, 12, 3, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 16: return launch_wgmma_as<4, 16, 4, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      case 24: return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
+      default: return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// lse: null, or (bf16, D <= 128) the [B * H, npad] row log-sum-exp to write
 int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
            int vec, int B, int H, int N, int M, int D, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale_log2, cudaStream_t st) {
+           Strides vs, Strides os, float scale_log2, cudaStream_t st,
+           float* lse, int npad) {
+  if (lse != nullptr && (!is_bf16 || D > 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
     WgmmaArgs a = {};  // tensor maps left zero when the threads load
@@ -2586,27 +3124,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
       if (res != CUDA_SUCCESS) return -(1000 + static_cast<int>(res));
     }
     bf16* ob = static_cast<bf16*>(o);
-    if (plan.ws) {
-      if (plan.ksteps == 5)
-        return launch_ws<2, 5>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      switch (plan.na) {
-        case 2: return launch_ws<2, 8>(a, ob, B, H, N, M, D, os, scale_log2, st);
-        case 3: return launch_ws<3, 12>(a, ob, B, H, N, M, D, os, scale_log2, st);
-        default: return launch_ws<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      }
-    }
-    switch (plan.ksteps) {  // k-steps of QK^T; above 64, 4 an atom
-      case 1: return launch_wgmma<1, 1>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 2: return launch_wgmma<1, 2>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 3: return launch_wgmma<1, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 4: return launch_wgmma<1, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      // 64 < D <= 256 reaches attn_fwd_wgmma only from the threads' loads
-      case 8: return launch_wgmma_as<2, 8, 2, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 12: return launch_wgmma_as<3, 12, 3, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 16: return launch_wgmma_as<4, 16, 4, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 24: return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      default: return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    }
+    if (lse != nullptr)
+      return launch_bf16<true>(a, plan, ob, B, H, N, M, D, os, scale_log2, st,
+                               lse, npad);
+    return launch_bf16<false>(a, plan, ob, B, H, N, M, D, os, scale_log2, st,
+                              nullptr, 0);
   }
   return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), B, H,
@@ -2638,7 +3160,34 @@ extern "C" int dsdiff_flash_attention(
   const int rc = launch(q, k, v, o, is_bf16, vec, B, H, N, M, D,
                         Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
                         Strides{v_sb, v_sn, v_sh}, Strides{o_sb, o_sn, o_sh},
-                        scale_log2, static_cast<cudaStream_t>(stream));
+                        scale_log2, static_cast<cudaStream_t>(stream), nullptr,
+                        0);
+  if (current != device) cudaSetDevice(current);
+  return rc;
+}
+
+// dsdiff_flash_attention's gradient-path launch (bf16, D <= 128): the same
+// output, and each row's log-sum-exp of the scaled scores in log2 units,
+// lse[(b * H + h) * npad + n] = log2(sum_m 2^(s_nm * scale_log2)), for n < N,
+// and +inf for N <= n < npad (npad = N rounded up to 64), which the backward
+// reads as rows whose probabilities are 0.
+extern "C" int dsdiff_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int npad, int vec, int device, int B, int H, int N, int M, int D,
+    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+    float scale_log2, void* stream) {
+  // on autograd's device thread (a remat recompute) as the backward entry
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch(q, k, v, o, 1, vec, B, H, N, M, D,
+                        Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
+                        Strides{v_sb, v_sn, v_sh}, Strides{o_sb, o_sn, o_sh},
+                        scale_log2, static_cast<cudaStream_t>(stream), lse,
+                        npad);
   if (current != device) cudaSetDevice(current);
   return rc;
 }
@@ -2678,4 +3227,103 @@ extern "C" void dsdiff_flash_attention_f32_plan(int vec, int B, int H, int N,
   out[6] = (N + rows - 1) / rows;
   out[7] = B * H;
   out[8] = p.kernel == 1 ? 2 : 1;
+}
+
+// The backward of dsdiff_flash_attention_lse's call (bf16, D <= 128, a
+// multiple of 8; q, k, v and dout [B, N|M, H, D] with 16-byte aligned
+// bases and b, n, h strides multiples of 8 elements, the wrapper's copies
+// where they are not): attn_bwd_dq where run_dq (delta into `delta`, then
+// dq), then attn_bwd_dkdv where run_dkdv (it reads delta: run_dq must have
+// run for dk). dq [B, N, H, D], dk and dv [B, M, H, D] contiguous, in bf16;
+// lse and delta [B * H, npad]. Returns as dsdiff_flash_attention.
+extern "C" int dsdiff_flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, float* delta, void* dq, void* dk, void* dv, int npad,
+    int device, int B, int H, int N, int M, int D, long long q_sb,
+    long long q_sn, long long q_sh, long long k_sb, long long k_sn,
+    long long k_sh, long long v_sb, long long v_sn, long long v_sh,
+    long long g_sb, long long g_sn, long long g_sh, float scale_log2,
+    float scale, int run_dq, int run_dkdv, void* stream) {
+  if (D > 128 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // autograd's device thread may not have made the context current yet
+  // (cuTensorMapEncodeTiled then fails with CUDA_ERROR_INVALID_CONTEXT):
+  // cudaSetDevice does, also where the device is already the current one
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  using bf16 = __nv_bfloat16;
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
+      vs{v_sb, v_sn, v_sh}, gs{g_sb, g_sn, g_sh};
+  BwArgs a_dq = {}, a_kv = {};
+  CUresult res = CUDA_SUCCESS;
+  if (run_dq) {
+    res = encode(fn, &a_dq.a1, q, B, N, H, D, qs, BW_ROWS);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_dq.a2, dout, B, N, H, D, gs, BW_ROWS);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_dq.b1, k, B, M, H, D, ks);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_dq.b2, v, B, M, H, D, vs);
+    a_dq.out1 = static_cast<bf16*>(dq);
+    a_dq.rows = N, a_dq.cols = M;
+  }
+  if (run_dkdv && res == CUDA_SUCCESS) {
+    res = encode(fn, &a_kv.a1, k, B, M, H, D, ks, BW_ROWS);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_kv.a2, v, B, M, H, D, vs, BW_ROWS);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_kv.b1, q, B, N, H, D, qs);
+    if (res == CUDA_SUCCESS) res = encode(fn, &a_kv.b2, dout, B, N, H, D, gs);
+    a_kv.out1 = static_cast<bf16*>(dk);
+    a_kv.out2 = static_cast<bf16*>(dv);
+    a_kv.rows = M, a_kv.cols = N;
+  }
+  if (res != CUDA_SUCCESS) {
+    if (current != device) cudaSetDevice(current);
+    return -(1000 + static_cast<int>(res));
+  }
+  BwArgs* const both[2] = {&a_dq, &a_kv};
+  for (BwArgs* a : both) {
+    a->lse = lse, a->delta = delta;
+    a->H = H, a->D = D, a->npad = npad;
+    a->scale_log2 = scale_log2, a->scale = scale;
+  }
+  const BwPlan p = bw_plan(D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc;
+  switch (p.nout) {
+#define BW_CASE(KS, NO)                                                     \
+  case NO:                                                                  \
+    rc = launch_bwd<KS, NO>(a_dq, a_kv, B, H, N, M, run_dq, run_dkdv, st);  \
+    break;
+    BW_CASE(2, 32)
+    BW_CASE(3, 48)
+    BW_CASE(4, 64)
+    BW_CASE(5, 72)
+    BW_CASE(5, 80)
+    BW_CASE(6, 96)
+    default:
+      BW_CASE(8, 128)
+#undef BW_CASE
+  }
+  if (current != device) cudaSetDevice(current);
+  return rc;
+}
+
+// The launches dsdiff_flash_attention_backward makes for (B, H, N, M, D),
+// D as the caller has it (padded to a multiple of 8 here), into out[10]:
+// k-steps of S and dP, the output products' n, column-tile stages, threads
+// a block, dynamic shared memory bytes, attn_bwd_dq's grid x, y,
+// attn_bwd_dkdv's grid x, y, and npad.
+extern "C" void dsdiff_flash_attention_bwd_plan(int B, int H, int N, int M,
+                                                int D, int* out) {
+  const BwPlan p = bw_plan((D + 7) / 8 * 8);
+  out[0] = p.ksteps;
+  out[1] = p.nout;
+  out[2] = BW_STAGES;
+  out[3] = BW_THREADS;
+  out[4] = bw_smem_bytes((p.ksteps + 3) / 4);
+  out[5] = (N + BW_ROWS - 1) / BW_ROWS;
+  out[6] = B * H;
+  out[7] = (M + BW_ROWS - 1) / BW_ROWS;
+  out[8] = B * H;
+  out[9] = (N + TILE - 1) / TILE * TILE;
 }

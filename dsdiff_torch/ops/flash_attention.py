@@ -30,14 +30,24 @@ D = 64 where the bases are 16-byte aligned and the batch, row and head
 strides are multiples of 4 floats, else copies 16 bytes where the layout
 allows it and 4 otherwise (``f32_load``).
 
-The gradient mirrors the JAX package's ``custom_vjp``: ``FlashAttention`` is
-an ``autograd.Function`` whose forward is the kernel and whose backward is
-the VJP of ``reference_attention``, recomputed from the saved q, k and v
-(``attention_vjp``: the plain math's gradient in f32, written out). There
-is no backward kernel (ROADMAP B1). The backward runs in an
+The gradient is the VJP of ``reference_attention``, the f32 math the JAX
+package's ``custom_vjp`` (``_fa_bwd``) differentiates. ``FlashAttention`` is
+an ``autograd.Function`` whose forward is the kernel and whose backward
+takes one of two routes (``backward_route``): bf16 q, k, v with D <= 128
+(every trained head of the shipped configurations below DisC-Diff's) go to
+the backward kernels ``attn_bwd_dq`` and ``attn_bwd_dkdv`` of the same
+source, whose forward launch also writes each row's log-sum-exp
+(``_launch_lse``); f32 and D > 128 go to ``attention_vjp``, the plain
+math's gradient in f32, recomputed from the saved q, k and v. The backward
+kernels keep the scores on chip, put every product on the tensor cores and
+give each f32 operand (P, dS) as a bf16 high and low part, so they compute
+the same f32 VJP (the source's header says how). Their dq is a
+deterministic sum: two calls give the same bits. The backward runs in an
 ``attention.backward`` span (``utils.profiling``; attributes B, N, heads,
-D). When no input needs a gradient (serving, ``torch.inference_mode``) the
-kernel is launched directly and nothing is saved.
+D) and counts ``attention.bwd_kernel`` or ``attention.bwd_plain`` in it.
+When no input needs a gradient (serving, ``torch.inference_mode``) the
+forward kernel is launched directly, without the log-sum-exp, and nothing
+is saved.
 """
 from __future__ import annotations
 
@@ -46,17 +56,22 @@ import math
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import _build
 
-__all__ = ["flash_attention", "reference_attention", "attention_vjp",
-           "FlashAttention",
+__all__ = ["flash_attention", "reference_attention", "reference_lse",
+           "attention_vjp", "FlashAttention",
            "bf16_load", "bf16_plan", "f32_load", "f32_plan", "route",
-           "LAUNCHES", "MAX_HEAD_DIM", "ROUTES", "BF16_LOADS", "BF16_KERNELS",
-           "F32_KERNELS", "SMEM_LIMIT"]
+           "backward_route", "bwd_plan",
+           "LAUNCHES", "BACKWARD_LAUNCHES", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM",
+           "ROUTES", "BF16_LOADS", "BF16_KERNELS", "F32_KERNELS",
+           "BWD_KERNELS", "SMEM_LIMIT"]
 
 # forward kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+# backward kernel launches (one a backward call: attn_bwd_dq and / or
+# attn_bwd_dkdv) since import, or since a caller reset it to 0
+BACKWARD_LAUNCHES = 0
 # bf16 pads the head dimension to a multiple of 64 on chip (one 128-byte
 # swizzle atom; 384 or 512 above 256), f32 to a multiple of 8 up to 64 and
 # to 96, 128, 192, 256, 384 or 512 above
@@ -77,6 +92,11 @@ BF16_KERNELS = ("wgmma", "wgmma_ws")
 # layouts, wgmma with two consumer warpgroups and a producer
 # (attn_fwd_tf32x3_ws)
 F32_KERNELS = ("tf32x3", "tf32x3_wide", "tf32x3_ws")
+# the backward's two kernels (csrc/flash_attention.cu): delta and dq over
+# 128 query rows a block, then dk and dv over 128 key rows a block
+BWD_KERNELS = ("attn_bwd_dq", "attn_bwd_dkdv")
+# the widest head the backward kernels take (bf16)
+MAX_BWD_HEAD_DIM = 128
 # shared memory a block may have on an H100
 SMEM_LIMIT = 232448
 # attn_fwd_tf32x3_ws: ring stages (atoms of 32 columns) and the registers
@@ -87,6 +107,12 @@ _FW_STAGES, _FW_PRODUCER_REGS, _FW_CONSUMER_REGS = 8, 72, 216
 # rows, one 128-byte swizzle atom of a 64-row tile, attn_fwd_ws's consumer
 # warpgroups and K/V ring depth
 _TILE, _ATOM_BYTES, _WS_CONSUMERS, _WS_STAGES = 64, 64 * 64 * 2, 2, 2
+# the backward kernels: rows a block, column-tile stages, one tile's LSE and
+# delta bytes; and, as the source's bw_plan, (the widest D padded to 8 a
+# row takes, the k-steps of S and dP, the output products' n)
+_BW_ROWS, _BW_STAGES, _BW_STATS_BYTES = 2 * _TILE, 3, 2 * _TILE * 4
+_BW_TILES = ((32, 2, 32), (48, 3, 48), (64, 4, 64), (72, 5, 72), (80, 5, 80),
+             (96, 6, 96), (128, 8, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LOG2E = math.log2(math.e)
 _lib = None
@@ -98,6 +124,20 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(D)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+
+
+def reference_lse(q: torch.Tensor, k: torch.Tensor):
+    """The row log-sum-exp the gradient path's forward writes, in plain
+    PyTorch: ``[B·heads, npad]`` f32, log2 units of the scores scaled by
+    log2(e)/sqrt(D) (log2 of the softmax's denominator), rows padded to a
+    multiple of 64 with +inf."""
+    B, N, H, D = q.shape
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+    lse = torch.logsumexp(s / math.sqrt(D), dim=-1) / math.log(2.0)
+    out = torch.full((B * H, -(-N // _TILE) * _TILE), math.inf,
+                     dtype=torch.float32, device=q.device)
+    out[:, :N] = lse.reshape(B * H, N)
+    return out
 
 
 def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,6 +342,51 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return bf16_plan(B, N, H, D, _vec(q, k, v, strides))["kernel"]
 
 
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Where ``FlashAttention.backward`` takes these q, k, v: "kernel"
+    (``BWD_KERNELS``) for bf16 with D <= 128, else "plain"
+    (``attention_vjp``: f32, and DisC-Diff's, palette's and the VAE's wider
+    heads)."""
+    if q.dtype == torch.bfloat16 and q.shape[3] <= MAX_BWD_HEAD_DIM:
+        return "kernel"
+    return "plain"
+
+
+def bwd_plan(B: int, N: int, M: int, H: int, D: int) -> dict:
+    """The backward launches for [B, N, H, D] q and [B, M, H, D] k, v
+    (bf16, D <= 128): its kernels (``BWD_KERNELS``), D padded to a multiple
+    of 8 (``dp``; the wrapper copies an operand to that width where D is
+    not), the k-steps of 16 of S = Q Kᵀ and dP = dO Vᵀ, the n of the output
+    products (``n``), the 64-column atoms a tile row spans, the rows a block
+    owns (two consumer warpgroups of 64 and a producer), the rows of a
+    streamed column tile, its ring's stages, threads, dynamic shared memory
+    in bytes, each kernel's grid and the padded length of the LSE and delta
+    rows (``npad``). ``dsdiff_flash_attention_bwd_plan`` in the source
+    returns the same numbers."""
+    dp = -(-D // 8) * 8
+    ksteps, n = next((k, n) for top, k, n in _BW_TILES if dp <= top)
+    atoms = -(-ksteps // 4)
+    smem = (2 * atoms * _BW_ROWS * 128
+            + _BW_STAGES * (2 * atoms * _ATOM_BYTES + _BW_STATS_BYTES) + 1024)
+    return dict(kernels=BWD_KERNELS, dp=dp, ksteps=ksteps, n=n, atoms=atoms,
+                rows=_BW_ROWS, key_rows=_TILE, stages=_BW_STAGES,
+                threads=3 * 128, smem_bytes=smem,
+                grid_dq=(-(-N // _BW_ROWS), B * H, 1),
+                grid_dkdv=(-(-M // _BW_ROWS), B * H, 1),
+                npad=-(-N // _TILE) * _TILE)
+
+
+def native_bwd_plan(B: int, N: int, M: int, H: int, D: int) -> dict:
+    """``bwd_plan``'s numbers as the built kernel library gives them (needs
+    the library, so ``nvcc``)."""
+    fn = _library().dsdiff_flash_attention_bwd_plan
+    out = (ctypes.c_int * 10)()
+    fn(B, H, N, M, D, out)
+    return dict(ksteps=out[0], n=out[1], stages=out[2], threads=out[3],
+                smem_bytes=out[4], grid_dq=(out[5], out[6], 1),
+                grid_dkdv=(out[7], out[8], 1), npad=out[9])
+
+
 def native_bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
     """``bf16_plan``'s numbers as the built kernel library gives them
     (needs the library, so ``nvcc``)."""
@@ -336,6 +421,25 @@ def _library():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        fn = lib.dsdiff_flash_attention_lse
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 8
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        fn = lib.dsdiff_flash_attention_backward
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        plan = lib.dsdiff_flash_attention_bwd_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = None
         plan = lib.dsdiff_flash_attention_bf16_plan
         plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = None
@@ -346,53 +450,139 @@ def _library():
     return _lib
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _raise_rc(rc: int, what: str) -> None:
+    if rc == -1:
+        raise RuntimeError(f"{what}: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
+    if rc <= -1000:
+        raise RuntimeError(f"{what}: TMA tensor map refused, "
+                           f"CUresult {-rc - 1000}")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse=None):
     """Launch the CUDA kernel once; raises on what it does not take. The
-    C entry launches on q's device and that device's current stream."""
+    C entry launches on q's device and that device's current stream.
+    ``lse`` (``_launch_lse``): the gradient path's launch, which also
+    writes each row's log-sum-exp there."""
     global LAUNCHES
     qs, ks, vs = _check(q, k, v)
     B, N, H, D = q.shape
-    fn = _library().dsdiff_flash_attention
+    lib = _library()
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     index = q.device.index
     is_bf16 = _DTYPES[q.dtype]
     vec = _vec(q, k, v, (qs, ks, vs)) if is_bf16 else 0
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        is_bf16, vec, index, B, H, N, k.shape[1], D,
+    args = (
+        index, B, H, N, k.shape[1], D,
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
         N * H * D, H * D, D,  # o is contiguous
         # the current stream's raw handle: torch.cuda.current_stream()
         # builds a Stream object, microseconds of host time per launch
         _LOG2E / math.sqrt(D), torch._C._cuda_getCurrentRawStream(index),
     )
-    if rc == -1:
-        raise RuntimeError("flash_attention: the CUDA driver has no "
-                           "cuTensorMapEncodeTiled")
-    if rc <= -1000:
-        raise RuntimeError(f"flash_attention: TMA tensor map refused, "
-                           f"CUresult {-rc - 1000}")
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    if lse is None:
+        rc = lib.dsdiff_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            is_bf16, vec, *args)
+    else:
+        rc = lib.dsdiff_flash_attention_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), lse.shape[1], vec, *args)
+    _raise_rc(rc, "flash_attention")
     LAUNCHES += 1
     return o
 
 
+def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The gradient path's forward (bf16, D <= 128): (o, lse), lse as
+    ``reference_lse`` gives it, written by the same launch."""
+    B, N, H, _ = q.shape
+    lse = torch.empty((B * H, -(-N // _TILE) * _TILE), dtype=torch.float32,
+                      device=q.device)
+    return _launch(q, k, v, lse), lse
+
+
+def _tma_operand(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """x as the backward kernels read it: itself where a TMA tensor map
+    describes it at width ``dp`` (16-byte aligned base, batch, row and head
+    strides positive multiples of 8 elements), else a contiguous copy
+    zero-padded to ``dp`` columns (a head of D = 36)."""
+    if (x.shape[3] == dp and x.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])):
+        return x
+    out = x.new_zeros(x.shape[:3] + (dp,))
+    out[..., :x.shape[3]] = x
+    return out
+
+
+def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     grad_out: torch.Tensor, lse: torch.Tensor,
+                     needs=(True, True, True)):
+    """(dq, dk, dv) of the forward that wrote ``lse`` (``_launch_lse``),
+    through the backward kernels, None where ``needs`` is False:
+    ``attn_bwd_dq`` for dq or dk (its delta feeds dk), ``attn_bwd_dkdv`` for
+    dk or dv. The same values as ``attention_vjp`` to f32 rounding before
+    the cast to bf16; raises on what the kernels do not take."""
+    global BACKWARD_LAUNCHES
+    _check(q, k, v)
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    if (q.dtype != torch.bfloat16 or D > MAX_BWD_HEAD_DIM
+            or grad_out.shape != q.shape or grad_out.dtype != q.dtype
+            or grad_out.device != q.device):
+        raise ValueError(
+            f"the backward kernels take bf16 q, k, v with D <= "
+            f"{MAX_BWD_HEAD_DIM} and a cotangent like q, got {q.dtype} "
+            f"{tuple(q.shape)}, {grad_out.dtype} {tuple(grad_out.shape)}")
+    dp = -(-D // 8) * 8
+    ops = [_tma_operand(x, dp) for x in (q, k, v, grad_out)]
+    run_dq, run_dkdv = needs[0] or needs[1], needs[1] or needs[2]
+    dq = ops[0].new_empty((B, N, H, dp)) if run_dq else None
+    dk = ops[1].new_empty((B, M, H, dp)) if run_dkdv else None
+    dv = ops[2].new_empty((B, M, H, dp)) if run_dkdv else None
+    delta = torch.empty_like(lse)
+    index = q.device.index
+    strides = [s for x in ops for s in x.stride()[:3]]
+    rc = _library().dsdiff_flash_attention_backward(
+        *(x.data_ptr() for x in ops), lse.data_ptr(), delta.data_ptr(),
+        *(x.data_ptr() if x is not None else None for x in (dq, dk, dv)),
+        lse.shape[1], index, B, H, N, M, dp, *strides,
+        _LOG2E / math.sqrt(D), 1.0 / math.sqrt(D), int(run_dq), int(run_dkdv),
+        torch._C._cuda_getCurrentRawStream(index))
+    _raise_rc(rc, "flash_attention backward")
+    BACKWARD_LAUNCHES += 1
+    return tuple(None if not need else x if dp == D else x[..., :D]
+                 for x, need in zip((dq, dk, dv), needs))
+
+
 class FlashAttention(torch.autograd.Function):
     """Forward: the CUDA kernel. Backward: the VJP of
-    ``reference_attention`` at the saved inputs (``attention_vjp``), as the
-    JAX package's ``_fa_bwd`` differentiates its plain math."""
+    ``reference_attention`` at the saved inputs, as the JAX package's
+    ``_fa_bwd`` differentiates its plain math, by ``backward_route``: the
+    backward kernels (the forward then also saves its row log-sum-exp) or
+    ``attention_vjp``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
+        if backward_route(q, k, v) == "kernel":
+            o, lse = _launch_lse(q, k, v)
+            ctx.save_for_backward(q, k, v, lse)
+            return o
         ctx.save_for_backward(q, k, v)
         return _launch(q, k, v)
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *lse = ctx.saved_tensors
         B, N, H, D = q.shape
         with span("attention.backward", B=B, N=N, heads=H, D=D):
+            if lse:
+                count("attention.bwd_kernel")
+                return _launch_backward(q, k, v, grad_out, lse[0],
+                                        ctx.needs_input_grad)
+            count("attention.bwd_plain")
             return attention_vjp(q, k, v, grad_out, ctx.needs_input_grad)
 
 

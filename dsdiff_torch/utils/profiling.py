@@ -26,7 +26,9 @@ The program's spans and counters, and what reads each:
 - ``model.remat``: a checkpointed ResBlock or DiT block, opened again by
   its recompute;
 - ``attention.backward`` (``B``, ``N``, ``heads``, ``D``): the VJP of one
-  ``ops.flash_attention`` call, its plain f32 recompute and ``grad``;
+  ``ops.flash_attention`` call, through the backward kernels or the plain
+  f32 recompute, with the counter ``attention.bwd_kernel`` or
+  ``attention.bwd_plain`` saying which (no metric reads them);
 - ``train.step`` (root): ``Trainer.train_step``; ``train.backward``: the
   step's ``loss.backward()``;
 - ``fit.batch_wait`` and ``fit.to_device``: ``Trainer.fit`` taking its next
