@@ -314,7 +314,8 @@ HEAD_DIM_HELD = [("DiT-XL/8 at 256²", (1024, 16, 72)),
 WIDE_HEAD_ROWS = [("DiT-XL/8 at 256²", (1024, 16, 72)),
                   ("D = 256", (1024, 4, 256))]
 # f32 above D = 64 as Dense(H*D) outputs viewed as heads of a width no TMA
-# map takes (a head stride of 130 floats), timed at batch 4
+# map takes (a head stride of 130 floats): the wrapper's contiguous copies
+# into tf32x3_ws, timed (the copies included) at batch 4
 UNALIGNED_F32_ROW = (1024, 2, 130)
 
 # the latent pipeline: the KL-VAE of configs/autoencoder_kl.yaml, whose
@@ -621,8 +622,9 @@ def _attention_inputs(gen, batch, N, H, D, dtype, M=None,
 
 
 def _load(q, k, v) -> str:
-    """How the kernel loads these inputs: TMA or the kernel's threads'
-    copies (``bf16_load``, ``f32_load``)."""
+    """How the kernel loads these inputs: TMA, the kernel's threads'
+    copies, or TMA from the wrapper's contiguous copies (``bf16_load``,
+    ``f32_load``)."""
     return (fa.bf16_load(q, k, v) if q.dtype == torch.bfloat16
             else fa.f32_load(q, k, v))
 
@@ -639,15 +641,12 @@ def _attention_row(gen, batch, N, H, D, dtype, calls, card: str, M=None,
     load = _load(*qkv)
     route = fa.route(*qkv)
     # the library's launch is the one the wrapper describes
-    strides = tuple(x.stride() for x in qkv)
     if dtype == torch.bfloat16:
-        vec = fa._vec(*qkv, strides)
-        want_plan = fa.bf16_plan(batch, N, H, D, vec)
-        got_plan = fa.native_bf16_plan(batch, N, H, D, vec)
+        want_plan = fa.bf16_plan(batch, N, H, D)
+        got_plan = fa.native_bf16_plan(batch, N, H, D)
     else:
-        vec = fa._f32_vec(*qkv, strides)
-        want_plan = fa.f32_plan(batch, N, H, D, vec)
-        got_plan = fa.native_f32_plan(batch, N, H, D, vec)
+        want_plan = fa.f32_plan(batch, N, H, D)
+        got_plan = fa.native_f32_plan(batch, N, H, D)
     check(got_plan == {k: want_plan[k] for k in got_plan},
           f"flash_attention {[batch, N, H, D]}: the library plans "
           f"{got_plan}, the wrapper {want_plan}")
@@ -702,9 +701,9 @@ def phase_kernels(card: str):
     WIDE_HEAD_ROWS (no config launches them: 0 calls) and f32 at
     UNALIGNED_F32_ROW; prints attention's device time in one f32 disc_diff
     forward beside SDPA's; returns the rows. bf16 runs the kernel's wgmma
-    route (its warp-specialised kernel above D = 64), f32 its tf32x3 route
-    (above D = 64 on TMA layouts ``tf32x3_ws``); each row names the launch,
-    checked against the library's own plan."""
+    route (its warp-specialised kernel for 64 < D <= 256), f32 its tf32x3
+    route (``tf32x3_ws`` above D = 64); each row names the launch, checked
+    against the library's own plan."""
     disable_tf32()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -731,12 +730,13 @@ def phase_kernels(card: str):
             row = _attention_row(gen, SERVE_BATCH, N, H, D, dtype, None, card)
             rows.append(dict(row, families={name: 0}))
     # f32 above D = 64 on a layout no TMA map describes (Dense heads of 130
-    # floats): the kernel f32_plan names for it, the mma.sync one
+    # floats): the wrapper's copies into the kernel f32_plan names
     N, H, D = UNALIGNED_F32_ROW
     row = _attention_row(gen, SERVE_BATCH, N, H, D, torch.float32, None, card,
                          layout="dense")
-    check(row["route"] == "tf32x3", f"f32 {row['shape']} dense: route "
-          f"{row['route']}, not the mma.sync kernel")
+    check(row["load"] == "copy" and row["route"] == "tf32x3_ws",
+          f"f32 {row['shape']} dense: load {row['load']}, route "
+          f"{row['route']}, not tf32x3_ws on the wrapper's copies")
     rows.append(dict(row, families={"unaligned f32 heads": 0}))
     # attention's device time in one f32 disc_diff forward (its 12 calls at
     # [SERVE_BATCH, 1024, 4, 192]) against SDPA's
@@ -4567,7 +4567,7 @@ def kernels_line(attn_rows, attn_launches: dict, norm_rows,
         "routes_by_dtype": {str(d).split(".")[1]: r for d, r in fa.ROUTES.items()},
         "kernels_by_dtype": {"bfloat16": list(fa.BF16_KERNELS),
                              "float32": list(fa.F32_KERNELS)},
-        # the f32 rows above D = 64 (tf32x3_ws on TMA layouts)
+        # the f32 rows above D = 64 (tf32x3_ws)
         "f32_rows_above_64": [
             {k: r[k] for k in ("shape", "keys", "layout", "load", "route",
                                "max_abs_err", "ms", "graph_ms", "plain_ms",

@@ -14,10 +14,14 @@
 // a kernel by head dim and layout (bf16_plan, f32_plan):
 //
 // bf16: tensor cores through wgmma, K/V tiles through TMA. Two kernels, the
-// C entry's bf16_plan picking one: attn_fwd_ws for 64 < D <= 256 where TMA
-// describes the layout, attn_fwd_wgmma for everything else.
+// C entry's bf16_plan picking one by D: attn_fwd_ws for 64 < D <= 256,
+// attn_fwd_wgmma for D <= 64 and D > 256. Above D = 64 both read q, k and v
+// through TMA only: the C entry refuses a layout no tensor map describes,
+// and the Python wrapper hands it a contiguous copy of such q, k and v
+// instead (rows padded to a multiple of 8 elements; no shipped model makes
+// one).
 //
-// attn_fwd_ws (64 < D <= 256, TMA layouts): one block keeps the tensor
+// attn_fwd_ws (64 < D <= 256): one block keeps the tensor
 // cores busy by itself.
 // - 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of a
 //   128-row Q tile and both reading every K/V tile, so a K/V byte brought
@@ -71,7 +75,7 @@
 // - The products' fragments and the masking of keys past M are
 //   attn_fwd_wgmma's (below), per consumer warpgroup.
 //
-// attn_fwd_wgmma (D <= 64, D > 256, and layouts no tensor map describes):
+// attn_fwd_wgmma (D <= 64 and D > 256):
 // - One warpgroup (128 threads) per 64-row Q tile; grid (ceil(N/64), B*H).
 // - One TMA tensor map per operand per launch, over the view's own shape and
 //   strides as a 4-D tensor (D, H, rows, B), box (64, 1, 64, 1), 128-byte
@@ -86,10 +90,8 @@
 //   done with it. At D <= 64 the ring has two stages, so the load of tile j+1
 //   overlaps the products of tile j, and shared memory stays at 41 KB: up to
 //   five blocks share an SM (scripts/torch_attention_variants.py times a
-//   4-stage ring). Above 64 (where this kernel takes only the thread-loaded
-//   layouts and D > 256) it has one stage: the tiles grow with NA (73 KB
-//   at D=192, 97 KB at 256), and the blocks that share an SM (three at 192,
-//   two at 256) hide each other's loads; two stages would leave one block.
+//   4-stage ring). Above 256 it has one stage: the tiles of NA = 6 or 8
+//   atoms leave room for one block an SM.
 // - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
 //   K-major (D contiguous), KSTEPS k-steps of 16 columns (3 at D=48, 12 at
 //   192; above 64, 4 * NA, the padding columns being zeros), f32 accumulate;
@@ -115,20 +117,21 @@
 //   stage of Q (NA atoms), K (NA) and V (NV): 160 KB + 1 KB at D=512, one
 //   block an SM. Atoms of Q and K wholly past D (D=264 in 6 atoms) are never
 //   loaded by TMA: the block zeroes them once, so their k-steps add nothing.
-// - Layouts a TMA tensor map cannot describe (a base not 16-byte aligned, or
-//   a batch, row or head stride that is not a multiple of 8 elements: the
-//   head stride of 72 bytes at D=36 in DSUNet's cross-attention fusion, the
-//   thirds of a fused qkv at such a D) take the same kernel with its tiles
-//   loaded by the threads instead (template TMA = false): every thread
-//   copies VEC elements at a time (8 or 4 bytes by cp.async, 2 bytes through
-//   a register where nothing wider is aligned) into the same 128-byte
-//   swizzled atoms TMA would write (16-byte chunk c of row r lands at chunk
-//   c ^ (r % 8)), zeros past D and past the ragged row tail. The ring, its
-//   stages and the products are those of the TMA route; a stage is waited
-//   on with cp.async.wait_group, a proxy fence and a block barrier instead
-//   of its mbarrier. The Python wrapper picks VEC (0 = TMA) from the bases,
-//   the strides and D; nothing is copied or padded outside the kernel.
-// It takes: D <= 512 and any strides with a contiguous last dimension.
+// - Up to D = 64, layouts a TMA tensor map cannot describe (a base not
+//   16-byte aligned, or a batch, row or head stride that is not a multiple
+//   of 8 elements: the head stride of 72 bytes at D=36 in DSUNet's
+//   cross-attention fusion, the thirds of a fused qkv at such a D) take the
+//   same kernel with its tiles loaded by the threads instead (template
+//   TMA = false, NA = 1 only): every thread copies VEC elements at a time
+//   (8 or 4 bytes by cp.async, 2 bytes through a register where nothing
+//   wider is aligned) into the same 128-byte swizzled atoms TMA would write
+//   (16-byte chunk c of row r lands at chunk c ^ (r % 8)), zeros past D and
+//   past the ragged row tail. The ring, its stages and the products are
+//   those of the TMA route; a stage is waited on with cp.async.wait_group,
+//   a proxy fence and a block barrier instead of its mbarrier. The Python
+//   wrapper picks VEC (0 = TMA) from the bases, the strides and D.
+// It takes: D <= 512; up to D = 64 any strides with a contiguous last
+// dimension, above it the layouts a TMA map describes.
 // P enters the second product in bf16, as in jax.nn.dot_product_attention
 // (probabilities cast to the value dtype).
 //
@@ -136,11 +139,12 @@
 // bits (an error of ~1e-3 at unit scale), so each operand is split,
 // a = hi + lo, and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b (lo lo, below
 // 2^-22 relative, dropped), in both products: S = Q K^T and O += P V, P in
-// f32. The C entry's f32_plan picks one of three kernels.
+// f32. The C entry's f32_plan picks one of two kernels by D.
 //
 // attn_fwd_tf32x3_ws (64 < D <= 512, layouts a TMA map describes: 16-byte
-// aligned bases, batch, row and head strides multiples of 4 floats):
-// wgmma .tf32, warp specialised, each K/V element split once a block.
+// aligned bases, batch, row and head strides multiples of 4 floats; the C
+// entry refuses others, the wrapper copies them as it does for bf16): wgmma
+// .tf32, warp specialised, each K/V element split once a block.
 // - 384 threads: warpgroups 0 and 1 consume; warpgroup 2 produces (warp 0's
 //   first thread issues every TMA load, warps 1..3 split each atom once it
 //   lands); setmaxnreg 72 / 216. Up to D = 256 consumer w owns Q rows
@@ -191,16 +195,16 @@
 //   scores above 256 (FW_SHARE_SCORES false) and the ablations, and
 //   --f32 --clock prints the cycles of each phase (the FW_CLK hooks).
 //
-// attn_fwd_tf32x3 (D <= 64, and up to 256 the layouts no TMA map
-// describes), mma.sync m16n8k8:
+// attn_fwd_tf32x3 (D <= 64, every layout), mma.sync m16n8k8:
 // - 4 warps (128 threads) per 64-row Q tile, one 16-row slab per warp; grid
 //   (ceil(N/64), B*H). D is padded to a multiple of 8 (48 stays 48): DK =
 //   ceil(D/8) k-steps of QK^T and n-tiles of PV.
 // - hi = a rounded to TF32 (as cvt.rna.tf32.f32 rounds), lo = a - hi, both
 //   split in registers after a load of raw f32 from shared memory, so
 //   shared memory holds one f32 copy of each tile.
-// - Q is pre-scaled by log2(e)/sqrt(D) before its split; the online softmax
-//   runs in f32 with ex2.approx.ftz, as the bf16 route.
+// - Q is pre-scaled by log2(e)/sqrt(D) before its split and held in
+//   registers, split, for the whole run; the online softmax runs in f32
+//   with ex2.approx.ftz, as the bf16 route.
 // - S's accumulator is P's A fragment up to a permutation of the 8 keys of
 //   each step, which PV's sum over keys does not see (see the kernel).
 // - K/V tiles of 64 keys go through a 2-stage ring filled by cp.async: 16-byte
@@ -208,15 +212,6 @@
 //   multiples of 4 floats (the model's qkv thirds), else 4-byte copies; rows
 //   padded to 8*DK + 4 floats keep fragment loads free of bank conflicts.
 //   Shared memory: 5 tiles of 64 x (8*DK + 4) floats, 66,560 B at D=48.
-// - Above D=64 (layouts no TMA map describes: 4-byte copies) DK is rounded
-//   up to 12, 16, 24 or 32, Q stays in shared memory and each k-step's
-//   fragment is loaded and split once per K/V tile, and the ring has one
-//   stage: three tiles, 150,528 B at D=192, 199,680 B at 256.
-// - Above D=256 (attn_fwd_tf32x3_wide, the same layouts) DK is rounded up to
-//   48 or 64; Q stays in shared memory, K is streamed in chunks of 64
-//   columns, and a block owns half of O's columns (grid z over the two
-//   halves): 216,064 B at D=512. Both blocks of a Q tile compute the full
-//   scores; the copies are not overlapped with the products.
 //
 // Bound on an H100 SXM at 700 W (989 TFLOP/s bf16, 495 TF32, 3.35 TB/s),
 // batch 16, per call at the flagship's three shapes (FLOPs = 4*B*H*N*M*D;
@@ -859,6 +854,7 @@ int launch_wgmma_as(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// D <= 64: the TMA instantiation where vec is 0, else the threads' loads
 template <int NA, int KSTEPS, int NV = NA, bool LSE = false>
 int launch_wgmma(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
                  int M, int D, Strides os, float scale_log2, cudaStream_t st,
@@ -871,7 +867,7 @@ int launch_wgmma(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 64 < D <= 256, TMA layouts: warp-specialised (attn_fwd_ws)
+// bf16, 64 < D <= 256: warp-specialised (attn_fwd_ws)
 // ---------------------------------------------------------------------------
 
 constexpr int WS_CONSUMERS = 2;                    // warpgroups, 64 Q rows each
@@ -1406,21 +1402,20 @@ int launch_ws(const WgmmaArgs& a, __nv_bfloat16* o, int B, int H, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Which bf16 kernel takes (vec, D), and its tiles: `ws` attn_fwd_ws (TMA
-// layouts with 64 < D <= 256), else attn_fwd_wgmma; NA atoms a Q/K row, NV
-// atoms of O a block, KSTEPS k-steps of QK^T
+// Which bf16 kernel takes D, and its tiles: `ws` attn_fwd_ws (64 < D <=
+// 256), else attn_fwd_wgmma; NA atoms a Q/K row, NV atoms of O a block,
+// KSTEPS k-steps of QK^T
 struct Bf16Plan {
   bool ws;
   int na, nv, ksteps;
 };
 
-Bf16Plan bf16_plan(int vec, int D) {
+Bf16Plan bf16_plan(int D) {
   if (D <= 64) return {false, 1, 1, (D + 15) / 16};
   if (D <= 256) {
     const int na = (D + 63) / 64;
-    // attn_fwd_ws up to D=80 (DiT-XL's 72): QK^T over 5 k-steps, not 8
-    const int ksteps = vec == 0 && D <= 80 ? 5 : 4 * na;
-    return {vec == 0, na, na, ksteps};
+    // up to D=80 (DiT-XL's 72): QK^T over 5 k-steps, not 8
+    return {true, na, na, D <= 80 ? 5 : 4 * na};
   }
   // above 256: two blocks a Q tile, each owning half of O's columns
   if (D <= 384) return {false, 6, 3, 24};
@@ -1428,14 +1423,12 @@ Bf16Plan bf16_plan(int vec, int D) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: three TF32 passes on the tensor cores, mma.sync m16n8k8 (D <= 64, and
-// the layouts no TMA map describes)
+// f32: three TF32 passes on the tensor cores, mma.sync m16n8k8 (D <= 64)
 // ---------------------------------------------------------------------------
 
 constexpr int F_WARPS = 4;  // one 16-row slab of the 64-row Q tile per warp
 constexpr int F_THREADS = 32 * F_WARPS;
-// K/V ring depth; DK <= 8 also holds Q's split fragments in registers
-__host__ __device__ constexpr int f_stages(int dk) { return dk <= 8 ? 2 : 1; }
+constexpr int F_STAGES = 2;  // K/V ring depth
 // Row stride of a tile in shared memory, in floats, for a head dimension
 // padded to 8 * DK: 8 * DK + 4 is 4 modulo 8, so the 8 rows x 4 columns of a
 // K or Q fragment load, and the 4 row pairs x 8 columns of a V fragment
@@ -1446,9 +1439,9 @@ __host__ __device__ constexpr int f_tile_floats(int dk) {
 }
 // Q tile + the ring's K and V tiles
 __host__ __device__ constexpr int f_smem_bytes(int dk) {
-  return (1 + 2 * f_stages(dk)) * f_tile_floats(dk) * 4;
+  return (1 + 2 * F_STAGES) * f_tile_floats(dk) * 4;
 }
-static_assert(f_smem_bytes(32) <= 232448, "D=256 tiles above the block limit");
+static_assert(f_smem_bytes(8) <= 232448, "D=64 tiles above the block limit");
 
 // x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (to nearest,
 // ties away from zero, as cvt.rna.tf32.f32 rounds, here in two integer
@@ -1600,13 +1593,13 @@ __device__ __forceinline__ void pv_tf32x3(float (&acc)[DV][4],
   }
 }
 
-// O's rows row0 and row0 + 8 where below N, columns col0 + [0, 8 DV) below
-// D, each over its row sum
+// O's rows row0 and row0 + 8 where below N, columns [0, 8 DV) below D,
+// each over its row sum
 template <int DV>
 __device__ __forceinline__ void store_o_f32(const float (&acc)[DV][4],
                                             const float (&l_run)[2],
                                             float* ob, long long sn, int row0,
-                                            int N, int col0, int D, int t) {
+                                            int N, int D, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -1618,7 +1611,7 @@ __device__ __forceinline__ void store_o_f32(const float (&acc)[DV][4],
     float* orow = ob + row * sn;
 #pragma unroll
     for (int dn = 0; dn < DV; ++dn) {
-      const int col = col0 + 8 * dn + 2 * t;
+      const int col = 8 * dn + 2 * t;
       const float v0 = acc[dn][2 * r] * inv_l;
       const float v1 = acc[dn][2 * r + 1] * inv_l;
       if (D % 2 == 0) {  // col even and < D: col + 1 < D, 8-byte aligned
@@ -1645,10 +1638,9 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int H,
                 int N, int M, int D, Strides qs, Strides kst, Strides vst,
                 Strides ost, float scale_log2) {
+  static_assert(DK <= 8, "D <= 64: Q's split fragments in registers");
   constexpr int LD = f_ld(DK);
   constexpr int TF = f_tile_floats(DK);
-  constexpr int F_STAGES = f_stages(DK);
-  constexpr bool Q_IN_REGS = DK <= 8;
   extern __shared__ __align__(16) float fsm[];
   const float* q_t = fsm;
   const auto k_t = [&](int s) { return fsm + (1 + s) * TF; };
@@ -1683,13 +1675,10 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<F_STAGES - 1>();  // group 0 (Q, K/V tile 0) has landed
   __syncthreads();
   const float* qr = q_t + (16 * warp + g) * LD + t;
-  // held in registers for the whole run where DK <= 8
-  uint32_t qh[Q_IN_REGS ? DK : 1][4], ql[Q_IN_REGS ? DK : 1][4];
-  if constexpr (Q_IN_REGS) {
+  uint32_t qh[DK][4], ql[DK][4];  // held in registers for the whole run
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
-      q_frag_tf32<LD>(qr, kk, scale_log2, qh[kk], ql[kk]);
-  }
+  for (int kk = 0; kk < DK; ++kk)
+    q_frag_tf32<LD>(qr, kk, scale_log2, qh[kk], ql[kk]);
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j % F_STAGES;
@@ -1706,30 +1695,15 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-    if constexpr (Q_IN_REGS) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float* kr = kt + (8 * n + g) * LD + t;  // K[key 8n+g][d t]
+    for (int n = 0; n < 8; ++n) {
+      const float* kr = kt + (8 * n + g) * LD + t;  // K[key 8n+g][d t]
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          uint32_t b0h, b0l, b1h, b1l;
-          split_tf32(kr[8 * kk], b0h, b0l);
-          split_tf32(kr[8 * kk + 4], b1h, b1l);
-          mma_3xtf32(sc[n], qh[kk], ql[kk], b0h, b1h, b0l, b1l);
-        }
-      }
-    } else {
       for (int kk = 0; kk < DK; ++kk) {
-        uint32_t ah[4], al[4];
-        q_frag_tf32<LD>(qr, kk, scale_log2, ah, al);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float* kr = kt + (8 * n + g) * LD + 8 * kk + t;
-          uint32_t b0h, b0l, b1h, b1l;
-          split_tf32(kr[0], b0h, b0l);
-          split_tf32(kr[4], b1h, b1l);
-          mma_3xtf32(sc[n], ah, al, b0h, b1h, b0l, b1l);
-        }
+        uint32_t b0h, b0l, b1h, b1l;
+        split_tf32(kr[8 * kk], b0h, b0l);
+        split_tf32(kr[8 * kk + 4], b1h, b1l);
+        mma_3xtf32(sc[n], qh[kk], ql[kk], b0h, b1h, b0l, b1l);
       }
     }
 
@@ -1747,110 +1721,7 @@ attn_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   store_o_f32<DK>(acc, l_run, o + b * ost.b + h * ost.h, ost.n,
-                  n0 + 16 * warp + g, N, 0, D, t);
-}
-
-// Above D=256: Q (DK k-steps) in shared memory, K in chunks of KC_STEPS
-// k-steps, half of V's columns; grid z picks the half of O a block owns.
-constexpr int KC_STEPS = 8;  // 64 columns of K a chunk
-__host__ __device__ constexpr int f_wide_smem_bytes(int dk) {
-  return (f_tile_floats(dk) + f_tile_floats(KC_STEPS) + f_tile_floats(dk / 2)) *
-         4;
-}
-static_assert(f_wide_smem_bytes(64) <= 232448, "D=512 tiles above the block limit");
-
-template <int DK, bool VEC>
-__global__ void __launch_bounds__(F_THREADS)
-attn_fwd_tf32x3_wide(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H,
-                     int N, int M, int D, Strides qs, Strides kst, Strides vst,
-                     Strides ost, float scale_log2) {
-  constexpr int DV = DK / 2;  // PV n-tiles: this block's half of O's columns
-  constexpr int LDQ = f_ld(DK), LDK = f_ld(KC_STEPS), LDV = f_ld(DV);
-  extern __shared__ __align__(16) float fsm[];
-  float* q_t = fsm;
-  float* k_t = q_t + f_tile_floats(DK);
-  float* v_t = k_t + f_tile_floats(KC_STEPS);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int n0 = blockIdx.x * TILE;
-  const int ntiles = (M + TILE - 1) / TILE;
-  const int col0 = 8 * DV * blockIdx.z;  // this block's first column of O
-  const int chunks = (D + 8 * KC_STEPS - 1) / (8 * KC_STEPS);  // of K, below D
-  const float* kb = k + b * kst.b + h * kst.h;
-  const float* vb = v + b * vst.b + h * vst.h + col0;
-
-  load_tile_f32<DK, VEC>(smem_u32(q_t), q + b * qs.b + h * qs.h, qs.n, n0, N,
-                         D);  // waited on with the first K chunk
-
-  float acc[DV][4];
-#pragma unroll
-  for (int dn = 0; dn < DV; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  const float* qr = q_t + (16 * warp + g) * LDQ + t;
-
-  for (int j = 0; j < ntiles; ++j) {
-    // this block's half of V's tile, waited on with the first K chunk
-    load_tile_f32<DV, VEC>(smem_u32(v_t), vb, vst.n, j * TILE, M, D - col0);
-
-    // S = (Q scale_log2) K^T for 64 keys, K a chunk of 64 columns at a time
-    float sc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int c0 = 8 * KC_STEPS * ch;
-      load_tile_f32<KC_STEPS, VEC>(smem_u32(k_t), kb + c0, kst.n, j * TILE, M,
-                                   D - c0);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll 2
-      for (int kc = 0; kc < KC_STEPS; ++kc) {
-        const int kk = KC_STEPS * ch + kc;  // k-step of the whole row
-        uint32_t ah[4], al[4];
-        q_frag_tf32<LDQ>(qr, kk, scale_log2, ah, al);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float* kr = k_t + (8 * n + g) * LDK + 8 * kc + t;
-          uint32_t b0h, b0l, b1h, b1l;
-          split_tf32(kr[0], b0h, b0l);
-          split_tf32(kr[4], b1h, b1l);
-          mma_3xtf32(sc[n], ah, al, b0h, b1h, b0l, b1l);
-        }
-      }
-      __syncthreads();  // every warp is done with the chunk: refill it
-    }
-
-    softmax_tile<DV>(sc, j, M, t, m_run, l_run, acc);
-    pv_tf32x3<DV, LDV>(acc, sc, v_t, g, t);  // this block's columns
-    __syncthreads();  // every warp is done with V's tile: refill it
-  }
-
-  store_o_f32<DV>(acc, l_run, o + b * ost.b + h * ost.h, ost.n,
-                  n0 + 16 * warp + g, N, col0, D, t);
-}
-
-template <int DK, bool VEC>
-int launch_tf32x3_wide(const float* q, const float* k, const float* v,
-                       float* o, int B, int H, int N, int M, int D, Strides qs,
-                       Strides ks, Strides vs, Strides os, float scale_log2,
-                       cudaStream_t st) {
-  constexpr int smem = f_wide_smem_bytes(DK);
-  const auto kernel = attn_fwd_tf32x3_wide<DK, VEC>;
-  static uint64_t opted_in = 0;
-  const cudaError_t err = allow_smem(kernel, smem, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + TILE - 1) / TILE, B * H, 2);
-  kernel<<<grid, F_THREADS, smem, st>>>(q, k, v, o, H, N, M, D, qs, ks, vs,
-                                        os, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+                  n0 + 16 * warp + g, N, D, t);
 }
 
 template <int DK, bool VEC>
@@ -1869,7 +1740,7 @@ int launch_tf32x3(const float* q, const float* k, const float* v, float* o,
 }
 
 // ---------------------------------------------------------------------------
-// f32, 64 < D <= 512, TMA layouts: three TF32 passes on wgmma, warp
+// f32, 64 < D <= 512: three TF32 passes on wgmma, warp
 // specialised (attn_fwd_tf32x3_ws; design, bound and budget in the header)
 // ---------------------------------------------------------------------------
 
@@ -2540,34 +2411,23 @@ int launch_f32_narrow(const float* q, const float* k, const float* v,
 #undef F32_CASE
 }
 
-// Which f32 kernel takes (tma, D), and its tiles: `kernel` 0 attn_fwd_tf32x3
-// (D <= 64, and up to 256 the layouts no TMA map describes), 1
-// attn_fwd_tf32x3_wide (those above 256), 2 attn_fwd_tf32x3_ws (TMA layouts
-// above 64); dk: D padded, in k-steps of 8 (the ws kernel's atoms are dk / 4);
-// kt: keys a tile; split: the ws kernel's two consumers on one 64-row Q tile
+// Which f32 kernel takes D, and its tiles: `ws` attn_fwd_tf32x3_ws (above
+// 64), else attn_fwd_tf32x3; dk: D padded, in k-steps of 8 (the ws kernel's
+// atoms are dk / 4); kt: keys a tile; split: the ws kernel's two consumers
+// on one 64-row Q tile
 struct F32Plan {
-  int kernel, dk, kt;
+  bool ws;
+  int dk, kt;
   bool split;
 };
 
-F32Plan f32_plan(bool tma, int D) {
-  if (D <= 64) return {0, (D + 7) / 8, TILE, false};
-  if (!tma) {
-    if (D <= 256)
-      return {0, D <= 96 ? 12 : D <= 128 ? 16 : D <= 192 ? 24 : 32, TILE,
-              false};
-    return {1, D <= 384 ? 48 : 64, TILE, false};
-  }
-  if (D <= 96) return {2, 12, 64, false};
-  if (D <= 128) return {2, 16, 64, false};
-  if (D <= 192) return {2, 24, 64, false};
-  if (D <= 256) return {2, 32, 32, false};  // O's 128 registers: 32-key S
-  return {2, D <= 384 ? 48 : 64, 32, true};
-}
-
-int f32_smem_bytes(const F32Plan& p) {
-  if (p.kernel == 2) return fw_smem_bytes(p.dk / 4, p.kt, p.split);
-  return p.kernel == 1 ? f_wide_smem_bytes(p.dk) : f_smem_bytes(p.dk);
+F32Plan f32_plan(int D) {
+  if (D <= 64) return {false, (D + 7) / 8, TILE, false};
+  if (D <= 96) return {true, 12, 64, false};
+  if (D <= 128) return {true, 16, 64, false};
+  if (D <= 192) return {true, 24, 64, false};
+  if (D <= 256) return {true, 32, 32, false};  // O's 128 registers: 32-key S
+  return {true, D <= 384 ? 48 : 64, 32, true};
 }
 
 // 16-byte copies and TMA maps need a 16-byte aligned base and batch, row
@@ -2582,38 +2442,28 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
                Strides vs, Strides os, float scale_log2, cudaStream_t st) {
   const bool tma = rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
                    rows_aligned16(v, vs);
-  const F32Plan p = f32_plan(tma, D);
-  if (p.kernel == 2) {
-    switch (p.dk) {
-#define WS_CASE(DK, NA, KT, SPLIT)                                          \
-  case DK:                                                                  \
-    return launch_tf32x3_ws<NA, KT, SPLIT>(q, k, v, o, B, H, N, M, D, qs, ks, \
-                                           vs, os, scale_log2, st);
-      WS_CASE(12, 3, 64, false)
-      WS_CASE(16, 4, 64, false)
-      WS_CASE(24, 6, 64, false)
-      WS_CASE(32, 8, 32, false)
-      WS_CASE(48, 12, 32, true)
-      default:
-        WS_CASE(64, 16, 32, true)
-#undef WS_CASE
-    }
-  }
-  if (D <= 64) {
+  const F32Plan p = f32_plan(D);
+  if (!p.ws) {
     if (tma && D % 4 == 0)
       return launch_f32_narrow<true>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
                                      scale_log2, st);
     return launch_f32_narrow<false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os,
                                     scale_log2, st);
   }
-  // layouts no TMA map describes: 4-byte copies
+  if (!tma) return static_cast<int>(cudaErrorInvalidValue);
   switch (p.dk) {
-    case 12: return launch_tf32x3<12, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
-    case 16: return launch_tf32x3<16, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
-    case 24: return launch_tf32x3<24, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
-    case 32: return launch_tf32x3<32, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
-    case 48: return launch_tf32x3_wide<48, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
-    default: return launch_tf32x3_wide<64, false>(q, k, v, o, B, H, N, M, D, qs, ks, vs, os, scale_log2, st);
+#define WS_CASE(DK, NA, KT, SPLIT)                                          \
+  case DK:                                                                  \
+    return launch_tf32x3_ws<NA, KT, SPLIT>(q, k, v, o, B, H, N, M, D, qs, ks, \
+                                           vs, os, scale_log2, st);
+    WS_CASE(12, 3, 64, false)
+    WS_CASE(16, 4, 64, false)
+    WS_CASE(24, 6, 64, false)
+    WS_CASE(32, 8, 32, false)
+    WS_CASE(48, 12, 32, true)
+    default:
+      WS_CASE(64, 16, 32, true)
+#undef WS_CASE
   }
 }
 
@@ -3077,21 +2927,16 @@ int launch_bf16(const WgmmaArgs& a, const Bf16Plan& plan, __nv_bfloat16* ob,
       return launch_ws<4, 16>(a, ob, B, H, N, M, D, os, scale_log2, st);
     }
   }
-  switch (plan.ksteps) {  // k-steps of QK^T; above 64, 4 an atom
+  switch (plan.ksteps) {  // D <= 64: k-steps of QK^T
     case 1: return launch_wgmma<1, 1, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
     case 2: return launch_wgmma<1, 2, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
     case 3: return launch_wgmma<1, 3, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
     case 4: return launch_wgmma<1, 4, 1, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
-    // 64 < D <= 256 reaches attn_fwd_wgmma only from the threads' loads
-    case 8: return launch_wgmma_as<2, 8, 2, false, LSE>(a, ob, B, H, N, M, D, os, scale_log2, st, lse, npad);
   }
-  if constexpr (!LSE) {
-    switch (plan.ksteps) {
-      case 12: return launch_wgmma_as<3, 12, 3, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 16: return launch_wgmma_as<4, 16, 4, false>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      case 24: return launch_wgmma<6, 24, 3>(a, ob, B, H, N, M, D, os, scale_log2, st);
-      default: return launch_wgmma<8, 32, 4>(a, ob, B, H, N, M, D, os, scale_log2, st);
-    }
+  if constexpr (!LSE) {  // above 256, TMA layouts only
+    if (plan.na == 6)
+      return launch_wgmma_as<6, 24, 3, true>(a, ob, B, H, N, M, D, os, scale_log2, st);
+    return launch_wgmma_as<8, 32, 4, true>(a, ob, B, H, N, M, D, os, scale_log2, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -3104,13 +2949,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
   if (lse != nullptr && (!is_bf16 || D > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
+    // above D = 64 the kernels read q, k and v through TMA only
+    if (D > 64 && vec != 0) return static_cast<int>(cudaErrorInvalidValue);
     using bf16 = __nv_bfloat16;
     WgmmaArgs a = {};  // tensor maps left zero when the threads load
     a.q = Operand{static_cast<const bf16*>(q), qs};
     a.k = Operand{static_cast<const bf16*>(k), ks};
     a.v = Operand{static_cast<const bf16*>(v), vs};
     a.vec = vec;
-    const Bf16Plan plan = bf16_plan(vec, D);
+    const Bf16Plan plan = bf16_plan(D);
     if (vec == 0) {
       const EncodeTiled fn = encode_tiled();
       if (fn == nullptr) return -1;
@@ -3143,9 +2990,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int is_bf16,
 // cuTensorMapEncodeTiled, or -(1000 + CUresult) when a tensor map cannot be
 // encoded. The caller checks shapes: 1 <= D <= 512, N >= 1, M >= 1,
 // B*H <= 65535. bf16 `vec`: 0 reads q, k, v through TMA (bases 16-byte
-// aligned, b, n, h strides multiples of 8 elements); 4, 2 or 1 has the
-// threads load them that many elements a copy (vec divides D, the strides
-// and each base's alignment in elements). f32 ignores it.
+// aligned, b, n, h strides multiples of 8 elements); up to D = 64, 4, 2 or
+// 1 has the threads load them that many elements a copy (vec divides D, the
+// strides and each base's alignment in elements). Above D = 64 a vec other
+// than 0, and for f32 (which ignores vec) q, k, v whose bases are not
+// 16-byte aligned or whose b, n, h strides are not multiples of 4 floats,
+// return cudaErrorInvalidValue: no kernel reads them there.
 extern "C" int dsdiff_flash_attention(
     const void* q, const void* k, const void* v, void* o, int is_bf16,
     int vec, int device, int B, int H, int N, int M, int D, long long q_sb,
@@ -3192,12 +3042,12 @@ extern "C" int dsdiff_flash_attention_lse(
   return rc;
 }
 
-// The bf16 launch dsdiff_flash_attention makes for (vec, B, H, N, D), into
+// The bf16 launch dsdiff_flash_attention makes for (B, H, N, D), into
 // out[8]: kernel (0 attn_fwd_wgmma, 1 attn_fwd_ws), Q rows a block, K/V ring
 // stages, threads a block, dynamic shared memory bytes, grid x, y, z.
-extern "C" void dsdiff_flash_attention_bf16_plan(int vec, int B, int H, int N,
-                                                 int D, int* out) {
-  const Bf16Plan p = bf16_plan(vec, D);
+extern "C" void dsdiff_flash_attention_bf16_plan(int B, int H, int N, int D,
+                                                 int* out) {
+  const Bf16Plan p = bf16_plan(D);
   const int rows = p.ws ? WS_ROWS : TILE;
   out[0] = p.ws;
   out[1] = rows;
@@ -3209,24 +3059,23 @@ extern "C" void dsdiff_flash_attention_bf16_plan(int vec, int B, int H, int N,
   out[7] = p.na / p.nv;
 }
 
-// The f32 launch dsdiff_flash_attention makes for (vec, B, H, N, D), vec 0
-// for q, k, v a TMA map describes (16-byte aligned bases, b, n, h strides
-// multiples of 4 floats), into out[9]: kernel (0 attn_fwd_tf32x3, 1
-// attn_fwd_tf32x3_wide, 2 attn_fwd_tf32x3_ws), Q rows a block, keys a tile,
-// ring stages, threads a block, dynamic shared memory bytes, grid x, y, z.
-extern "C" void dsdiff_flash_attention_f32_plan(int vec, int B, int H, int N,
-                                                int D, int* out) {
-  const F32Plan p = f32_plan(vec == 0, D);
-  const int rows = p.kernel == 2 ? fw_q_rows(p.split) : TILE;
-  out[0] = p.kernel;
+// The f32 launch dsdiff_flash_attention makes for (B, H, N, D), into
+// out[9]: kernel (0 attn_fwd_tf32x3, 1 attn_fwd_tf32x3_ws), Q rows a block,
+// keys a tile, ring stages, threads a block, dynamic shared memory bytes,
+// grid x, y, z.
+extern "C" void dsdiff_flash_attention_f32_plan(int B, int H, int N, int D,
+                                                int* out) {
+  const F32Plan p = f32_plan(D);
+  const int rows = p.ws ? fw_q_rows(p.split) : TILE;
+  out[0] = p.ws;
   out[1] = rows;
   out[2] = p.kt;
-  out[3] = p.kernel == 2 ? FW_STAGES : p.kernel == 1 ? 1 : f_stages(p.dk);
-  out[4] = p.kernel == 2 ? FW_THREADS : F_THREADS;
-  out[5] = f32_smem_bytes(p);
+  out[3] = p.ws ? FW_STAGES : F_STAGES;
+  out[4] = p.ws ? FW_THREADS : F_THREADS;
+  out[5] = p.ws ? fw_smem_bytes(p.dk / 4, p.kt, p.split) : f_smem_bytes(p.dk);
   out[6] = (N + rows - 1) / rows;
   out[7] = B * H;
-  out[8] = p.kernel == 1 ? 2 : 1;
+  out[8] = 1;
 }
 
 // The backward of dsdiff_flash_attention_lse's call (bf16, D <= 128, a

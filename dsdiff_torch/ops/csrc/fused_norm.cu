@@ -1,27 +1,25 @@
-// Fused GroupNorm + SiLU for Hopper (sm_90a): y = SiLU(GroupNorm(x)), the
-// whole function, statistics included, and the same op with a FiLM between
-// the norm and the SiLU, y = SiLU(GroupNorm(x) * (1 + scale) + shift).
-//
-// Entry 1, dsdiff_group_norm_silu, replaces the JAX package's Pallas TPU
-// kernel ops/fused_norm.py:54 group_norm_silu: its group statistics (XLA
-// ops, :64-71) and its apply pass (body _affine_silu_kernel :47-51). With
-// mean and E[x^2] per (batch, group), var = E[x^2] - mean^2,
-// a = gamma * rsqrt(var + eps) and b = beta - mean * a per (batch,
-// channel), y = SiLU(x * a + b).
-//
-// Entry 2, dsdiff_group_norm_film_silu, replaces no TPU kernel: it is the
-// port's ResBlock norm site (models/layers.py GroupNorm32.silu; the JAX
-// package runs GroupNorm32, the FiLM and SiLU as XLA ops, its
-// models/layers.py:165-188), added because that chain of eager
-// ops (an f32 up-cast, moments, apply, a bf16 down-cast, the FiLM's mul
-// and add, SiLU) was the largest share of the serving forward's device
-// time. The FiLM's per-(batch, channel) scale s and shift t fold into the
-// same a and b: a = gamma * rsqrt(var + eps) * (1 + s), b = (beta - mean *
-// gamma * rsqrt(var + eps)) * (1 + s) + t; y is rounded once. It takes the
-// map in either memory format the model hands it:
-//   - channels last, x [B, H*W, C]: the two kernels of entry 1
-//     (group_norm_partial_stats, group_norm_silu_apply), the apply given s
-//     and t;
+// Fused GroupNorm + SiLU for Hopper (sm_90a): y = SiLU(GroupNorm(x) *
+// (1 + scale) + shift), the whole function, statistics included, or
+// y = SiLU(GroupNorm(x)) where there is no FiLM. One C entry,
+// dsdiff_group_norm_film_silu, serves two callers:
+//   - without the FiLM, on a channels-last map at eps 1e-5, it replaces the
+//     JAX package's Pallas TPU kernel ops/fused_norm.py:54 group_norm_silu:
+//     its group statistics (XLA ops, :64-71) and its apply pass (body
+//     _affine_silu_kernel :47-51). With mean and E[x^2] per (batch, group),
+//     var = E[x^2] - mean^2, a = gamma * rsqrt(var + eps) and b = beta -
+//     mean * a per (batch, channel), y = SiLU(x * a + b);
+//   - with it, it is the port's ResBlock norm site (models/layers.py
+//     GroupNorm32.silu; the JAX package runs GroupNorm32, the FiLM and SiLU
+//     as XLA ops, its models/layers.py:165-188), added because that chain
+//     of eager ops (an f32 up-cast, moments, apply, a bf16 down-cast, the
+//     FiLM's mul and add, SiLU) was the largest share of the serving
+//     forward's device time. The FiLM's per-(batch, channel) scale s and
+//     shift t fold into the same a and b: a = gamma * rsqrt(var + eps) *
+//     (1 + s), b = (beta - mean * gamma * rsqrt(var + eps)) * (1 + s) + t;
+//     y is rounded once.
+// It takes the map in either memory format the model hands it:
+//   - channels last, x [B, H*W, C]: two kernels (group_norm_partial_stats,
+//     group_norm_silu_apply), the apply given s and t where there is a FiLM;
 //   - NCHW, x [B, C, H*W]: a (batch, group) is one contiguous run of
 //     C/G * H*W elements, cut into chunks of `len` elements (a multiple of
 //     8, so every chunk starts 16-byte aligned). Where the run is one chunk
@@ -50,17 +48,17 @@
 //    and writes [B, chunks, G, 2] f64 partials (sum, sum of squares) to a
 //    scratch tensor from the wrapper.
 // 2. group_norm_silu_apply: each block first reduces its batch row's
-//    partials (a few KB, in L2) in f64, forms mean, var, a and b (entry 2:
-//    with the FiLM folded in) for the row's C channels in shared memory,
-//    then runs the 16-byte apply loop over its chunk (coefficients read as
-//    float4 where C is a multiple of the vector width; SiLU through ex2 and
-//    rcp, which the bf16 apply needs to keep up with the memory).
+//    partials (a few KB, in L2) in f64, forms mean, var, a and b (the FiLM
+//    folded in where there is one) for the row's C channels in shared
+//    memory, then runs the 16-byte apply loop over its chunk (coefficients
+//    read as float4 where C is a multiple of the vector width; SiLU through
+//    ex2 and rcp, which the bf16 apply needs to keep up with the memory).
 // Every sum is taken in a fixed order and there are no float atomics, so
 // two calls on one input give bitwise-equal output. The sums are f64 from
 // the threads' f32 partials up, so E[x^2] - mean^2 keeps its digits where
 // |mean| >> std better than the f32 formula it computes.
 //
-// Bound on an H100 SXM at 700 W (3.35 TB/s), both entries: bytes. x read
+// Bound on an H100 SXM at 700 W (3.35 TB/s), both forms: bytes. x read
 // once and y written once: [4, 256, 256, 96] bf16 moves 100.7 MB, ~0.030
 // ms; the arithmetic (about 9 FLOPs and one exp per element) is two orders of
 // magnitude under the f32 CUDA-core rate. Kernel 2 reads x again: from L2
@@ -249,7 +247,7 @@ group_norm_silu_apply(const T* __restrict__ x,
     const double var = red[2 * grp + 1] / n - mean * mean;
     float a = (float)(1.0 / sqrt(var + (double)eps)) * gamma[c];
     float b = beta[c] - (float)mean * a;
-    if (scale != nullptr) {  // entry 2: the FiLM of this batch row
+    if (scale != nullptr) {  // the FiLM of this batch row
       const long long f = (long long)batch * film_stride + c;
       const float s1 = 1.f + to_float(scale[f]);
       a *= s1;
@@ -490,7 +488,7 @@ int gcd(int a, int b) {
   return a;
 }
 
-// channels last: both kernels of entry 1; scale and shift null for no FiLM
+// channels last: both kernels; scale and shift null for no FiLM
 template <typename T, bool VEC>
 cudaError_t launch(const void* x, const float* gamma, const float* beta,
                    const void* scale, const void* shift, int film_stride,
@@ -587,34 +585,22 @@ int on_device(int device, int is_bf16, bool vec, bool channels_last,
 
 }  // namespace
 
-// Entry 1: SiLU(GroupNorm(x)), channels last; launches both kernels on
-// `device` and its `stream` and returns cudaGetLastError() (0 on success).
-// The caller checks: x and y contiguous [B, HW, C], 1 <= B <= 65535, G
-// divides C, gamma and beta contiguous f32 [C], partials f64 [B, chunks, G,
-// 2], chunks = ceil(HW / rows) with rows a multiple of 8; `vec` only where
-// x and y start 16-byte aligned and HW*C*elem is a multiple of 16, and C /
-// gcd(C, vector width) <= 256; the shared memory of kernel 2,
-// 8*2G*max(1, 256/(2G)) + 8C bytes, at most 227 KB.
-extern "C" int dsdiff_group_norm_silu(const void* x, const void* gamma,
-                                      const void* beta, void* partials,
-                                      void* y, int is_bf16, int vec,
-                                      int device, int B, int HW, int C, int G,
-                                      int rows, int chunks, float eps,
-                                      void* stream) {
-  return on_device(device, is_bf16, vec, true, x, gamma, beta, nullptr,
-                   nullptr, 0, partials, y, B, HW, C, G, rows, chunks, eps,
-                   stream);
-}
-
-// Entry 2: SiLU(GroupNorm(x) * (1 + scale) + shift), or SiLU(GroupNorm(x))
-// where scale and shift are null; scale and shift have x's type, element
-// (b, c) at b * film_stride + c. channels_last: as entry 1, `chunk` the
-// rows. Otherwise x and y contiguous [B, C, HW], 1 <= B * G <= 65535, C / G
-// * HW < 2^31, `chunk` the elements of a chunk (a multiple of 8), chunks =
-// ceil(C / G * HW / chunk), partials f64 [B * G, chunks, 2] (unused where
-// chunks is 1); `vec` only where x and y start 16-byte aligned and HW is a
-// multiple of the vector width; 8 * C / G bytes of shared memory, at most
-// 48 KB.
+// SiLU(GroupNorm(x) * (1 + scale) + shift), or SiLU(GroupNorm(x)) where
+// scale and shift are null; launches on `device` and its `stream` and
+// returns cudaGetLastError() (0 on success). scale and shift have x's
+// type, element (b, c) at b * film_stride + c. gamma and beta contiguous
+// f32 [C], G divides C. channels_last: x and y contiguous [B, HW, C],
+// 1 <= B <= 65535, partials f64 [B, chunks, G, 2], `chunk` the rows (a
+// multiple of 8), chunks = ceil(HW / rows); `vec` only where x and y start
+// 16-byte aligned and HW*C*elem is a multiple of 16, and C / gcd(C, vector
+// width) <= 256 (else, and for C > 256 without `vec`,
+// cudaErrorInvalidValue); the shared memory of the apply,
+// 8*2G*max(1, 256/(2G)) + 8C bytes, at most 227 KB. Otherwise (NCHW) x
+// and y contiguous [B, C, HW], 1 <= B * G <= 65535, C / G * HW < 2^31,
+// `chunk` the elements of a chunk (a multiple of 8), chunks = ceil(C / G *
+// HW / chunk), partials f64 [B * G, chunks, 2] (unused where chunks is 1);
+// `vec` only where x and y start 16-byte aligned and HW is a multiple of
+// the vector width; 8 * C / G bytes of shared memory, at most 48 KB.
 extern "C" int dsdiff_group_norm_film_silu(
     const void* x, const void* gamma, const void* beta, const void* scale,
     const void* shift, int film_stride, void* partials, void* y, int is_bf16,

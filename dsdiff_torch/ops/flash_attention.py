@@ -10,25 +10,25 @@ disc_diff and palette U-Nets' 192) and the KL-VAE's single 512-wide head,
 which the JAX package sends to XLA and the port to the kernel.
 
 The kernel has one route per dtype (``ROUTES``), both on the tensor cores:
-bf16 through ``wgmma`` with K/V fed by TMA (``bf16_plan`` names its
-instantiation: above D = 64, on TMA layouts, a warp-specialised block of
-128 Q rows, two consumer warpgroups and a producer, ``wgmma_ws``), f32
-in three TF32 passes (``tf32x3``: each operand split into a TF32 high and
-low part, which keeps the products f32-accurate). ``f32_plan`` names the
-f32 kernel: above D = 64, on layouts a TMA map describes, ``tf32x3_ws``
-(``wgmma``, two consumer warpgroups and a producer that loads K and V
-through TMA and splits each tile once); up to 64, and for the other
-layouts, ``tf32x3`` / ``tf32x3_wide`` (``mma.sync``, tiles by
-``cp.async``). Both routes take any strides with a contiguous last
-dimension. The bf16 route reads q,
-k and v through TMA tensor maps where they can describe the layout
-(16-byte aligned bases, batch, row and head strides that are multiples of 8
-elements); otherwise (a head of D = 36 has a 72-byte head stride) the
-kernel's threads load the same swizzled tiles themselves, 8, 4 or 2 bytes a
-copy (``bf16_load`` says which). The f32 route reads through TMA above
-D = 64 where the bases are 16-byte aligned and the batch, row and head
-strides are multiples of 4 floats, else copies 16 bytes where the layout
-allows it and 4 otherwise (``f32_load``).
+bf16 through ``wgmma`` (``bf16_plan`` names its kernel: for 64 < D <= 256
+a warp-specialised block of 128 Q rows, two consumer warpgroups and a
+producer, ``wgmma_ws``), f32 in three TF32 passes (``tf32x3``: each operand
+split into a TF32 high and low part, which keeps the products
+f32-accurate; ``f32_plan`` names its kernel: above D = 64 ``tf32x3_ws``,
+``wgmma`` with two consumer warpgroups and a producer that loads K and V
+through TMA and splits each tile once, up to 64 ``tf32x3``, ``mma.sync``
+with tiles by ``cp.async``). Both routes take any strides with a contiguous
+last dimension. Up to D = 64 the bf16 route reads q, k and v through TMA
+tensor maps where they can describe the layout (16-byte aligned bases,
+batch, row and head strides that are multiples of 8 elements); otherwise
+(a head of D = 36 has a 72-byte head stride) the kernel's threads load the
+same swizzled tiles themselves, 8, 4 or 2 bytes a copy (``bf16_load`` says
+which); the f32 route copies 16 bytes where the layout allows it and 4
+otherwise (``f32_load``). Above D = 64 both kernels read through TMA only
+(f32: 16-byte aligned bases, strides multiples of 4 floats), and the
+wrapper hands a layout no map describes to them as contiguous copies of q,
+k and v, rows padded to a multiple of 8 elements (load ``"copy"``). Every
+head above 64 that a shipped model makes lies on a TMA layout.
 
 The gradient is the VJP of ``reference_attention``, the f32 math the JAX
 package's ``custom_vjp`` (``_fa_bwd``) differentiates. ``FlashAttention`` is
@@ -79,19 +79,19 @@ MAX_HEAD_DIM = 512
 # the kernel's route for each dtype it takes
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 # how the bf16 route loads its tiles, by the kernel's `vec` argument: TMA,
-# or its threads this many elements a copy
+# or (D <= 64) its threads this many elements a copy; above D = 64 a layout
+# with vec != 0 is copied first (bf16_load's "copy")
 BF16_LOADS = {0: "tma", 4: "cp.async 8 B", 2: "cp.async 4 B", 1: "ld 2 B"}
 
 # the bf16 route's two kernels (csrc/flash_attention.cu): one warpgroup a
-# 64-row Q tile (attn_fwd_wgmma), or, above D = 64 on TMA layouts, two
-# consumer warpgroups and a producer a 128-row Q tile (attn_fwd_ws)
+# 64-row Q tile (attn_fwd_wgmma), or, for 64 < D <= 256, two consumer
+# warpgroups and a producer a 128-row Q tile (attn_fwd_ws)
 BF16_KERNELS = ("wgmma", "wgmma_ws")
-# the f32 route's three kernels (csrc/flash_attention.cu): mma.sync with
-# the threads' copies, one block a 64-row Q tile (attn_fwd_tf32x3; above
-# D = 256 two blocks, attn_fwd_tf32x3_wide), or, above D = 64 on TMA
-# layouts, wgmma with two consumer warpgroups and a producer
-# (attn_fwd_tf32x3_ws)
-F32_KERNELS = ("tf32x3", "tf32x3_wide", "tf32x3_ws")
+# the f32 route's two kernels (csrc/flash_attention.cu): up to D = 64
+# mma.sync with the threads' copies, one block a 64-row Q tile
+# (attn_fwd_tf32x3), above it wgmma with two consumer warpgroups and a
+# producer (attn_fwd_tf32x3_ws)
+F32_KERNELS = ("tf32x3", "tf32x3_ws")
 # the backward's two kernels (csrc/flash_attention.cu): delta and dq over
 # 128 query rows a block, then dk and dv over 128 key rows a block
 BWD_KERNELS = ("attn_bwd_dq", "attn_bwd_dkdv")
@@ -229,18 +229,22 @@ def _vec(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, strides) -> int:
 
 def bf16_load(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """How the bf16 route loads these q, k and v (``BF16_LOADS``): "tma",
-    or its threads' copies where a tensor map cannot describe the layout."""
-    return BF16_LOADS[_vec(q, k, v, (q.stride(), k.stride(), v.stride()))]
+    or where a tensor map cannot describe the layout its threads' copies
+    (D <= 64) or, above 64, "copy": TMA from the wrapper's contiguous
+    copies."""
+    vec = _vec(q, k, v, (q.stride(), k.stride(), v.stride()))
+    return "copy" if vec and q.shape[3] > 64 else BF16_LOADS[vec]
 
 
-def bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
-    """The bf16 launch the C entry makes for [B, N, H, D] q and ``vec``
-    (``_vec``; 0 = TMA): its kernel (``BF16_KERNELS``), the 128-byte atoms
-    of a Q/K row (``atoms``) and of O a block owns (``o_atoms``), the Q
-    rows, K/V ring stages, consumer warpgroups and threads of a block, its
-    dynamic shared memory in bytes (the tiles and 1024 to align them) and
-    its grid. ``dsdiff_flash_attention_bf16_plan`` in the source returns
-    the same numbers."""
+def bf16_plan(B: int, N: int, H: int, D: int) -> dict:
+    """The bf16 launch the C entry makes for [B, N, H, D] q, on every
+    layout (above D = 64 a TMA one, the caller's or the wrapper's copy):
+    its kernel (``BF16_KERNELS``), the 128-byte atoms of a Q/K row
+    (``atoms``) and of O a block owns (``o_atoms``), the Q rows, K/V ring
+    stages, consumer warpgroups and threads of a block, its dynamic shared
+    memory in bytes (the tiles and 1024 to align them) and its grid.
+    ``dsdiff_flash_attention_bf16_plan`` in the source returns the same
+    numbers."""
     if D <= 64:
         na, nv = 1, 1
     elif D <= 256:
@@ -248,7 +252,7 @@ def bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
     else:  # two blocks a Q tile, each owning half of O's columns
         na = 6 if D <= 384 else 8
         nv = na // 2
-    if vec == 0 and 64 < D <= 256:
+    if 64 < D <= 256:
         rows, stages, consumers = _TILE * _WS_CONSUMERS, _WS_STAGES, _WS_CONSUMERS
         threads = 128 * (consumers + 1)  # + the producer's warpgroup
         # Q, and each stage of the K ring and of the V ring
@@ -276,20 +280,20 @@ def _f32_vec(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def f32_load(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """How the f32 route loads these q, k and v: "tma" above D = 64 where
-    a tensor map describes them, else its threads' "cp.async 16 B" (the
-    same alignment and D a multiple of 4) or "cp.async 4 B"."""
+    """How the f32 route loads these q, k and v: above D = 64 "tma" where a
+    tensor map describes them, else "copy" (TMA from the wrapper's
+    contiguous copies); up to 64 its threads' "cp.async 16 B" (the same
+    alignment and D a multiple of 4) or "cp.async 4 B"."""
     D = q.shape[3]
     vec = _f32_vec(q, k, v, (q.stride(), k.stride(), v.stride()))
-    if vec == 0:
-        return "tma" if D > 64 else ("cp.async 16 B" if D % 4 == 0
-                                     else "cp.async 4 B")
-    return "cp.async 4 B"
+    if D > 64:
+        return "copy" if vec else "tma"
+    return "cp.async 16 B" if vec == 0 and D % 4 == 0 else "cp.async 4 B"
 
 
-def f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
-    """The f32 launch the C entry makes for [B, N, H, D] q and ``vec``
-    (``_f32_vec``; 0 = TMA maps describe the layout): its kernel
+def f32_plan(B: int, N: int, H: int, D: int) -> dict:
+    """The f32 launch the C entry makes for [B, N, H, D] q, on every layout
+    (above D = 64 a TMA one, the caller's or the wrapper's copy): its kernel
     (``F32_KERNELS``), D padded in k-steps of 8 (``dk``; ``tf32x3_ws``
     reads ``dk / 4`` atoms of 32 columns), the Q rows of a block, the keys
     of a K/V tile, ring stages, consumer warpgroups, threads, its dynamic
@@ -302,10 +306,8 @@ def f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
     numbers."""
     dk = (-(-D // 8) if D <= 64 else 12 if D <= 96 else 16 if D <= 128
           else 24 if D <= 192 else 32 if D <= 256 else 48 if D <= 384 else 64)
-    kernel = ("tf32x3" if D <= 64 or (vec != 0 and D <= 256)
-              else "tf32x3_wide" if vec != 0 else "tf32x3_ws")
-    split = kernel == "tf32x3_ws" and D > 256
-    if kernel == "tf32x3_ws":
+    if D > 64:
+        split = D > 256
         # O's 128 registers a thread at D = 256 and 512 leave room for the
         # scores of 32 keys only
         na, kt = dk // 4, 64 if dk <= 24 else 32
@@ -313,33 +315,27 @@ def f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
         xbuf = 2 * 2 * _TILE * kt * 4 if split else 0
         smem = rows * na * 128 + xbuf + _FW_STAGES * 2 * kt * 128 + 1024
         o_atoms = na // 2 if split else na
-        return dict(kernel=kernel, dk=dk, q_rows=rows, key_rows=kt,
+        return dict(kernel="tf32x3_ws", dk=dk, q_rows=rows, key_rows=kt,
                     stages=_FW_STAGES, consumers=2, threads=384,
                     smem_bytes=smem, grid=(-(-N // rows), B * H, 1),
                     split=split, producer_regs=_FW_PRODUCER_REGS,
                     consumer_regs=_FW_CONSUMER_REGS,
                     accumulator_regs=16 * o_atoms + kt + 16)
     ld = 8 * dk + 4  # a tile row in floats, padded against bank conflicts
-    if kernel == "tf32x3":
-        stages = 2 if dk <= 8 else 1
-        smem = (1 + 2 * stages) * _TILE * ld * 4
-    else:  # Q, a 64-column K chunk and half of V
-        stages = 1
-        smem = (_TILE * ld + _TILE * (8 * 8 + 4) + _TILE * (4 * dk + 4)) * 4
-    return dict(kernel=kernel, dk=dk, q_rows=_TILE, key_rows=_TILE,
-                stages=stages, consumers=1, threads=128, smem_bytes=smem,
-                grid=(-(-N // _TILE), B * H, 2 if kernel == "tf32x3_wide" else 1),
-                split=False)
+    stages = 2  # the K/V ring
+    return dict(kernel="tf32x3", dk=dk, q_rows=_TILE, key_rows=_TILE,
+                stages=stages, consumers=1, threads=128,
+                smem_bytes=(1 + 2 * stages) * _TILE * ld * 4,
+                grid=(-(-N // _TILE), B * H, 1), split=False)
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel these q, k, v take: the ``bf16_plan`` or ``f32_plan``
-    kernel of their dtype and layout."""
+    """The kernel these q, k, v run: the ``bf16_plan`` or ``f32_plan``
+    kernel of their dtype and head dim (above D = 64 on the wrapper's
+    copies where no TMA map describes the layout)."""
     B, N, H, D = q.shape
-    strides = (q.stride(), k.stride(), v.stride())
-    if q.dtype != torch.bfloat16:
-        return f32_plan(B, N, H, D, _f32_vec(q, k, v, strides))["kernel"]
-    return bf16_plan(B, N, H, D, _vec(q, k, v, strides))["kernel"]
+    plan = bf16_plan if q.dtype == torch.bfloat16 else f32_plan
+    return plan(B, N, H, D)["kernel"]
 
 
 def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -387,23 +383,23 @@ def native_bwd_plan(B: int, N: int, M: int, H: int, D: int) -> dict:
                 grid_dkdv=(out[7], out[8], 1), npad=out[9])
 
 
-def native_bf16_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+def native_bf16_plan(B: int, N: int, H: int, D: int) -> dict:
     """``bf16_plan``'s numbers as the built kernel library gives them
     (needs the library, so ``nvcc``)."""
     fn = _library().dsdiff_flash_attention_bf16_plan
     out = (ctypes.c_int * 8)()
-    fn(vec, B, H, N, D, out)
+    fn(B, H, N, D, out)
     return dict(kernel=BF16_KERNELS[out[0]], q_rows=out[1], stages=out[2],
                 threads=out[3], smem_bytes=out[4],
                 grid=(out[5], out[6], out[7]))
 
 
-def native_f32_plan(B: int, N: int, H: int, D: int, vec: int = 0) -> dict:
+def native_f32_plan(B: int, N: int, H: int, D: int) -> dict:
     """``f32_plan``'s numbers as the built kernel library gives them
     (needs the library, so ``nvcc``)."""
     fn = _library().dsdiff_flash_attention_f32_plan
     out = (ctypes.c_int * 9)()
-    fn(vec, B, H, N, D, out)
+    fn(B, H, N, D, out)
     return dict(kernel=F32_KERNELS[out[0]], q_rows=out[1], key_rows=out[2],
                 stages=out[3], threads=out[4], smem_bytes=out[5],
                 grid=(out[6], out[7], out[8]))
@@ -441,10 +437,10 @@ def _library():
         plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = None
         plan = lib.dsdiff_flash_attention_bf16_plan
-        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = None
         plan = lib.dsdiff_flash_attention_f32_plan
-        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = None
         _lib = lib
     return _lib
@@ -465,15 +461,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse=None):
     """Launch the CUDA kernel once; raises on what it does not take. The
     C entry launches on q's device and that device's current stream.
     ``lse`` (``_launch_lse``): the gradient path's launch, which also
-    writes each row's log-sum-exp there."""
+    writes each row's log-sum-exp there. Above D = 64 q, k and v that no
+    TMA map describes go to the kernel as contiguous copies."""
     global LAUNCHES
     qs, ks, vs = _check(q, k, v)
     B, N, H, D = q.shape
     lib = _library()
+    is_bf16 = _DTYPES[q.dtype]
+    vec = (_vec(q, k, v, (qs, ks, vs)) if is_bf16
+           else _f32_vec(q, k, v, (qs, ks, vs)) if D > 64 else 0)
+    if vec and D > 64:
+        q, k, v = (_tma_operand(x, -(-D // 8) * 8)[..., :D] for x in (q, k, v))
+        qs, ks, vs, vec = q.stride(), k.stride(), v.stride(), 0
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     index = q.device.index
-    is_bf16 = _DTYPES[q.dtype]
-    vec = _vec(q, k, v, (qs, ks, vs)) if is_bf16 else 0
     args = (
         index, B, H, N, k.shape[1], D,
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
@@ -505,10 +506,11 @@ def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _tma_operand(x: torch.Tensor, dp: int) -> torch.Tensor:
-    """x as the backward kernels read it: itself where a TMA tensor map
-    describes it at width ``dp`` (16-byte aligned base, batch, row and head
-    strides positive multiples of 8 elements), else a contiguous copy
-    zero-padded to ``dp`` columns (a head of D = 36)."""
+    """x as a TMA tensor map can describe it: itself where one does at
+    width ``dp`` (16-byte aligned base, batch, row and head strides positive
+    multiples of 8 elements), else a contiguous copy zero-padded to ``dp``
+    columns (the backward kernels' operands: a head of D = 36; the
+    forward's above D = 64)."""
     if (x.shape[3] == dp and x.data_ptr() % 16 == 0
             and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])):
         return x

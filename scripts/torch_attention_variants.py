@@ -109,13 +109,17 @@ VARIANTS = {
     "stages_4": ([("constexpr int wg_stages(int na) { return na == 1 ? 2 : 1; }",
                    "constexpr int wg_stages(int na) { return na == 1 ? 4 : 1; }", 1)],
                  True, BF16, "narrow"),
-    # above 64, attn_fwd_wgmma for TMA layouts too: one warpgroup a 64-row Q tile,
-    # one K/V stage
-    "wgmma_route": ([("return {vec == 0, na, na, ksteps};",
-                    "return {false, na, na, 4 * na};", 1)]
-                  + [(f"launch_wgmma_as<{na}, {4 * na}, {na}, false>(",
-                      f"launch_wgmma<{na}, {4 * na}>(", 1) for na in (2, 3, 4)],
-                  True, BF16, "wide"),
+    # above 64, attn_fwd_wgmma in place of attn_fwd_ws: one warpgroup a
+    # 64-row Q tile, one K/V stage
+    "wgmma_route": ([("return {true, na, na, D <= 80 ? 5 : 4 * na};",
+                      "return {false, na, na, 4 * na};", 1),
+                     ("  if constexpr (!LSE) {  // above 256, TMA layouts only\n",
+                      "  if constexpr (!LSE) {  // above 256, TMA layouts only\n"
+                      + "".join(f"    if (plan.na == {na}) return launch_wgmma_as<"
+                                f"{na}, {4 * na}, {na}, true>(a, ob, B, H, N, M, "
+                                f"D, os, scale_log2, st);\n" for na in (2, 3, 4)),
+                      1)],
+                    True, BF16, "wide"),
     # attn_fwd_ws: the two consumer warpgroups issue their products without
     # taking turns
     "ws_no_pingpong": ([("constexpr bool WS_PINGPONG = true;",
@@ -160,8 +164,8 @@ VARIANTS = {
                       True, BF16, "wide"),
     # attn_fwd_ws: QK^T over 8 k-steps up to D = 80 too (the padding's 48
     # columns of zeros multiplied)
-    "ws_ksteps_8": ([("const int ksteps = vec == 0 && D <= 80 ? 5 : 4 * na;",
-                      "const int ksteps = 4 * na;", 1)], True, BF16, "wide"),
+    "ws_ksteps_8": ([("return {true, na, na, D <= 80 ? 5 : 4 * na};",
+                      "return {true, na, na, 4 * na};", 1)], True, BF16, "wide"),
     # attn_fwd_ws: O stored by the threads straight from the registers
     "ws_thread_stores": ([("      a.o_tma = plan.ws && D % 8 == 0;",
                            "      a.o_tma = 0;", 1)], True, BF16, "wide"),

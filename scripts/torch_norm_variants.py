@@ -104,12 +104,12 @@ def build_variants() -> dict:
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    entries = {"package": fn._library().dsdiff_group_norm_silu}
+    entries = {"package": fn._library().dsdiff_group_norm_film_silu}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {name} did not build:\n{log}")
-        entry = ctypes.CDLL(str(lib)).dsdiff_group_norm_silu
+        entry = ctypes.CDLL(str(lib)).dsdiff_group_norm_film_silu
         entry.argtypes = entries["package"].argtypes
         entry.restype = ctypes.c_int
         entries[name] = entry
@@ -117,8 +117,9 @@ def build_variants() -> dict:
 
 
 def launcher(entry, blocks_per_sm: int = 2):
-    """``fn.group_norm_silu`` with another library's C entry and about
-    ``blocks_per_sm`` blocks per SM (no launch count)."""
+    """``fn.group_norm_silu``'s launch (the C entry's channels-last form,
+    no FiLM) with another library's C entry and about ``blocks_per_sm``
+    blocks per SM (no launch count)."""
     def run(x, scale, bias):
         B, H, W, C = x.shape
         HW, elem = H * W, x.element_size()
@@ -126,16 +127,17 @@ def launcher(entry, blocks_per_sm: int = 2):
         sms = fn._SMS
         fn._SMS = sms * blocks_per_sm // 2  # chunking aims at 2 per SM
         try:
-            rows, chunks = fn.chunking(B, HW, C, 16 // elem if vec else 1)
+            rows, chunks = fn.chunking(B, HW, C, 16 // elem)
         finally:
             fn._SMS = sms
         partials = torch.empty(B * chunks * GROUPS * 2, dtype=torch.float64,
                                device=x.device)
         y = torch.empty_like(x)
-        rc = entry(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                   partials.data_ptr(), y.data_ptr(), fn._DTYPES[x.dtype],
-                   int(vec), x.device.index, B, HW, C, GROUPS, rows, chunks,
-                   1e-5, torch.cuda.current_stream().cuda_stream)
+        rc = entry(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), None,
+                   None, 0, partials.data_ptr(), y.data_ptr(),
+                   fn._DTYPES[x.dtype], int(vec), 1, x.device.index, B, HW, C,
+                   GROUPS, rows, chunks, 1e-5,
+                   torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch failed: {rc}")
         return y

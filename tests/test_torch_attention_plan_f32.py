@@ -26,7 +26,8 @@ CONSUMER_OVERHEAD_REGS = 32
     (257, 384, 12, 32, True), (385, 512, 16, 32, True)])
 def test_every_head_dim_above_64_takes_the_warp_specialised_kernel(
         lo, hi, atoms, keys, split):
-    """64 < D <= 512 on TMA layouts: two consumer warpgroups and a producer
+    """64 < D <= 512 (TMA layouts, or the wrapper's copies of the others):
+    two consumer warpgroups and a producer
     (384 threads), 128 Q rows a block (64 above D = 256, where the two
     consumers split O's columns), an 8-atom ring, everything under the
     block's shared-memory limit and every warpgroup within setmaxnreg's
@@ -72,26 +73,10 @@ def test_head_dims_up_to_64_keep_their_instantiation(D):
     to a multiple of 8, a two-stage cp.async ring of rows padded to
     8 * DK + 4 floats."""
     dk = -(-D // 8)
-    for vec in (0, 1):
-        assert PF.f32_plan(4, 1000, 6, D, vec) == dict(
-            kernel="tf32x3", dk=dk, q_rows=64, key_rows=64, stages=2,
-            consumers=1, threads=128, smem_bytes=5 * 64 * (8 * dk + 4) * 4,
-            grid=(16, 24, 1), split=False)
-
-
-@pytest.mark.parametrize("D, kernel, dk, grid_z", [
-    (65, "tf32x3", 12, 1), (100, "tf32x3", 16, 1), (192, "tf32x3", 24, 1),
-    (256, "tf32x3", 32, 1), (300, "tf32x3_wide", 48, 2),
-    (512, "tf32x3_wide", 64, 2)])
-def test_layouts_no_tensor_map_describes_keep_the_mma_sync_kernels(
-        D, kernel, dk, grid_z):
-    """Above 64, a layout TMA cannot read (vec 1) keeps the kernels of
-    before: one stage of Q, K and V tiles up to 256, and above it two
-    blocks a Q tile, each owning half of O's columns."""
-    plan = PF.f32_plan(2, 200, 3, D, 1)
-    assert (plan["kernel"], plan["dk"], plan["q_rows"]) == (kernel, dk, 64)
-    assert plan["grid"] == (4, 6, grid_z) and plan["stages"] == 1
-    assert plan["smem_bytes"] <= PF.SMEM_LIMIT
+    assert PF.f32_plan(4, 1000, 6, D) == dict(
+        kernel="tf32x3", dk=dk, q_rows=64, key_rows=64, stages=2,
+        consumers=1, threads=128, smem_bytes=5 * 64 * (8 * dk + 4) * 4,
+        grid=(16, 24, 1), split=False)
 
 
 def _heads(B, N, H, D, stride, offset=0, device="cpu", gen=None):
@@ -100,6 +85,29 @@ def _heads(B, N, H, D, stride, offset=0, device="cpu", gen=None):
     flat = torch.randn(offset + B * N * H * stride, generator=gen,
                        device=device)
     return flat[offset:].view(B, N, H, stride)[..., :D]
+
+
+@pytest.mark.parametrize("D, stride, offset, dk, q_rows", [
+    (65, 65, 0, 12, 128), (100, 102, 0, 16, 128), (192, 192, 1, 24, 128),
+    (256, 258, 0, 32, 128), (300, 302, 0, 48, 64), (512, 512, 1, 64, 64)])
+def test_layouts_no_tensor_map_describes_keep_the_mma_sync_kernels(
+        D, stride, offset, dk, q_rows):
+    """Above 64, a layout TMA cannot read (a head stride that is not a
+    multiple of 4 floats, a base one float off) goes to tf32x3_ws as
+    contiguous copies, rows padded to a multiple of 8 floats, which a
+    tensor map describes: the plan of the TMA layouts."""
+    q, k, v = [_heads(2, 200, 3, D, stride, offset)] * 3
+    assert PF._f32_vec(q, k, v, (q.stride(),) * 3) == 1
+    assert PF.f32_load(q, k, v) == "copy"
+    copy = PF._tma_operand(q, -(-D // 8) * 8)[..., :D]
+    assert torch.equal(copy, q) and PF._f32_vec(copy, copy, copy,
+                                                (copy.stride(),) * 3) == 0
+    assert PF.route(q, k, v) == "tf32x3_ws"
+    plan = PF.f32_plan(2, 200, 3, D)
+    assert (plan["kernel"], plan["dk"], plan["q_rows"]) == ("tf32x3_ws", dk,
+                                                           q_rows)
+    assert plan["grid"] == (-(-200 // q_rows), 6, 1)
+    assert plan["smem_bytes"] <= PF.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("make, load, kernel", [
@@ -113,11 +121,11 @@ def _heads(B, N, H, D, stride, offset=0, device="cpu", gen=None):
     (lambda: [_heads(2, 64, 2, 65, 68)] * 3, "tma", "tf32x3_ws"),
     (lambda: [_heads(2, 64, 2, 500, 500)] * 3, "tma", "tf32x3_ws"),
     # what no tensor map describes: head strides of 65 and 130 floats, a
-    # base one float past an aligned address
-    (lambda: torch.zeros(2, 64, 3, 2, 65).unbind(2), "cp.async 4 B", "tf32x3"),
-    (lambda: [_heads(2, 64, 2, 130, 130)] * 3, "cp.async 4 B", "tf32x3"),
-    (lambda: [_heads(2, 64, 2, 192, 192, 1)] * 3, "cp.async 4 B", "tf32x3"),
-    (lambda: [_heads(2, 64, 1, 300, 302)] * 3, "cp.async 4 B", "tf32x3_wide"),
+    # base one float past an aligned address; the wrapper copies them
+    (lambda: torch.zeros(2, 64, 3, 2, 65).unbind(2), "copy", "tf32x3_ws"),
+    (lambda: [_heads(2, 64, 2, 130, 130)] * 3, "copy", "tf32x3_ws"),
+    (lambda: [_heads(2, 64, 2, 192, 192, 1)] * 3, "copy", "tf32x3_ws"),
+    (lambda: [_heads(2, 64, 1, 300, 302)] * 3, "copy", "tf32x3_ws"),
     # D <= 64 is not this route's
     (lambda: torch.zeros(4, 1024, 3, 4, 48).unbind(2), "cp.async 16 B", "tf32x3"),
     (lambda: [_heads(4, 64, 8, 36, 36)] * 3, "cp.async 16 B", "tf32x3"),
@@ -129,11 +137,14 @@ def test_route_follows_the_layout(make, load, kernel):
 
 
 def test_only_a_layout_every_operand_shares_takes_the_tma_kernel():
-    """q aligned and k, v one float off: the kernel needs all three."""
+    """q aligned and k, v one float off: the kernel needs all three, so
+    the wrapper copies them; the kernel is the same."""
     q = _heads(1, 64, 2, 128, 128)
     k = v = _heads(1, 64, 2, 128, 128, 1)
+    assert PF.f32_load(q, q, q) == "tma"
     assert PF.route(q, q, q) == "tf32x3_ws"
-    assert PF.route(q, k, v) == "tf32x3"
+    assert PF.f32_load(q, k, v) == "copy"
+    assert PF.route(q, k, v) == "tf32x3_ws"
 
 
 # ---------------------------------------------------------------------------
@@ -155,16 +166,15 @@ def _cuda():
 @pytest.mark.gpu
 def test_library_plan_matches_the_wrappers_description():
     """``dsdiff_flash_attention_f32_plan`` in the built library against
-    ``f32_plan`` at every head dim, on both layouts: kernel, Q rows, keys
-    a tile, stages, threads, shared memory and grid."""
+    ``f32_plan`` at every head dim: kernel, Q rows, keys a tile, stages,
+    threads, shared memory and grid."""
     _cuda()
     keys = ("kernel", "q_rows", "key_rows", "stages", "threads",
             "smem_bytes", "grid")
-    for vec in (0, 1):
-        for D in range(1, PF.MAX_HEAD_DIM + 1):
-            want = PF.f32_plan(3, 1000, 5, D, vec)
-            got = PF.native_f32_plan(3, 1000, 5, D, vec)
-            assert got == {k: want[k] for k in keys}, (vec, D)
+    for D in range(1, PF.MAX_HEAD_DIM + 1):
+        want = PF.f32_plan(3, 1000, 5, D)
+        got = PF.native_f32_plan(3, 1000, 5, D)
+        assert got == {k: want[k] for k in keys}, D
 
 
 @pytest.mark.gpu
@@ -214,20 +224,25 @@ def test_cuda_warp_specialised_kernel_with_one_hot_v_returns_p(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D, stride, offset, kernel", [
-    (65, 65, 0, "tf32x3"), (130, 130, 0, "tf32x3"), (192, 192, 1, "tf32x3"),
-    (300, 302, 0, "tf32x3_wide"), (512, 512, 1, "tf32x3_wide")])
+@pytest.mark.parametrize("D, stride, offset", [
+    (65, 65, 0), (130, 130, 0), (192, 192, 1), (300, 302, 0), (512, 512, 1)])
 def test_cuda_layouts_no_tensor_map_describes_take_the_planned_kernel(
-        D, stride, offset, kernel):
+        D, stride, offset):
     """Above 64, layouts TMA cannot read launch the kernel ``f32_plan``
-    names (the mma.sync kernels and their 4-byte copies), at ragged N and
-    M, within 2e-5 of the plain version."""
+    names, tf32x3_ws, on the wrapper's copies, at ragged N and M: one
+    launch, the same bits as the kernel on the caller's own contiguous
+    copies, and within 2e-5 of the plain version."""
     g = _cuda().manual_seed(D + stride + offset)
     q = _heads(2, 130, 2, D, stride, offset, "cuda", g)
     k = _heads(2, 77, 2, D, stride, offset, "cuda", g)
     v = _heads(2, 77, 2, D, stride, offset, "cuda", g)
-    assert PF.route(q, k, v) == kernel
+    assert PF.f32_load(q, k, v) == "copy"
+    assert PF.route(q, k, v) == "tf32x3_ws"
+    before = PF.LAUNCHES
     got = PF.flash_attention(q, k, v)
     torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    same = PF.flash_attention(*(x.contiguous() for x in (q, k, v)))
+    assert torch.equal(got, same)
     want = PF.reference_attention(q, k, v)
     assert (got - want).abs().max().item() <= TOL

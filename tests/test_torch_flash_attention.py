@@ -77,7 +77,7 @@ def _tf32(x, nearest=True):
 def _tf32_product(eq, a, b, passes, nearest=True):
     """einsum of f32 a and b as the f32 route's tensor cores compute it:
     one pass hi*hi, or three (lo*hi + hi*lo + hi*hi), with a = hi + lo, hi
-    rounded to nearest (the mma.sync kernels' split) or truncated (the raw
+    rounded to nearest (the mma.sync kernel's split) or truncated (the raw
     word, as tf32x3_ws hands the tensor cores its hi operands), lo read
     truncated. A product of two TF32 values is exact in f32; the sums run
     in f64."""
@@ -101,8 +101,8 @@ def _tf32_product(eq, a, b, passes, nearest=True):
 def test_three_tf32_passes_hold_the_f32_tolerance_and_one_does_not(
         passes, within_tol, hi, D):
     """The f32 route's arithmetic, emulated: S = q k^T and O = P v through
-    TF32 products, softmax in f32. ``nearest``: the mma.sync kernels (D up
-    to 64, and layouts no tensor map describes), q pre-scaled by
+    TF32 products, softmax in f32. ``nearest``: the mma.sync kernel (D up
+    to 64), q pre-scaled by
     log2(e)/sqrt(D) and every hi rounded to nearest; ``truncated``:
     tf32x3_ws (above 64), q k^T of the raw words scaled in the softmax,
     every hi the raw word truncated. Three passes match
@@ -408,9 +408,10 @@ def test_cuda_kernel_takes_heads_of_dense_outputs(B, N, M, H, D, dtype):
     """q, k and v as Dense(H*D) outputs viewed as heads (head stride D, not
     a multiple of 8 elements): DSUNet's cross-attention fusion at C = 96
     (self [4, 64, 8, 36], cross with M = 256) and other widths, ragged N
-    and M included, up to the two-block tiles above D = 256. bf16 loads
-    through the kernel's threads (no TMA map describes a 72-byte head
-    stride), f32 pads D = 36 to 40."""
+    and M included, up to the two-block tiles above D = 256. Up to D = 64
+    bf16 loads through the kernel's threads (no TMA map describes a
+    72-byte head stride), f32 pads D = 36 to 40; above it both take
+    the wrapper's contiguous copies where no map describes the heads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -584,26 +585,30 @@ def _padded_heads(B, N, H, D, stride, offset, gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "D, stride, offset, load",
-    [(100, 100, 0, "cp.async 8 B"), (72, 76, 0, "cp.async 8 B"),
-     (130, 130, 0, "cp.async 4 B"), (192, 200, 1, "ld 2 B"),
-     (256, 260, 0, "cp.async 8 B")],
+    "D, stride, offset",
+    [(100, 100, 0), (72, 76, 0), (130, 130, 0), (192, 200, 1), (256, 260, 0)],
 )
 def test_cuda_thread_loaded_layouts_above_64_keep_the_one_warpgroup_kernel(
-        D, stride, offset, load):
+        D, stride, offset):
     """Layouts no TMA map describes above D = 64 (a head stride that is not
-    a multiple of 8 elements, or an unaligned base) keep ``wgmma``, the
-    kernel whose threads load the tiles, at ragged N and M."""
+    a multiple of 8 elements, or an unaligned base) go to ``wgmma_ws`` as
+    the wrapper's contiguous copies, at ragged N and M: one launch, the
+    same bits as the kernel on the caller's own contiguous copies, and the
+    plain version's output within tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(D + stride + offset)
     q = _padded_heads(2, 130, 2, D, stride, offset, g)
     k = _padded_heads(2, 77, 2, D, stride, offset, g)
     v = _padded_heads(2, 77, 2, D, stride, offset, g)
-    assert PF.bf16_load(q, k, v) == load
-    assert PF.route(q, k, v) == "wgmma"
+    assert PF.bf16_load(q, k, v) == "copy"
+    assert PF.route(q, k, v) == "wgmma_ws"
+    before = PF.LAUNCHES
     got = PF.flash_attention(q, k, v)
     torch.cuda.synchronize()
+    assert PF.LAUNCHES == before + 1
+    same = PF.flash_attention(*(x.contiguous() for x in (q, k, v)))
+    assert torch.equal(got, same)
     want = PF.reference_attention(q, k, v)
     err = (got.float() - want.float()).abs().max().item()
     assert got.shape == (2, 130, 2, D) and err <= GPU_TOL[torch.bfloat16], err
@@ -612,13 +617,12 @@ def test_cuda_thread_loaded_layouts_above_64_keep_the_one_warpgroup_kernel(
 @pytest.mark.gpu
 def test_library_plan_matches_the_wrappers_description():
     """``dsdiff_flash_attention_bf16_plan`` in the built library against
-    ``bf16_plan`` at every head dim and load: kernel, Q rows, stages,
-    threads, shared memory and grid."""
+    ``bf16_plan`` at every head dim: kernel, Q rows, stages, threads,
+    shared memory and grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     keys = ("kernel", "q_rows", "stages", "threads", "smem_bytes", "grid")
-    for vec in (0, 4, 2, 1):
-        for D in range(1, PF.MAX_HEAD_DIM + 1):
-            want = PF.bf16_plan(3, 1000, 5, D, vec)
-            got = PF.native_bf16_plan(3, 1000, 5, D, vec)
-            assert got == {k: want[k] for k in keys}, (vec, D)
+    for D in range(1, PF.MAX_HEAD_DIM + 1):
+        want = PF.bf16_plan(3, 1000, 5, D)
+        got = PF.native_bf16_plan(3, 1000, 5, D)
+        assert got == {k: want[k] for k in keys}, D

@@ -221,3 +221,39 @@ def test_cuda_kernel_keeps_the_variance_where_the_mean_dwarfs_it():
     want = y * torch.sigmoid(y)
     err = (got.double() - want).abs().max().item()
     assert err <= GPU_TOL[torch.float32] * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_op_is_the_film_op_on_the_channels_last_view(dtype):
+    """``group_norm_silu`` is ``group_norm_film_silu`` with no FiLM at eps
+    1e-5 on x's channels-last [B, C, H, W] view: the same bits, the
+    flagship's two-launch shapes, channels no thread's loads keep (an NCHW
+    copy: f32 above 1024) and an unaligned map included; where H * W = 1 or
+    C = 1 the view is also NCHW-contiguous and the NCHW kernels run. Each
+    result is held to the plain version. At H * W = 1 a group holds nine
+    channels, as at the flagship's widest level: with two or three, the
+    plain version's E[x²] - mean² in f32 cancels (the kernels sum in
+    f64), and the two part by more than the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for shape, groups, offset in [((4, 64, 64, 192), 32, 0),
+                                  ((4, 8, 8, 288), 32, 0),
+                                  ((2, 16, 16, 1536), 32, 0),
+                                  ((2, 16, 16, 96), 32, 1),
+                                  ((2, 1, 1, 288), 32, 0), ((2, 4, 4, 1), 1, 0)]:
+        flat = torch.randn(offset + int(np.prod(shape)), generator=g,
+                           device="cuda", dtype=dtype)
+        x = flat[offset:].view(shape)
+        C = shape[-1]
+        s = torch.randn(C, generator=g, device="cuda") * 0.1 + 1.0
+        b = torch.randn(C, generator=g, device="cuda") * 0.1
+        got = PF.group_norm_silu(x, s, b, groups)
+        film = PF.group_norm_film_silu(x.permute(0, 3, 1, 2), s, b, groups,
+                                       eps=1e-5).permute(0, 2, 3, 1)
+        assert got.is_contiguous() and torch.equal(got, film), shape
+        want = PF.group_norm_silu_plain(x, s, b, groups)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = GPU_TOL[dtype] * max(1.0, want.float().abs().max().item())
+        assert err <= tol, (shape, err, tol)
